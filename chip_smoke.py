@@ -4,31 +4,48 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a host with one CUDA GPU (built for an
-H100: the kernel targets sm_90a).  It imports only the port
+H100: the kernels target sm_90a).  It imports only the port
 (``cuda_knearests_tpu_torch``), never JAX or the reference package.  It:
 
   1. prints the card (``nvidia-smi`` name and power limit) and builds the
-     kernel ``csrc/supercell_topk.cu`` from the checkout;
-  2. holds the kernel against its plain torch version on the card, in both
-     output modes, on every class of the 300k/k=50 and 300k clustered plans
-     (whole, or a wide class's largest supercells) and on synthetic packs
-     (k in {1, 10, 50, 128}, exclude_self on and off,
-     rows with fewer than k candidates, a query capacity that is not a
-     multiple of the block's query tile, candidate lists longer than one
-     shared-memory tile, coordinates on a coarse lattice so distance ties
-     are common); d2 and ids must be equal (``torch.equal``);
-  3. runs the main path -- ``KnnProblem.prepare(points).solve()`` then
-     ``get_knearests_original()`` -- on 900k blue noise at k=10 and 300k
-     blue noise at k=50, and a clustered 300k cloud with ring_radius=1 that
-     needs several classes and the exact fallback; each solve must launch
-     the kernel once per class, stay within two host round trips, and agree
-     with scipy's cKDTree on 20,000 sampled rows (tie-aware);
+     three kernels of ``csrc/`` from the checkout, one ``nvcc`` each, all
+     at once, printing their ptxas lines;
+  2. holds each kernel against its plain torch version on the card, equal
+     bit for bit (``torch.equal``; NaN deficit flags in the same places):
+     - ``supercell_topk`` in both output modes on every class of the
+       300k/k=50 and 300k clustered plans (whole, or a wide class's
+       largest supercells) and on synthetic packs (k in {1, 10, 50, 128},
+       exclude_self on and off, rows with fewer than k candidates, ragged
+       query tiles, coarse-lattice ties);
+     - ``blocked_topk`` in both modes on the class packs of 900k/k=10 and
+       300k/k=50, as packed and with candidates crowded in stored-id order
+       (deficit rows), and on synthetic packs at several m;
+     - ``mxu_select`` at d in {1, 3, 17, 128}, k in {1, 10, 50, 128},
+       m in {1, 3, min(k, 128)}, exclude_self on and off, f32 and bf16,
+       n = 1000 and n = 40 < k candidates, 300 and 40 queries;
+  3. runs the grid main path -- ``KnnProblem.prepare(points).solve()`` then
+     ``get_knearests_original()`` -- on 900k blue noise at k=10, 300k blue
+     noise at k=50 and a clustered 300k cloud (ring_radius=1, several
+     classes, exact fallback); each solve must launch the kernel once per
+     class, stay within two host round trips, and agree with scipy's
+     cKDTree on 20,000 sampled rows (tie-aware);
   4. breaks one 900k/k=10 and one 300k/k=50 solve down by device time
      (torch.profiler);
-  5. times the kernel at both blue-noise class shapes against its plain
-     version, a ``torch.cdist`` + ``torch.topk`` yardstick and its bound,
-     and requires the timed kernel's outputs, in both modes, to equal the
-     plain version's (the JSON line carries the 900k/k=10 shape).
+  5. runs the brute route ``mxu.solve_general`` at full width on 300k
+     uniform 3-D points (k=10: f32 exact with the brute refine, then
+     recall targets 0.95/0.8/0.6 unrefined at f32 and bf16) and on 100k
+     uniform points at d=128 (f32 exact refined; f32 and bf16 at 0.9
+     unrefined): one selection launch and at most two host round trips per
+     solve, refined answers exact on sampled rows (cKDTree at d=3, an f64
+     brute force at d=128), every certified sampled row exact, and recall
+     on the sampled rows at least the fold's bound at the 2B band;
+  6. runs the grid main path with ``KnnConfig(kernel='blocked')`` on the
+     900k/k=10 cloud: the blocked kernel launched, deficit rows counted,
+     exact vs cKDTree, and the same distances as the one-stage path;
+  7. times each kernel at its main path's shapes against its plain version
+     (the selection's plain version on 1,024 of the queries), a PyTorch
+     library yardstick and its bound, and requires the timed outputs to
+     equal the plain version's.
 
 Any failed check exits non-zero without printing a result.  The last three
 lines are the card, one JSON object of kernel measurements, and
@@ -50,13 +67,20 @@ import numpy as np
 # package's differential comparator uses.
 RTOL = 1e-4
 ATOL = 1e-2
-# Published peaks of one H100 SXM at its full 700 W power limit.
+# Published peaks of one H100 SXM at its full 700 W power limit: FP32 on
+# the CUDA cores, dense BF16 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 SAMPLE_ROWS = 20_000
 DEV = "cuda"
-REPLACES = "cuda_knearests_tpu/ops/pallas_solve.py:480"
-SOURCE = "cuda_knearests_tpu_torch/csrc/supercell_topk.cu"
+CSRC = "cuda_knearests_tpu_torch/csrc/"
+KERNELS = ("supercell_topk", "blocked_topk", "mxu_select")
+REPLACES = {
+    "supercell_topk": "cuda_knearests_tpu/ops/pallas_solve.py:480",
+    "blocked_topk": "cuda_knearests_tpu/ops/pallas_solve.py:168",
+    "mxu_select": "cuda_knearests_tpu/mxu/kernel.py:59",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -92,7 +116,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# -- phase 2: kernel against its plain version --------------------------------
+def quiet(fn):
+    """Run ``fn`` (launches made to check or time a kernel) and restore
+    every kernel's launch count: only the main paths' launches count."""
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    saved = cs.launches, cs.blocked_launches, mk.launches
+    try:
+        return fn()
+    finally:
+        cs.launches, cs.blocked_launches, mk.launches = saved
+
+
+# -- phase 2: kernels against their plain versions ----------------------------
 
 def synthetic_pack(rng, n_sc: int, qcap: int, ccap: int, max_real_c: int):
     """A random class pack on a coarse lattice (many exact distance ties):
@@ -140,39 +177,55 @@ def row_buffers(n_rows: int, k: int):
 
 
 def require_equal(what: str, got, want) -> float:
-    """Kernel (d2, ids) must equal the plain version's; returns the largest
-    |d2 difference| over finite entries (0 when equal)."""
+    """Kernel outputs must equal the plain version's: the ids (and any
+    further exact arrays, such as certificates) with ``torch.equal``, the
+    distances or scores (first array) with NaN in the same places and
+    equal elsewhere.  Returns the largest |difference| over finite entries
+    (0 when equal)."""
     import torch
 
     torch.cuda.synchronize()
-    (a_d, a_i), (b_d, b_i) = got, want
-    require(torch.equal(a_i, b_i),
-            f"{what}: kernel ids differ from the plain version at "
-            f"{int((a_i != b_i).sum())} entries")
-    require(torch.equal(a_d, b_d),
+    a_d, b_d = got[0], want[0]
+    for n, (a, b) in enumerate(zip(got[1:], want[1:])):
+        require(torch.equal(a, b),
+                f"{what}: kernel output {n + 1} differs from the plain "
+                f"version at {int((a != b).sum())} entries")
+    nan = torch.isnan(b_d)
+    require(torch.equal(torch.isnan(a_d), nan),
+            f"{what}: NaN deficit flags differ at "
+            f"{int((torch.isnan(a_d) != nan).sum())} entries")
+    require(torch.equal(a_d[~nan], b_d[~nan]),
             f"{what}: kernel d2 differs from the plain version at "
-            f"{int((a_d != b_d).sum())} entries")
+            f"{int((a_d[~nan] != b_d[~nan]).sum())} entries")
     fin = torch.isfinite(b_d)
     return float((a_d - b_d)[fin].abs().max()) if bool(fin.any()) else 0.0
 
 
-def compare_modes(name, args, tgt, n_rows, k, exclude_self) -> float:
-    """Kernel vs plain version in both modes; returns the largest
-    |d2 difference| over finite entries (0 when equal)."""
+def compare_modes(name, args, tgt, n_rows, k, exclude_self, m=0) -> float:
+    """Kernel vs plain version in both modes (``m`` > 0: the blocked
+    kernel); returns the largest |d2 difference| over finite entries."""
+    import torch
+
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
-    err = require_equal(f"{name} raw",
-                        cs.supercell_topk(*args, k, exclude_self),
-                        cs.supercell_topk_plain(*args, k, exclude_self))
+    if m:
+        kern = lambda *a, **kw: cs.blocked_topk(*a[:9], m, *a[9:], **kw)  # noqa: E731
+        plain = lambda *a, **kw: cs.blocked_topk_plain(  # noqa: E731
+            *a[:9], m, *a[9:], **kw)
+    else:
+        kern, plain = cs.supercell_topk, cs.supercell_topk_plain
+    raw = quiet(lambda: kern(*args, k, exclude_self))
+    err = require_equal(f"{name} raw", raw, plain(*args, k, exclude_self))
     err = max(err, require_equal(
         f"{name} rows",
-        cs.supercell_topk(*args, k, exclude_self, tgt=tgt,
-                          out=row_buffers(n_rows, k)),
-        cs.supercell_topk_plain(*args, k, exclude_self, tgt=tgt,
-                                out=row_buffers(n_rows, k))))
-    print(f"  {name}: k={k} exclude_self={exclude_self} S={args[0].shape[0]}"
-          f" Q={args[0].shape[1]} C={args[4].shape[1]}: equal in both modes",
-          flush=True)
+        quiet(lambda: kern(*args, k, exclude_self, tgt=tgt,
+                           out=row_buffers(n_rows, k))),
+        plain(*args, k, exclude_self, tgt=tgt, out=row_buffers(n_rows, k))))
+    deficit = (torch.isnan(raw[0][:, k - 1, :]) & (args[3] >= 0)).sum()
+    print(f"  {name}: k={k}{f' m={m}' if m else ''} exclude_self="
+          f"{exclude_self} S={args[0].shape[0]} Q={args[0].shape[1]} "
+          f"C={args[4].shape[1]}: equal in both modes"
+          f"{f'; deficit rows {int(deficit)}' if m else ''}", flush=True)
     return err
 
 
@@ -201,9 +254,21 @@ def class_slices(cp):
     return f"{pick.numel()} supercells", args, tgt
 
 
+def crowded(args):
+    """A pack with each supercell's candidates in stored-id order instead
+    of interleaved: spatial neighbours crowd into one 128-slot block, so
+    the blocked kernel meets deficit rows."""
+    import torch
+
+    order = torch.sort(torch.where(args[7] >= 0, args[7], 2**30),
+                       dim=1).indices
+    return list(args[:4]) + [torch.gather(a, 1, order).contiguous()
+                             for a in args[4:]]
+
+
 def kernel_checks(problems) -> float:
-    """Every class of the prepared problems (whole, or sliced when wide),
-    then synthetic packs."""
+    """supercell_topk: every class of the prepared problems (whole, or
+    sliced when wide), then synthetic packs."""
     rng = np.random.default_rng(2024)
     err = 0.0
     for name, prob, cfg in problems:
@@ -223,21 +288,113 @@ def kernel_checks(problems) -> float:
     return err
 
 
-# -- phase 3/4: the main path --------------------------------------------------
+def blocked_checks(problems) -> float:
+    """blocked_topk: the class packs of the given problems at the m their
+    k and ccap give (as packed and crowded), then synthetic packs at that
+    m, at m=1 and at m=16."""
+    from cuda_knearests_tpu_torch.config import blocked_topm
 
-def check_exact(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
-                k: int, tree) -> None:
-    """Rows of the original-order neighbour table against the kd-tree,
-    tie-aware: valid unique ids, not the query itself, distances realized
-    and equal to the tree's as multisets, and every tree neighbour strictly
-    inside the k-th distance's tolerance band present."""
+    rng = np.random.default_rng(2025)
+    err = 0.0
+    for name, prob, cfg in problems:
+        for ci, cp in enumerate(prob.aplan.classes):
+            m = blocked_topm(cfg.k, cp.ccap)
+            require(m > 0, f"{name} class {ci}: not blocked-eligible")
+            what, args, tgt = class_slices(cp)
+            for layout, pack in (("packed", args), ("crowded",
+                                                    crowded(args))):
+                err = max(err, compare_modes(
+                    f"{name} class {ci} ({what}, {layout})", pack, tgt,
+                    prob.grid.n_points, cfg.k, True, m))
+    for k, n_sc, qcap, ccap, max_c in [(10, 12, 100, 768, 700),
+                                       (30, 8, 96, 1280, 1200),
+                                       (16, 10, 50, 1152, 400)]:
+        args, tgt, n_rows = synthetic_pack(rng, n_sc, qcap, ccap, max_c)
+        for m in sorted({blocked_topm(k, ccap), 1, 16}):
+            for excl in (True, False):
+                err = max(err, compare_modes("synthetic", args, tgt, n_rows,
+                                             k, excl, m))
+    return err
+
+
+def select_checks() -> float:
+    """mxu_select against select_plain at small shapes: every d, k, m,
+    exclude_self and precision of the list, on lattice coordinates (exact
+    ties) and on random ones, with n not a multiple of 128, n < k, and
+    query counts that are not multiples of 128."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    rng = np.random.default_rng(2026)
+    err, n_cmp = 0.0, 0
+    for d in (1, 3, 17, 128):
+        for n, lattice in ((1000, True), (1000, False), (40, False)):
+            pts = (rng.integers(0, 6, (n, d)) * 2.5 if lattice
+                   else rng.random((n, d)) * 100).astype(np.float32)
+            m_q = min(300, n)
+            qid, pts_il, cid_il = select_inputs(pts, m_q, True)
+            args = [torch.as_tensor(a, device=DEV)
+                    for a in (pts[:m_q], qid, pts_il, cid_il)]
+            for precision in ("f32", "bf16"):
+                for k in (1, 10, 50, 128):
+                    for m in sorted({1, 3, min(k, 128)}):
+                        for excl in (True, False):
+                            got = quiet(lambda: mk.select(
+                                *args, k, m, d, excl, precision))
+                            want = ms.select_plain(*args, k, m, d, excl,
+                                                   precision)
+                            err = max(err, require_equal(
+                                f"select d={d} n={n} lattice={lattice} "
+                                f"{precision} k={k} m={m} excl={excl}",
+                                (got[1], got[0], got[2]),
+                                (want[1], want[0], want[2])))
+                            n_cmp += 1
+        print(f"  mxu_select d={d}: equal to select_plain on every listed "
+              f"shape ({n_cmp} comparisons so far)", flush=True)
+    return err
+
+
+# -- phase 3/4: the grid main path ---------------------------------------------
+
+def tree_reference(points: np.ndarray, rows: np.ndarray, k: int, tree):
+    """Exact squared distances (f64) and ids of the k nearest other points
+    of the sampled rows, from the kd-tree."""
     q = points[rows].astype(np.float64)
     dk, ik = tree.query(q, k=k + 1)
     is_self = ik == rows[:, None]
     keep = ~is_self
     keep[~is_self.any(axis=1), -1] = False
-    dk = (dk[keep].reshape(-1, k)) ** 2
-    ik = ik[keep].reshape(-1, k)
+    return (dk[keep].reshape(-1, k)) ** 2, ik[keep].reshape(-1, k)
+
+
+def brute_reference(points: np.ndarray, rows: np.ndarray, k: int):
+    """The same from an f64 brute force on the card (exact differences,
+    any d), for clouds a kd-tree cannot serve."""
+    import torch
+
+    p = torch.as_tensor(points, device=DEV, dtype=torch.float64)
+    dks, iks = [], []
+    for r0 in range(0, rows.size, 8):
+        r = torch.as_tensor(rows[r0:r0 + 8], device=DEV).long()
+        d2 = ((p[r][:, None, :] - p[None, :, :]) ** 2).sum(-1)
+        d2[torch.arange(r.numel(), device=DEV), r] = float("inf")
+        v, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        dks.append(v.cpu().numpy())
+        iks.append(i.cpu().numpy())
+    return np.concatenate(dks), np.concatenate(iks)
+
+
+def check_rows_exact(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
+                     dk: np.ndarray, ik: np.ndarray) -> None:
+    """Rows of the original-order neighbour table against the exact
+    reference (dk squared, ik ids), tie-aware: valid unique ids, not the
+    query itself, distances realized and equal to the reference's as
+    multisets, and every reference neighbour strictly inside the k-th
+    distance's tolerance band present."""
+    q = points[rows].astype(np.float64)
     ids = nbrs[rows]
     require(bool((ids >= 0).all()), "a sampled row has missing neighbours")
     require(bool((ids != rows[:, None]).all()), "a row lists its own point")
@@ -246,48 +403,64 @@ def check_exact(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
             "a row repeats a neighbour")
     dp = ((points[ids].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
     require(bool(np.allclose(np.sort(dp, axis=1), dk, rtol=RTOL, atol=ATOL)),
-            "sampled rows disagree with the kd-tree's distances")
+            "sampled rows disagree with the reference's distances")
     band = ATOL + RTOL * dk[:, -1:]
     must = dk < dk[:, -1:] - band
     for r in np.nonzero(must.any(axis=1))[0]:
         missing = set(ik[r][must[r]].tolist()) - set(ids[r].tolist())
-        require(not missing, f"row {rows[r]} misses kd-tree neighbours "
+        require(not missing, f"row {rows[r]} misses reference neighbours "
                              f"{sorted(missing)}")
 
 
-def main_path(name: str, points: np.ndarray, cfg, runs: int,
-              expect_multi: bool = False):
-    """Prepare once, solve 1 + ``runs`` times, check every solve's launches
-    and round trips, and the answers against the kd-tree."""
+def check_exact(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
+                k: int, tree) -> None:
+    dk, ik = tree_reference(points, rows, k, tree)
+    check_rows_exact(points, nbrs, rows, dk, ik)
+
+
+def prepared(points: np.ndarray, cfg):
+    """(problem, host seconds of ``KnnProblem.prepare`` on the card)."""
     import torch
-    from scipy.spatial import cKDTree
 
     import cuda_knearests_tpu_torch as pt
-    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
-    from cuda_knearests_tpu_torch.runtime import dispatch
 
     t0 = time.perf_counter()
     prob = pt.KnnProblem.prepare(points, cfg, device=DEV)
     torch.cuda.synchronize()
-    prep_s = time.perf_counter() - t0
+    return prob, time.perf_counter() - t0
+
+
+def main_path(name: str, points: np.ndarray, cfg, runs: int, prob,
+              prep_s: float, expect_multi: bool = False,
+              counter: str = "launches"):
+    """Solve a prepared problem 1 + ``runs`` times, check every solve's
+    launches of the class kernel (``counter`` names its count in
+    ops/cuda_solve) and round trips, and the answers against the kd-tree.
+    Returns (launches, median s, pre-fallback certificates)."""
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
     n_cls = len(prob.aplan.classes)
     times, launches, max_syncs = [], 0, 0
+    setattr(cs, counter, 0)
     for i in range(1 + runs):
-        cs.launches = 0
+        before = getattr(cs, counter)
         dispatch.reset_stats()
         t0 = time.perf_counter()
         res = prob.solve()
         dt = time.perf_counter() - t0
         syncs = dispatch.stats().host_syncs
-        require(cs.launches == n_cls,
-                f"{name}: solve launched the kernel {cs.launches} times for "
-                f"{n_cls} classes")
+        done = getattr(cs, counter) - before
+        require(done == n_cls,
+                f"{name}: solve made {done} {counter} for {n_cls} classes")
         require(syncs <= dispatch.SYNC_BUDGET,
                 f"{name}: solve made {syncs} host round trips")
-        launches += cs.launches
         max_syncs = max(max_syncs, syncs)
         if i:
             times.append(dt)
+    launches = getattr(cs, counter)
     n = prob.grid.n_points
     unc = int(res.uncert_count)
     nbrs = prob.get_knearests_original()
@@ -301,10 +474,8 @@ def main_path(name: str, points: np.ndarray, cfg, runs: int,
                 f"{name}: expected several classes and fallback rows, got "
                 f"{n_cls} classes, {unc} fallback rows")
     rng = np.random.default_rng(7)
-    bad = np.empty(0, np.int64)
-    if unc:  # the fallback rows, in original indexing
-        cert = solve_certificates(prob, cfg)
-        bad = prob.get_permutation()[np.nonzero(~cert)[0]].astype(np.int64)
+    cert = solve_certificates(prob, cfg)
+    bad = prob.get_permutation()[np.nonzero(~cert)[0]].astype(np.int64)
     take = bad[rng.permutation(bad.size)[:2000]]
     rest = rng.permutation(n)[: SAMPLE_ROWS - take.size]
     rows = np.unique(np.concatenate([take, rest])).astype(np.int64)
@@ -312,8 +483,7 @@ def main_path(name: str, points: np.ndarray, cfg, runs: int,
     tree = cKDTree(points.astype(np.float64))
     check_exact(points, nbrs, rows, cfg.k, tree)
     med = float(np.median(times))
-    kernel_ms, _ = class_kernel_ms(prob, cfg.k, cfg.exclude_self,
-                                   reps=1 if med > 0.5 else 10)
+    kernel_ms, _ = class_kernel_ms(prob, cfg, reps=1 if med > 0.5 else 10)
     print(f"  {name}: n={n} k={cfg.k} classes={n_cls} "
           f"(qcap, ccap, radius, supercells)="
           f"{[(c.qcap, c.ccap, c.radius, c.n_sc) for c in prob.aplan.classes]}"
@@ -321,66 +491,76 @@ def main_path(name: str, points: np.ndarray, cfg, runs: int,
           f"{med * 1e3:.3f} ms = {n / med:,.0f} queries/s "
           f"(runs ms {[round(t * 1e3, 3) for t in times]}); kernel "
           f"{kernel_ms:.4f} ms per solve (CUDA events)"
-          f"\n    launches per solve {n_cls}; certified fraction "
+          f"\n    {counter} per solve {n_cls}; certified fraction "
           f"{1 - unc / n:.6f}; fallback rows {unc}; host round trips "
           f"{max_syncs} (max over solves, budget {dispatch.SYNC_BUDGET}); "
           f"exact vs cKDTree on {rows.size} rows "
           f"({take.size} of them fallback rows), checked in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return prob, launches, med
+    return launches, med, cert
 
 
-def class_kernel_ms(prob, k: int, exclude_self: bool, reps: int):
-    """Device ms of one solve's kernel launches (mode (a), every class),
-    outside the counted main-path runs, and the (d2, ids) rows they
-    wrote."""
+def class_kernel_ms(prob, cfg, reps: int):
+    """Device ms of one solve's class-kernel launches (mode (a), every
+    class, the kernel ``cfg`` selects), outside the counted main-path
+    runs, and the (d2, ids) rows they wrote."""
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import class_blocked_m
 
-    out = row_buffers(prob.grid.n_points, k)
+    out = row_buffers(prob.grid.n_points, cfg.k)
 
     def kernel():
         for cp in prob.aplan.classes:
-            cs.supercell_topk(*cp.pk.args(), k, exclude_self, tgt=cp.tgt,
-                              out=out)
+            m = class_blocked_m(cfg, cp.ccap)
+            if m:
+                cs.blocked_topk(*cp.pk.args(), cfg.k, m, cfg.exclude_self,
+                                tgt=cp.tgt, out=out)
+            else:
+                cs.supercell_topk(*cp.pk.args(), cfg.k, cfg.exclude_self,
+                                  tgt=cp.tgt, out=out)
 
-    before = cs.launches
-    ms = cuda_ms(kernel, reps)
-    cs.launches = before
-    return ms, out
+    return quiet(lambda: cuda_ms(kernel, reps)), out
 
 
 def solve_certificates(prob, cfg):
     """The pre-fallback certificate mask of one more solve (device side)."""
     from cuda_knearests_tpu_torch.ops.adaptive import solve_adaptive
-    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
-    before = cs.launches
-    cert = solve_adaptive(prob.grid, cfg, prob.aplan).certified.cpu().numpy()
-    cs.launches = before
-    return cert
+    return quiet(lambda: solve_adaptive(prob.grid, cfg, prob.aplan)
+                 .certified.cpu().numpy())
 
 
-# -- phase 5: timing at the main path's class shape -----------------------------
+# -- phase 7: timing at the main path's class shape -----------------------------
 
-def class_timing(name: str, prob, k: int, exclude_self: bool) -> dict:
-    """The kernel over every class of a prepared problem (mode (a), as the
-    solve launches it) against its plain version and a cdist + topk
-    yardstick, with the bound: the larger of the input and output bytes
-    over the HBM rate and the pair arithmetic over the f32 rate.  The
-    timed kernel's outputs, in both modes, must equal the plain
-    version's; returns the timings and the largest |d2 difference|."""
+def class_timing(name: str, prob, cfg) -> dict:
+    """The class kernel ``cfg`` selects over every class of a prepared
+    problem (mode (a), as the solve launches it) against its plain version
+    and a cdist + topk yardstick, with the bound: the larger of the input
+    and output bytes over the HBM rate and the pair arithmetic over the
+    f32 rate.  The timed kernel's outputs, in both modes, must equal the
+    plain version's; returns the timings and the largest |d2
+    difference|."""
     import torch
 
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import class_blocked_m
 
+    k, excl = cfg.k, cfg.exclude_self
     n = prob.grid.n_points
     plain_out = row_buffers(n, k)
     classes = prob.aplan.classes
+    ms_of = [class_blocked_m(cfg, cp.ccap) for cp in classes]
+
+    def run(cp, m, plain=False, **kw):
+        if m:
+            fn = cs.blocked_topk_plain if plain else cs.blocked_topk
+            return fn(*cp.pk.args(), k, m, excl, **kw)
+        fn = cs.supercell_topk_plain if plain else cs.supercell_topk
+        return fn(*cp.pk.args(), k, excl, **kw)
 
     def plain():
-        for cp in classes:
-            cs.supercell_topk_plain(*cp.pk.args(), k, exclude_self,
-                                    tgt=cp.tgt, out=plain_out)
+        for cp, m in zip(classes, ms_of):
+            run(cp, m, plain=True, tgt=cp.tgt, out=plain_out)
 
     stacked = [(torch.stack([cp.pk.qx, cp.pk.qy, cp.pk.qz], dim=-1),
                 torch.stack([cp.pk.cx, cp.pk.cy, cp.pk.cz], dim=-1),
@@ -395,20 +575,16 @@ def class_timing(name: str, prob, k: int, exclude_self: bool) -> dict:
     raw_out = []
 
     def kernel_raw():
-        raw_out[:] = [cs.supercell_topk(*cp.pk.args(), k, exclude_self)
-                      for cp in classes]
+        raw_out[:] = [run(cp, m) for cp, m in zip(classes, ms_of)]
 
-    ms, kernel_out = class_kernel_ms(prob, k, exclude_self, reps=20)
-    before = cs.launches
-    raw_ms = cuda_ms(kernel_raw, 20)
-    cs.launches = before
+    ms, kernel_out = class_kernel_ms(prob, cfg, reps=20)
+    raw_ms = quiet(lambda: cuda_ms(kernel_raw, 20))
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, 3)
     err = require_equal(f"{name} rows (timed)", kernel_out, plain_out)
-    for ci, (cp, got) in enumerate(zip(classes, raw_out)):
-        err = max(err, require_equal(
-            f"{name} class {ci} raw (timed)", got,
-            cs.supercell_topk_plain(*cp.pk.args(), k, exclude_self)))
+    for ci, (cp, m, got) in enumerate(zip(classes, ms_of, raw_out)):
+        err = max(err, require_equal(f"{name} class {ci} raw (timed)", got,
+                                     run(cp, m, plain=True)))
     print(f"  {name}: the timed kernel's outputs equal the plain version's "
           f"in both modes", flush=True)
     in_bytes = sum(a.numel() * a.element_size()
@@ -444,14 +620,19 @@ def solve_breakdown(name: str, prob) -> None:
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
     prob.solve()
-    cs.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prob.solve()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    require(cs.launches == len(prob.aplan.classes),
-            f"{name}: profiled solve launched {cs.launches} kernels")
+
+    def profiled():
+        cs.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prob.solve()
+            wall = (time.perf_counter() - t0) * 1e3
+        require(cs.launches == len(prob.aplan.classes),
+                f"{name}: profiled solve launched {cs.launches} kernels")
+        return prof, wall
+
+    prof, wall_ms = quiet(profiled)
     rows = []
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
@@ -469,6 +650,319 @@ def solve_breakdown(name: str, prob) -> None:
         print(f"    {ms:9.4f} ms  x{count:<3d} {key[:80]}", flush=True)
 
 
+# -- phase 5: the brute route at full width ------------------------------------
+
+def sampled_hits(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
+                 kth: np.ndarray, band=None) -> np.ndarray:
+    """Per sampled row, the returned ids that are true top-k picks, as
+    ``mxu/measure.py`` counts them: exact f64 distance at most the true
+    k-th (``kth``), widened by the row's ``band`` (2B), or without a band
+    tying it at f32 resolution."""
+    q = points[rows].astype(np.float64)
+    ids = nbrs[rows]
+    valid = ids >= 0
+    c = points[np.where(valid, ids, 0)].astype(np.float64)
+    gd = ((c - q[:, None, :]) ** 2).sum(-1)
+    if band is None:
+        hit = ((gd <= kth[:, None])
+               | (gd.astype(np.float32) <= kth[:, None].astype(np.float32)))
+    else:
+        hit = gd <= (kth + band)[:, None]
+    return (valid & hit).sum(axis=1)
+
+
+def declared_band(points: np.ndarray, rows: np.ndarray,
+                  precision: str) -> np.ndarray:
+    """``mxu/measure.declared_band`` on the sampled rows: 2B from f64
+    norms, B = topk.dot_error_bound at the scoring precision."""
+    from cuda_knearests_tpu_torch.mxu.topk import dot_error_bound
+
+    p64 = points.astype(np.float64)
+    qn = (p64[rows] ** 2).sum(axis=1)
+    pn_max = float((p64 * p64).sum(axis=1).max())
+    return 2.0 * dot_error_bound(qn, pn_max, points.shape[1], precision)
+
+
+def split_timers(split: dict):
+    """Wrap the brute route's stages for one solve: the selection kernel
+    timed with CUDA events, the host rescore with the host clock, the
+    exact fallback with the host clock between synchronizations.  Returns
+    the restore function."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import solve as msolve
+
+    saved = {n: getattr(msolve, n) for n in
+             ("kernel", "_host_rescore", "brute_force_by_index",
+              "brute_force_by_coords")}
+
+    class Kernel:
+        @staticmethod
+        def select(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved["kernel"].select(*a, **kw)
+            end.record()
+            end.synchronize()
+            split["select"] = start.elapsed_time(end)
+            return out
+
+    def host(name, fn, sync):
+        def wrapped(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + (time.perf_counter()
+                                                  - t0) * 1e3
+            return out
+        return wrapped
+
+    msolve.kernel = Kernel
+    msolve._host_rescore = host("rescore", saved["_host_rescore"], False)
+    for n in ("brute_force_by_index", "brute_force_by_coords"):
+        setattr(msolve, n, host("fallback", saved[n], True))
+    return lambda: [setattr(msolve, n, f) for n, f in saved.items()]
+
+
+def brute_run(label: str, points: np.ndarray, k: int, rt: float,
+              refine: str, precision: str, runs: int, rows: np.ndarray,
+              ref) -> dict:
+    """``mxu.solve_general`` 1 + ``runs`` times with its checks; the first
+    (not counted in the median) also records the time split: the
+    selection kernel (CUDA events), the host rescore, and the exact
+    fallback of the uncertified rows."""
+    from cuda_knearests_tpu_torch import mxu
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    n, d = points.shape
+    times, max_syncs, split = [], 0, {}
+    before_all = mk.launches
+    for i in range(1 + runs):
+        before = mk.launches
+        restore = split_timers(split) if i == 0 else (lambda: None)
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        try:
+            res = mxu.solve_general(points, k=k, recall_target=rt,
+                                    refine=refine, precision=precision,
+                                    device=DEV)
+        finally:
+            restore()
+        dt = time.perf_counter() - t0
+        syncs = dispatch.stats().host_syncs
+        require(mk.launches == before + 1,
+                f"{label}: solve launched the selection kernel "
+                f"{mk.launches - before} times")
+        require(syncs <= dispatch.SYNC_BUDGET,
+                f"{label}: solve made {syncs} host round trips")
+        max_syncs = max(max_syncs, syncs)
+        if i:
+            times.append(dt)
+        else:
+            split["total"] = dt * 1e3
+    launches = mk.launches - before_all
+    require(res.backend == "cuda" and res.precision == precision,
+            f"{label}: ran {res.backend}/{res.precision}")
+    require(res.neighbors.shape == (n, k) and bool((res.neighbors >= 0)
+                                                   .all()),
+            f"{label}: result shape {res.neighbors.shape} or missing rows")
+    dk, ik = ref
+    kth = dk[:, -1]
+    cert_rows = rows[res.certified[rows]]
+    if refine == "brute":
+        require(bool(res.certified.all()), f"{label}: rows left uncertified")
+        check_rows_exact(points, res.neighbors, rows, dk, ik)
+    exact_hits = sampled_hits(points, res.neighbors, rows, kth)
+    require(bool((exact_hits[res.certified[rows]] == k).all()),
+            f"{label}: a certified sampled row is not exact")
+    band = declared_band(points, rows, precision)
+    recall = float(sampled_hits(points, res.neighbors, rows, kth,
+                                band).sum()) / (k * rows.size)
+    require(recall >= res.bound,
+            f"{label}: recall {recall} on the sampled rows below the bound "
+            f"{res.bound}")
+    med = float(np.median(times))
+    print(f"  {label}: n={n} d={d} k={k} rt={rt} refine={refine} "
+          f"{precision}: solve median of {runs} {med * 1e3:.3f} ms = "
+          f"{n / med:,.0f} queries/s (runs ms "
+          f"{[round(t * 1e3, 3) for t in times]})"
+          f"\n    first solve {split['total']:.3f} ms: select kernel "
+          f"{split['select']:.3f} ms (CUDA events), host rescore "
+          f"{split['rescore']:.3f} ms, fallback "
+          f"{split.get('fallback', 0.0):.3f} ms for "
+          f"{res.uncert_count if refine == 'brute' else 0} rows"
+          f"\n    launches {launches} ({1 + runs} solves); m={res.m} "
+          f"n_blocks={res.n_blocks} bound={res.bound:.6f}; certified "
+          f"fraction {1 - res.uncert_count / n:.6f}; uncert_count "
+          f"{res.uncert_count}; host round trips {max_syncs}; sampled rows "
+          f"{rows.size}: recall at the 2B band {recall:.6f}, certified "
+          f"{cert_rows.size} all exact", flush=True)
+    return dict(launches=launches, m=res.m, median_s=med, **split)
+
+
+def select_timing(label: str, points: np.ndarray, k: int, m: int,
+                  precision: str, rows: np.ndarray) -> tuple:
+    """The selection kernel over all queries at its main path's shape,
+    against its plain version and the kernel itself on 1,024 of the
+    queries (which must agree exactly), a chunked matmul + topk yardstick
+    (f32 without TF32, or a bf16 matmul) and the bound: 2*d operations per
+    (query, candidate) pair over the FP32 (or dense BF16) peak, or the
+    bytes of inputs and outputs over the HBM rate, whichever is larger."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    n, d = points.shape
+    qid, pts_il, cid_il = select_inputs(points, n, True)
+    q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
+                        for a in (points, qid, pts_il, cid_il)]
+    ms_full = quiet(lambda: cuda_ms(
+        lambda: mk.select(q, qid_t, p, cid, k, m, d, True, precision),
+        1 if d > 8 else 3))
+    sub = torch.as_tensor(rows[:1024], device=DEV).long()
+    qs, qids = q[sub].contiguous(), qid_t[sub].contiguous()
+    got = quiet(lambda: mk.select(qs, qids, p, cid, k, m, d, True,
+                                  precision))
+    want = ms.select_plain(qs, qids, p, cid, k, m, d, True, precision)
+    err = require_equal(f"{label} select on {sub.numel()} sampled queries",
+                        (got[1], got[0], got[2]), (want[1], want[0],
+                                                   want[2]))
+    sub_ms = quiet(lambda: cuda_ms(
+        lambda: mk.select(qs, qids, p, cid, k, m, d, True, precision), 3))
+    plain_ms = cuda_ms(lambda: ms.select_plain(qs, qids, p, cid, k, m, d,
+                                               True, precision), 1)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qn = (q * q).sum(1)
+    lib_q = q.to(torch.bfloat16) if precision == "bf16" else q
+    step = max(1, (1 << 30) // (4 * n))
+
+    def library():
+        for r0 in range(0, n, step):
+            prod = (lib_q[r0:r0 + step] @ lib_q.T).float()
+            s = qn[r0:r0 + step, None] + qn[None, :] - 2.0 * prod
+            torch.topk(s, k + 1, dim=1, largest=False)
+
+    try:
+        library_ms = cuda_ms(library, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    flops = 2 * d * n * n
+    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
+    nbytes = (4 * n * d + 4 * pts_il.size + 4 * n + 4 * cid_il.size
+              + 8 * n * k + n)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"  {label}: select kernel {ms_full:.3f} ms over {n} queries; on "
+          f"{sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms (equal outputs); matmul+topk "
+          f"{library_ms:.3f} ms; {flops} ops -> {t_ops:.4f} ms at "
+          f"{peak / 1e12:.0f} TFLOP/s, {nbytes} bytes -> {t_bytes:.4f} ms",
+          flush=True)
+    return {"ms": ms_full, "plain_ms": plain_ms,
+            "plain_queries": int(sub.numel()), "ms_on_plain_queries": sub_ms,
+            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}, err
+
+
+def path_a():
+    """The brute route at full width; returns (selection launches, the
+    timing entries by shape, the largest |score difference| seen)."""
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch.io import generate_uniform
+
+    k = 10
+    launches, timing, err = 0, {}, 0.0
+    rng = np.random.default_rng(11)
+    pts3 = generate_uniform(300_000, seed=300)
+    rows3 = np.sort(rng.permutation(pts3.shape[0])[:SAMPLE_ROWS])
+    ref3 = tree_reference(pts3, rows3, k, cKDTree(pts3.astype(np.float64)))
+    runs3 = [(1.0, "brute", "f32")] + [(rt, "none", p) for rt in
+                                       (0.95, 0.8, 0.6)
+                                       for p in ("f32", "bf16")]
+    m3 = {}
+    for rt, refine, precision in runs3:
+        out = brute_run("300k x 3", pts3, k, rt, refine, precision, 3,
+                        rows3, ref3)
+        launches += out["launches"]
+        m3.setdefault(precision, out["m"])
+    gen = np.random.default_rng(128)
+    pts128 = (gen.random((100_000, 128)) * 100).astype(np.float32)
+    rows128 = np.sort(rng.permutation(pts128.shape[0])[:2000])
+    ref128 = brute_reference(pts128, rows128, k)
+    m128 = {}
+    for rt, refine, precision in ((1.0, "brute", "f32"), (0.9, "none", "f32"),
+                                  (0.9, "none", "bf16")):
+        out = brute_run("100k x 128", pts128, k, rt, refine, precision, 3,
+                        rows128, ref128)
+        launches += out["launches"]
+        m128.setdefault(precision, out["m"])
+    phase("timing the selection kernel")
+    timing["300k x 3 f32"], e = select_timing("300k x 3 f32", pts3, k,
+                                              m3["f32"], "f32", rows3)
+    err = max(err, e)
+    for precision in ("f32", "bf16"):
+        label = f"100k x 128 {precision}"
+        timing[label], e = select_timing(label, pts128, k, m128[precision],
+                                         precision, rows128)
+        err = max(err, e)
+    return launches, timing, err
+
+
+# -- phase 6: the grid path with the blocked kernel ----------------------------
+
+def path_b(points: np.ndarray, kpass_prob) -> tuple:
+    """The 900k/k=10 main path with kernel='blocked': blocked launches,
+    deficit rows, exactness, and the one-stage path's distances (ids equal
+    but inside exact distance ties)."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import (class_blocked_m,
+                                                       solve_adaptive)
+
+    cfg = pt.KnnConfig(k=10, kernel="blocked")
+    prob, prep_s = prepared(points, cfg)
+    require(all(class_blocked_m(cfg, cp.ccap) for cp in prob.aplan.classes),
+            "900k/k=10 blocked: a class is not blocked-eligible")
+    kpass_launches = cs.launches
+    launches, _, cert = main_path("900k blocked", points, cfg, 3, prob,
+                                  prep_s, counter="blocked_launches")
+    require(cs.launches == kpass_launches,
+            "900k blocked: the one-stage kernel ran on the blocked path")
+    raw = quiet(lambda: solve_adaptive(prob.grid, cfg, prob.aplan))
+    deficit = int(torch.isnan(raw.dists_sq[:, cfg.k - 1]).sum())
+    a_d, b_d = prob.get_dists_sq(), kpass_prob.get_dists_sq()
+    require(np.array_equal(a_d, b_d),
+            "900k blocked: distances differ from the one-stage path")
+    a_i, b_i = prob.get_knearests(), kpass_prob.get_knearests()
+    for r, c in zip(*np.nonzero(a_i != b_i)):
+        require(int((a_d[r] == a_d[r, c]).sum()) > 1,
+                f"900k blocked: row {r} column {c} differs from the "
+                f"one-stage path outside a distance tie")
+    print(f"  900k blocked: m={[class_blocked_m(cfg, cp.ccap) for cp in prob.aplan.classes]}"
+          f"; deficit rows {deficit}; uncertified rows {int((~cert).sum())}; "
+          f"distances equal to the one-stage path's, ids equal but "
+          f"{int((a_i != b_i).sum())} entries inside distance ties",
+          flush=True)
+    return prob, cfg, launches
+
+
+_T0 = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    print(f"phase: {name} [{time.perf_counter() - _T0:.1f} s]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -479,49 +973,85 @@ def main() -> int:
     import cuda_knearests_tpu_torch as pt
     from cuda_knearests_tpu_torch.io import (generate_blue_noise,
                                              generate_clustered)
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.load("supercell_topk")
-    print(f"build: supercell_topk.cu in {time.perf_counter() - t0:.1f} s",
+    _build.load_all(KERNELS)
+    print(f"build: {', '.join(f'{n}.cu' for n in KERNELS)} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
           flush=True)
-    for line in _build.BUILD_LOGS.get("supercell_topk", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name in KERNELS:
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    print("phase: main-path problems", flush=True)
+    phase("main-path problems")
     pts900 = generate_blue_noise(900_000, seed=900)
     pts300 = generate_blue_noise(300_000, seed=301)
     pts_cl = generate_clustered(300_000, seed=5)
     cfg10, cfg50 = pt.KnnConfig(k=10), pt.KnnConfig(k=50)
     cfg_cl = pt.KnnConfig(k=10, ring_radius=1)
-    checked = [(name, pt.KnnProblem.prepare(pts, cfg, device=DEV), cfg)
-               for name, pts, cfg in (("300k/k=50", pts300, cfg50),
-                                      ("300k clustered", pts_cl, cfg_cl))]
+    prob10, prep10 = prepared(pts900, cfg10)
+    prob50, prep50 = prepared(pts300, cfg50)
+    prob_cl, prep_cl = prepared(pts_cl, cfg_cl)
 
-    print("phase: kernel against its plain version on the card", flush=True)
-    max_err = kernel_checks(checked)
-    del checked
+    phase("kernels against their plain versions on the card")
+    max_err = {"supercell_topk": kernel_checks(
+        [("300k/k=50", prob50, cfg50), ("300k clustered", prob_cl, cfg_cl)])}
+    max_err["blocked_topk"] = blocked_checks(
+        [("900k/k=10", prob10, cfg10), ("300k/k=50", prob50, cfg50)])
+    max_err["mxu_select"] = select_checks()
 
-    print("phase: main path", flush=True)
-    prob10, launches, _ = main_path("900k blue noise", pts900, cfg10, runs=5)
-    prob50, _, _ = main_path("300k blue noise", pts300, cfg50, runs=5)
-    main_path("300k clustered", pts_cl, cfg_cl, runs=2, expect_multi=True)
+    phase("grid main path")
+    launches, _, _ = main_path("900k blue noise", pts900, cfg10, 3, prob10,
+                               prep10)
+    main_path("300k blue noise", pts300, cfg50, 3, prob50, prep50)
+    main_path("300k clustered", pts_cl, cfg_cl, 2, prob_cl, prep_cl,
+              expect_multi=True)
+    del prob_cl
 
-    print("phase: where one solve's device time goes", flush=True)
+    phase("where one solve's device time goes")
     solve_breakdown("900k/k=10", prob10)
     solve_breakdown("300k/k=50", prob50)
 
-    print("phase: timing at the main path's class shapes", flush=True)
-    timing, err10 = class_timing("900k/k=10", prob10, 10, True)
-    _, err50 = class_timing("300k/k=50", prob50, 50, True)
+    phase("brute route at full width")
+    mk.launches = 0
+    select_launches, select_timings, err = path_a()
+    require(mk.launches == select_launches > 0,
+            "brute route: selection launches miscounted")
+    max_err["mxu_select"] = max(max_err["mxu_select"], err)
 
-    kernels = [dict(name="supercell_topk", route="cuda", source=SOURCE,
-                    replaces=REPLACES, launches=launches,
-                    max_abs_err=max(max_err, err10, err50), **timing)]
+    phase("grid main path with the blocked kernel")
+    prob_b, cfg_b, blocked_launches = path_b(pts900, prob10)
+    require(blocked_launches > 0, "the blocked path launched no kernel")
+
+    phase("timing at the main paths' class shapes")
+    timing, err10 = class_timing("900k/k=10", prob10, cfg10)
+    _, err50 = class_timing("300k/k=50", prob50, cfg50)
+    blocked_timing, err_b = class_timing("900k/k=10 blocked", prob_b, cfg_b)
+
+    kernels = [
+        dict(name="supercell_topk", route="cuda",
+             source=CSRC + "supercell_topk.cu",
+             replaces=REPLACES["supercell_topk"], launches=launches,
+             max_abs_err=max(max_err["supercell_topk"], err10, err50),
+             **timing),
+        dict(name="blocked_topk", route="cuda",
+             source=CSRC + "blocked_topk.cu",
+             replaces=REPLACES["blocked_topk"], launches=blocked_launches,
+             max_abs_err=max(max_err["blocked_topk"], err_b),
+             **blocked_timing),
+        dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
+             replaces=REPLACES["mxu_select"], launches=select_launches,
+             max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
+             **select_timings["100k x 128 f32"]),
+    ]
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 
 The all-points k-nearest-neighbour engine on an NVIDIA GPU: a uniform-grid
 spatial hash built by one stable sort, adaptive supercell capacity classes,
-a hand-written CUDA top-k kernel per class (``csrc/supercell_topk.cu``),
-per-row completeness certificates and an exact brute-force fallback.
-Entry points run on the GPU unless ``device='cpu'`` is passed.
+a hand-written CUDA top-k kernel per class (``csrc/supercell_topk.cu``, or
+the two-stage ``csrc/blocked_topk.cu`` under ``kernel='blocked'``), per-row
+completeness certificates and an exact brute-force fallback.  Point sets
+of any dimension take the brute route, :mod:`cuda_knearests_tpu_torch.mxu`
+(``csrc/mxu_select.cu``).  Entry points run on the GPU unless
+``device='cpu'`` is passed.
 """
 
 from .api import KnnProblem, knn, load_problem

@@ -1,9 +1,10 @@
 """Runtime configuration of the PyTorch/CUDA kNN engine.
 
-Counterpart of ``cuda_knearests_tpu/config.py``: the same grid constants and
-the fields of ``KnnConfig`` that the all-points main path reads.  Fields the
-reference package has but this port does not honour yet are still accepted
-at their default value, so a configuration written by the reference package
+Counterpart of ``cuda_knearests_tpu/config.py``: the same grid constants,
+the fields of ``KnnConfig`` that the grid route reads, and the resolution
+rules of the scorer, precision and kernel knobs.  Fields the reference
+package has but the grid route does not honour are still accepted at their
+default value, so a configuration written by the reference package
 (``load_problem``) reads back; any other value raises
 :class:`InvalidConfigError` at construction.  A knob is never silently
 ignored.
@@ -41,20 +42,22 @@ def default_ring_radius(k: int, density: float = DEFAULT_CELL_DENSITY) -> int:
     return max(1, int(math.ceil(r_expect)) + 1)
 
 
-# Reference-package fields this slice does not honour, with the one value
-# each accepts (the reference's default, or the value meaning "exact grid
-# route").  Anything else is refused with the reason.
+# Reference-package fields the grid route does not honour, with the
+# values each accepts (the reference's default, or the value meaning
+# "exact grid route").  Anything else is refused with the reason.
 _UNSUPPORTED = {
     "scorer": (("auto", "elementwise"),
-               "the MXU/approximate scorer is not ported yet"),
-    "recall_target": ((1.0,), "approximate search (recall_target < 1) is "
-                              "not ported yet"),
+               "the grid route's MXU class scorer is not ported yet; the "
+               "brute route (mxu.solve_general) has the MXU scorer"),
+    "recall_target": ((1.0,), "approximate search (recall_target < 1) on "
+                              "the grid route is not ported yet; the brute "
+                              "route (mxu.solve_general) has it"),
     "backend": (("auto",), "only the grid engine with the CUDA kernel is "
                            "ported ('oracle' and 'xla' are not)"),
-    "kernel": (("kpass", "auto"), "the blocked two-stage kernel is not "
-                                  "ported yet"),
-    "precision": (("auto", "f32"), "reduced-precision scoring is not "
-                                   "ported yet"),
+    "kernel": (("kpass", "auto", "blocked"), "unknown kernel"),
+    "precision": (("auto", "f32"), "reduced-precision scoring on the grid "
+                                   "route is not ported yet; the brute "
+                                   "route (mxu.solve_general) has it"),
     "plane_feed": ((False,), "the Voronoi plane feed is not ported yet"),
     "adaptive": ((True,), "only the adaptive class schedule is ported"),
     "dist_method": (("diff",), "only 'diff' distance arithmetic is ported"),
@@ -77,6 +80,10 @@ class KnnConfig:
       fallback: 'brute' resolves uncertified rows exactly; 'none' leaves
         them best-effort.
       max_classes: cap on adaptive capacity classes (one launch each).
+      kernel: the selection kernel of each class: 'kpass' (or 'auto') the
+        one-stage supercell top-k, 'blocked' the two-stage per-block top-m
+        kernel where ``blocked_topm`` finds the class eligible.  Solvers
+        read ``effective_kernel()``, not this field.
 
     The remaining fields exist so that configurations of the reference
     package read back; each accepts only the values this port honours.
@@ -113,3 +120,81 @@ class KnnConfig:
             raise InvalidConfigError(
                 f"supercell and max_classes must be >= 1, got "
                 f"supercell={self.supercell} max_classes={self.max_classes}")
+
+    def effective_kernel(self) -> str:
+        """The kernel string solvers resolve from.  fallback='none' pins
+        blocked/auto to 'kpass': blocked deficit rows resolve through the
+        exact fallback, and without one they would lose their trailing
+        entries where kpass keeps the exact row."""
+        if self.fallback == "none" and self.kernel in ("blocked", "auto"):
+            return "kpass"
+        return self.kernel
+
+
+def resolve_scorer(scorer: str, recall_target: float,
+                   precision: str = "auto") -> str:
+    """'auto' -> 'mxu' below a 1.0 recall target or under a reduced
+    scoring precision (only the MXU engine has either), 'elementwise' at
+    exactly 1.0/f32.  Explicit scorers pass through; 'elementwise' with a
+    sub-1.0 target is refused (the exact path cannot honour an
+    approximation budget)."""
+    if scorer not in ("auto", "mxu", "elementwise"):
+        raise ValueError(
+            f"unknown scorer {scorer!r}: expected 'auto', 'mxu' or "
+            f"'elementwise'")
+    r = float(recall_target)
+    if not (0.0 < r <= 1.0):
+        raise ValueError(
+            f"recall_target must lie in (0, 1], got {recall_target!r} "
+            f"(1.0 = exact; the TPU-KNN bound is meaningless outside)")
+    if scorer == "elementwise" and r < 1.0:
+        raise ValueError(
+            f"scorer='elementwise' computes exact top-k only; "
+            f"recall_target={r} needs scorer='mxu' (or 'auto')")
+    if scorer == "auto":
+        return "mxu" if (r < 1.0 or precision == "bf16") else "elementwise"
+    return scorer
+
+
+def resolve_precision(precision: str, scorer_resolved: str = "mxu") -> str:
+    """'auto' -> 'f32': reduced precision is an opt-in speed knob, never a
+    silent accuracy change.  Explicit tiers pass ``mxu.topk.PRECISIONS``
+    validation; 'bf16' with the elementwise scorer is refused (that path
+    has no reduced-precision mode)."""
+    from .mxu.topk import check_precision
+
+    if precision == "auto":
+        return "f32"
+    check_precision(precision)
+    if precision != "f32" and scorer_resolved == "elementwise":
+        raise ValueError(
+            f"precision={precision!r} needs the MXU scorer; the elementwise "
+            f"path has no reduced-precision mode (set scorer='mxu' or leave "
+            f"it 'auto')")
+    return precision
+
+
+def blocked_topm(k: int, ccap: int) -> int:
+    """Per-block kept count m of the 'blocked' kernel, or 0 when the
+    blocked route is ineligible for this (k, ccap): it needs at least two
+    128-slot blocks and a survivor pool (m * blocks) covering k three
+    times over (a pool close to k flags almost every row as a deficit)."""
+    g = ccap // 128
+    if ccap % 128 != 0 or g < 2:
+        return 0
+    m = min(max(-(-k // g) + 4, -(-3 * k // g)), 16)
+    return m if m * g >= 3 * k else 0
+
+
+def resolve_kernel(kernel: str, k: int, ccap: int) -> str:
+    """'auto' -> 'kpass'; 'blocked' stays explicit-request-only and
+    degrades to 'kpass' on a shape ``blocked_topm`` finds ineligible."""
+    if kernel not in ("auto", "blocked", "kpass"):
+        raise ValueError(
+            f"unknown kernel {kernel!r}: expected 'auto', 'blocked' or "
+            f"'kpass'")
+    if kernel == "auto":
+        return "kpass"
+    if kernel == "blocked" and not blocked_topm(k, ccap):
+        return "kpass"
+    return kernel

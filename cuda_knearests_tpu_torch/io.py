@@ -64,14 +64,19 @@ def normalize_points(points: np.ndarray,
 
 def validate_or_raise(points, k: Optional[int] = None,
                       domain: float = DOMAIN_SIZE,
-                      what: str = "points") -> np.ndarray:
+                      what: str = "points",
+                      dims: Optional[Tuple[int, ...]] = (3,)) -> np.ndarray:
     """The input front door of every entry point.
 
-    Legal input: a (n, 3) array of finite coordinates inside
-    ``[0, domain]^3`` (n = 0 is legal), and ``k`` (when given) a positive
-    integer (k > n is legal: rows pad -1/inf).  Anything else raises the
-    typed taxonomy of ``utils/memory.py``.  Returns the validated
-    contiguous float32 array.
+    Legal input: a (n, d) array of finite coordinates with d drawn from
+    ``dims`` (n = 0 is legal), and ``k`` (when given) a positive integer
+    (k > n is legal: rows pad -1/inf).  The default ``dims=(3,)`` is the
+    grid contract: three axes, inside ``[0, domain]^3``; other widths are
+    refused with a pointer at the brute route (``mxu.solve_general``).
+    ``dims=None`` is the brute route's contract: any d >= 1 and no domain
+    check (finiteness still holds).  Anything else raises the typed
+    taxonomy of ``utils/memory.py``.  Returns the validated contiguous
+    float32 array.
     """
     if k is not None:
         if isinstance(k, bool) or not isinstance(k, (int, np.integer)):
@@ -86,11 +91,19 @@ def validate_or_raise(points, k: Optional[int] = None,
     except (TypeError, ValueError) as e:
         raise InvalidShapeError(
             f"{what} are not a numeric array: {e} (input contract: "
-            f"(n, 3) finite float coordinates)") from e
-    if points.ndim != 2 or points.shape[1] != 3:
+            f"(n, d) finite float coordinates)") from e
+    if points.ndim != 2 or points.shape[1] < 1:
         raise InvalidShapeError(
-            f"{what} must be a 2-d (n, 3) array, got shape {points.shape} "
-            f"(input contract: the spatial hash linearizes three axes)")
+            f"{what} must be a 2-d (n, d) array, got shape {points.shape} "
+            f"(input contract)")
+    if dims is not None and points.shape[1] not in dims:
+        want = dims[0] if len(dims) == 1 else f"one of {dims}"
+        raise InvalidShapeError(
+            f"{what} are (n, {points.shape[1]}) but the grid-route input "
+            f"contract is (n, {want}) -- the spatial hash linearizes "
+            f"exactly that many axes; general-d point sets run on the brute "
+            f"route instead (cuda_knearests_tpu_torch.mxu.knn / "
+            f"mxu.solve_general)")
     if points.size:
         if not np.isfinite(points).all():
             bad = int((~np.isfinite(points)).sum())
@@ -98,7 +111,7 @@ def validate_or_raise(points, k: Optional[int] = None,
                 f"{what} contain {bad} NaN/inf coordinate(s); clean the "
                 f"input first (input contract: finite f32)")
         lo, hi = float(points.min()), float(points.max())
-        if lo < 0.0 or hi > domain:
+        if dims is not None and (lo < 0.0 or hi > domain):
             raise DomainBoundsError(
                 f"{what} span [{lo:.3g}, {hi:.3g}] but the engine domain "
                 f"contract is [0, {domain:g}]^3 -- run io.normalize_points "

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source has a plain C interface.  At first use it is
 compiled with ``nvcc`` into ``build/`` at the root of the checkout, under a
 name keyed by a hash of the source and the flags, and loaded with
 ``ctypes``; later processes reuse the library while the source is
-unchanged.  Any build or load failure raises :class:`KernelBuildError`.
+unchanged.  :func:`load_all` builds several sources at once, one ``nvcc``
+process each.  Any build or load failure raises :class:`KernelBuildError`.
 Nothing here runs at import time.
 """
 
@@ -61,26 +62,42 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    return load_all([name])[0]
+
+
+def load_all(names) -> list:
+    """The loaded libraries of ``csrc/<name>.cu`` for every name, building
+    the missing ones with one ``nvcc`` process each, all started together."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        out = library_path(name)
-        if not out.exists():
+        builds = []
+        for name in names:
+            out = library_path(name)
+            if name in _LIBS or out.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(_CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            builds.append((name, out, tmp, cmd, proc))
+        failed = []
+        for name, out, tmp, cmd, proc in builds:
+            BUILD_LOGS[name] = proc.communicate()[0]
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise KernelBuildError(
-                    f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{BUILD_LOGS[name]}")
-            os.replace(tmp, out)
-        try:
-            lib = ctypes.CDLL(str(out))
-        except OSError as e:
-            raise KernelBuildError(f"cannot load {out}: {e}") from e
-        _LIBS[name] = lib
-        return lib
+                failed.append(f"nvcc failed on {name}.cu (rc "
+                              f"{proc.returncode}):\n{' '.join(cmd)}\n"
+                              f"{BUILD_LOGS[name]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        for name in names:
+            if name not in _LIBS:
+                path = library_path(name)
+                try:
+                    _LIBS[name] = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise KernelBuildError(f"cannot load {path}: {e}") from e
+        return [_LIBS[name] for name in names]

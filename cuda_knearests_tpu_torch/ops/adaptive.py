@@ -19,8 +19,10 @@ time, on the host:
 
 A solve is then one kernel launch per class writing rows straight into the
 final (n, k) buffers, plus the box-margin certificate of every row.  On
-Hopper the kernel streams candidates through shared memory, so no class is
-too wide for it: every class takes the kernel.
+Hopper the kernels stream candidates through shared memory, so no class is
+too wide for them: every class takes a kernel -- the one-stage
+``supercell_topk``, or ``blocked_topk`` where ``config.resolve_kernel``
+gives 'blocked'.
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..config import KnnConfig, default_ring_radius
+from ..config import (KnnConfig, blocked_topm, default_ring_radius,
+                      resolve_kernel)
 from ..utils.memory import LaunchBudgetError
-from .cuda_solve import (ClassPack, hbm_budget_bytes, pack_bytes,
-                         pack_inputs, pick_q_tile, supercell_topk)
+from .cuda_solve import (ClassPack, blocked_topk, hbm_budget_bytes,
+                         pack_bytes, pack_inputs, pick_q_tile,
+                         supercell_topk)
 from .gridhash import GridHash
 from .rings import ring_occupancy
 from .solve import (KnnResult, _box_cell_ids, _boxes_grid, _margin_sq,
@@ -160,6 +164,14 @@ def plan_class_specs(counts: np.ndarray, dim: int, cfg: KnnConfig):
     return sc, build_class_specs(pts_cum[:, 0], pts_cum, radii, cfg)
 
 
+def class_blocked_m(cfg: KnnConfig, ccap: int) -> int:
+    """The blocked kernel's m for a class of candidate capacity ``ccap``,
+    or 0 when the class runs the one-stage kernel."""
+    if resolve_kernel(cfg.effective_kernel(), cfg.k, ccap) == "blocked":
+        return blocked_topm(cfg.k, ccap)
+    return 0
+
+
 def _preflight(specs, k: int, n: int, device: torch.device) -> None:
     """Refuse a plan whose packs and outputs would not fit the device's
     memory, before anything is allocated (demotion to a streamed route is
@@ -187,8 +199,8 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
     counts = (np.asarray(cell_counts_host) if cell_counts_host is not None
               else grid.cell_counts.cpu().numpy())
     sc, specs = plan_class_specs(counts, dim, cfg)
-    for spec in specs:
-        pick_q_tile(k, spec.qcap)  # refuses a k one block cannot hold
+    for spec in specs:  # refuses a k one block cannot hold
+        pick_q_tile(k, spec.qcap, class_blocked_m(cfg, spec.ccap))
     _preflight(specs, k, grid.n_points, device)
 
     w = grid.domain / dim
@@ -255,7 +267,8 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
                    plan: AdaptivePlan | None = None) -> KnnResult:
     """All-points kNN over the class schedule: one kernel launch per class
     (rows land in their final place), then the certificate of every row
-    from its raw k-th distance.  Results stay on the device, in sorted
+    from its raw k-th distance -- a blocked deficit row's NaN there fails
+    it (NaN <= margin is false).  Results stay on the device, in sorted
     indexing; uncertified rows are left for the api's exact fallback."""
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
@@ -265,8 +278,13 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
                        device=device)
     out_i = torch.full((n, k), INVALID_ID, dtype=torch.int32, device=device)
     for cp in plan.classes:
-        supercell_topk(*cp.pk.args(), k, cfg.exclude_self, tgt=cp.tgt,
-                       out=(out_d, out_i))
+        m = class_blocked_m(cfg, cp.ccap)
+        if m:
+            blocked_topk(*cp.pk.args(), k, m, cfg.exclude_self, tgt=cp.tgt,
+                         out=(out_d, out_i))
+        else:
+            supercell_topk(*cp.pk.args(), k, cfg.exclude_self, tgt=cp.tgt,
+                           out=(out_d, out_i))
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)

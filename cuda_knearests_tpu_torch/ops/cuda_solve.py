@@ -1,5 +1,5 @@
-"""Kernel inputs and the supercell top-k: CUDA kernel wrapper and its plain
-torch version.
+"""Kernel inputs and the supercell top-k kernels: CUDA wrappers and their
+plain torch versions.
 
 Counterpart of ``cuda_knearests_tpu/ops/pallas_solve.py``.  A capacity class
 is packed once at prepare time (:func:`pack_inputs`): per supercell, its
@@ -17,6 +17,13 @@ final (n, k) buffers at row ``tgt[slot]`` (pad slots carry an out-of-range
 sentinel and are skipped): the reference's scatter epilogue fused into the
 launch.  Mode (b) returns the raw (S, k, Q) layout of the reference's
 ``_kernel``.  Missing neighbours are ``(inf, -1)`` in both.
+
+:func:`blocked_topk` (``csrc/blocked_topk.cu``, the reference's
+``_kernel_blocked``) takes the same packs and modes and makes the same
+selection in two stages: each 128-slot candidate block keeps its first m,
+the row is the first k of that pool, and a row where some block rejected a
+candidate nearer than the k-th entry (a deficit) carries NaN at column
+k-1.  :func:`blocked_topk_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -49,34 +56,40 @@ _HBM_BUDGET_FRACTION = 0.8
 # (query, candidate) pairs per chunk of the plain version.
 _PLAIN_CHUNK_PAIRS = 1 << 24
 
-# Kernel launches made by supercell_topk (CUDA tensors only).
+# Kernel launches made by supercell_topk and by blocked_topk (CUDA tensors
+# only).
 launches = 0
+blocked_launches = 0
 
 
 class KernelLaunchError(RuntimeError):
     """The CUDA launch returned an error (refused or failed to start)."""
 
 
-def smem_bytes(k: int, q_tile: int) -> int:
+def smem_bytes(k: int, q_tile: int, m: int = 0) -> int:
     """Shared memory of one block: the candidate tile plus each thread's
-    (d2, id) list of length k."""
-    return 4 * _CAND_TILE * 4 + 2 * k * q_tile * 4
+    (d2, id) lists, of length k (and m for the blocked kernel's block
+    list)."""
+    return 4 * _CAND_TILE * 4 + 2 * (k + m) * q_tile * 4
 
 
-def pick_q_tile(k: int, qcap: int) -> int:
+def pick_q_tile(k: int, qcap: int, m: int = 0) -> int:
     """Query slots per block: the widest tile (at most qcap rounded up to a
-    warp) whose per-thread lists fit shared memory.  Raises
-    :class:`LaunchBudgetError` when even one warp's lists do not fit."""
+    warp) whose per-thread lists fit shared memory (``m`` > 0: the blocked
+    kernel's).  Raises :class:`LaunchBudgetError` when even one warp's
+    lists do not fit."""
     for qt in _Q_TILES:
-        if smem_bytes(k, qt) <= SMEM_LIMIT:
+        if smem_bytes(k, qt, m) <= SMEM_LIMIT:
             return min(qt, max(32, -(-qcap // 32) * 32))
+    site = "blocked_topk" if m else "supercell_topk"
     raise LaunchBudgetError(
-        f"k={k} needs {smem_bytes(k, _Q_TILES[-1])} bytes of shared memory "
-        f"for one 32-query block, above the {SMEM_LIMIT}-byte limit of a "
-        f"Hopper block (largest supported k: "
-        f"{(SMEM_LIMIT - smem_bytes(0, 32)) // (8 * 32)})",
-        requested=smem_bytes(k, _Q_TILES[-1]), budget=SMEM_LIMIT,
-        site="supercell_topk")
+        f"k={k}{f', m={m}' if m else ''} needs "
+        f"{smem_bytes(k, _Q_TILES[-1], m)} bytes of shared memory for one "
+        f"32-query block, above the {SMEM_LIMIT}-byte limit of a Hopper "
+        f"block (largest supported k: "
+        f"{(SMEM_LIMIT - smem_bytes(0, 32, m)) // (8 * 32)})",
+        requested=smem_bytes(k, _Q_TILES[-1], m), budget=SMEM_LIMIT,
+        site=site)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,16 +199,15 @@ def _check_rows(tgt, out, s_total, qcap, k, device):
     return out_d, out_i, n_rows
 
 
-def supercell_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
-                         exclude_self: bool, tgt=None, out=None):
-    """Plain torch version of the kernel (same arguments and results).
-
-    d2 = ((qx-cx)^2 + (qy-cy)^2) + (qz-cz)^2 with every op rounded on its
-    own, pads and (with ``exclude_self``) the query's own id masked, and the
-    first k in (d2, id) order selected through exact int64 keys
-    (ops/topk.py).  Chunked over supercells and query slots to bound
-    memory."""
-    s_total, qcap, ccap = _check(qx, qy, qz, qid, cx, cy, cz, cid, k)
+def _plain_rows(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
+                exclude_self: bool, fold):
+    """The plain versions' shared half: d2 = ((qx-cx)^2 + (qy-cy)^2) +
+    (qz-cz)^2 with every op rounded on its own, pads and (with
+    ``exclude_self``) the query's own id masked, as exact int64 (d2, id)
+    keys (ops/topk.py), chunked over supercells and query slots to bound
+    memory; ``fold`` turns a chunk's (s, q, C) keys into its (s, q, k)
+    (d2, ids) rows.  Returns (S, Q, k) d2 and ids."""
+    s_total, qcap, ccap = qx.shape[0], qx.shape[1], cx.shape[1]
     rows_d = torch.empty((s_total, qcap, k), dtype=torch.float32,
                          device=qx.device)
     rows_i = torch.empty((s_total, qcap, k), dtype=torch.int32,
@@ -213,13 +225,19 @@ def supercell_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
             mask = (c != _PAD_C).expand(d2.shape)
             if exclude_self:
                 mask = mask & (c != qid[ss, qs, None])
-            best = smallest_keys(pack_key(d2, c.expand(d2.shape), mask), k)
-            rows_d[ss, qs], rows_i[ss, qs] = unpack_key(best)
+            rows_d[ss, qs], rows_i[ss, qs] = fold(
+                pack_key(d2, c.expand(d2.shape), mask))
+    return rows_d, rows_i
+
+
+def _plain_out(rows_d, rows_i, k: int, tgt, out):
+    """Mode (b): the (S, k, Q) layout; mode (a): rows placed at ``tgt``."""
     if tgt is None:
         return (rows_d.transpose(1, 2).contiguous(),
                 rows_i.transpose(1, 2).contiguous())
+    s_total, qcap = rows_d.shape[:2]
     out_d, out_i, n_rows = _check_rows(tgt, out, s_total, qcap, k,
-                                       qx.device)
+                                       rows_d.device)
     keep = (tgt >= 0) & (tgt < n_rows)
     rows = tgt[keep].long()
     out_d[rows] = rows_d.reshape(-1, k)[keep]
@@ -227,17 +245,108 @@ def supercell_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
     return out_d, out_i
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("supercell_topk")
+def supercell_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
+                         exclude_self: bool, tgt=None, out=None):
+    """Plain torch version of the kernel (same arguments and results): the
+    first k keys of each query slot (``_plain_rows``)."""
+    _check(qx, qy, qz, qid, cx, cy, cz, cid, k)
+    rows_d, rows_i = _plain_rows(
+        qx, qy, qz, qid, cx, cy, cz, cid, k, exclude_self,
+        lambda key: unpack_key(smallest_keys(key, k)))
+    return _plain_out(rows_d, rows_i, k, tgt, out)
+
+
+def _check_blocked(ccap: int, m) -> None:
+    if ccap % 128 != 0 or isinstance(m, bool) or not 1 <= int(m) <= 128:
+        raise ValueError(
+            f"blocked_topk: needs ccap a multiple of 128 and 1 <= m <= 128, "
+            f"got ccap={ccap} m={m}")
+
+
+def blocked_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
+                       exclude_self: bool, tgt=None, out=None):
+    """Plain torch version of the blocked kernel (same arguments and
+    results): per 128-slot block the first m keys and the smallest d2 it
+    rejected (rem), the first k keys of the kept pool, and NaN at column
+    k-1 where some block's rem lies strictly below the k-th d2."""
+    s_total, qcap, ccap = _check(qx, qy, qz, qid, cx, cy, cz, cid, k)
+    _check_blocked(ccap, m)
+    k, m = int(k), int(m)
+    g = ccap // 128
+
+    def fold(key):
+        top = torch.topk(key.reshape(key.shape[:-1] + (g, 128)),
+                         min(m + 1, 128), dim=-1, largest=False,
+                         sorted=True).values
+        if m < 128:
+            rem = unpack_key(top[..., m])[0].amin(dim=-1)
+        else:
+            rem = torch.full(key.shape[:-1], float("inf"),
+                             device=key.device)
+        d, i = unpack_key(smallest_keys(
+            top[..., :m].reshape(key.shape[:-1] + (g * m,)), k))
+        t = d[..., k - 1]
+        d[..., k - 1] = torch.where(rem < t, float("nan"), t)
+        return d, i
+
+    rows_d, rows_i = _plain_rows(qx, qy, qz, qid, cx, cy, cz, cid, k,
+                                 exclude_self, fold)
+    return _plain_out(rows_d, rows_i, k, tgt, out)
+
+
+def _lib(name: str, n_int: int) -> ctypes.CDLL:
+    """The kernel library ``name`` with its launcher's argument types: 8
+    input pointers, ``n_int`` int arguments (S, Q, C, k, ..., exclude_self),
+    tgt, n_rows, the two output pointers, q_tile and the stream."""
+    lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.supercell_topk_launch.argtypes = [p] * 8 + [i] * 5 + [p, i, p, p,
-                                                               i, p]
-        lib.supercell_topk_launch.restype = i
-        lib.supercell_topk_error_string.argtypes = [i]
-        lib.supercell_topk_error_string.restype = ctypes.c_char_p
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = [p] * 8 + [i] * n_int + [p, i, p, p, i, p]
+        launch.restype = i
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _launch(name: str, args, s_total: int, qcap: int, ccap: int, k: int,
+            ints, exclude_self: bool, tgt, out, q_tile: int):
+    """The CUDA half of both wrappers: allocate mode (b)'s outputs or check
+    mode (a)'s, launch on the current stream, raise on a refused launch.
+    ``ints`` are the kernel's extra int arguments after k."""
+    device = args[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {device}")
+    if tgt is None:
+        if s_total * k * qcap > 2**31 - 1:
+            raise ValueError(
+                f"raw kernel output exceeds int32 indexing "
+                f"({s_total * k * qcap} elements): shard the problem or "
+                f"reduce k")
+        out = (torch.empty((s_total, k, qcap), dtype=torch.float32,
+                           device=device),
+               torch.empty((s_total, k, qcap), dtype=torch.int32,
+                           device=device))
+        n_rows = 0
+    else:
+        n_rows = _check_rows(tgt, out, s_total, qcap, k, device)[2]
+    if s_total == 0 or qcap == 0:
+        return out, False
+    lib = _lib(name, 5 + len(ints))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(
+            *(a.data_ptr() for a in args), s_total, qcap, ccap, k, *ints,
+            int(bool(exclude_self)), None if tgt is None else tgt.data_ptr(),
+            n_rows, out[0].data_ptr(), out[1].data_ptr(), q_tile, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise KernelLaunchError(
+            f"{name} launch failed: {msg} (code {rc}; S={s_total} Q={qcap} "
+            f"C={ccap} k={k} {ints} q_tile={q_tile})")
+    return out, True
 
 
 def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
@@ -256,44 +365,38 @@ def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback."""
     global launches
-    s_total, qcap, ccap = _check(qx, qy, qz, qid, cx, cy, cz, cid, k)
+    args = (qx, qy, qz, qid, cx, cy, cz, cid)
+    s_total, qcap, ccap = _check(*args, k)
     k = int(k)
     q_tile = pick_q_tile(k, qcap)
-    device = qx.device
-    if device.type == "cpu":
-        return supercell_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k,
-                                    exclude_self, tgt, out)
-    if device.type != "cuda":
-        raise ValueError(f"supercell_topk runs on CPU or CUDA tensors, got "
-                         f"{device}")
-    if tgt is None:
-        if s_total * k * qcap > 2**31 - 1:
-            raise ValueError(
-                f"raw kernel output exceeds int32 indexing "
-                f"({s_total * k * qcap} elements): shard the problem or "
-                f"reduce k")
-        out = (torch.empty((s_total, k, qcap), dtype=torch.float32,
-                           device=device),
-               torch.empty((s_total, k, qcap), dtype=torch.int32,
-                           device=device))
-        n_rows = 0
-    else:
-        n_rows = _check_rows(tgt, out, s_total, qcap, k, device)[2]
-    if s_total == 0 or qcap == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.supercell_topk_launch(
-            qx.data_ptr(), qy.data_ptr(), qz.data_ptr(), qid.data_ptr(),
-            cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), cid.data_ptr(),
-            s_total, qcap, ccap, k, int(bool(exclude_self)),
-            None if tgt is None else tgt.data_ptr(), n_rows,
-            out[0].data_ptr(), out[1].data_ptr(), q_tile, stream)
-    if rc != 0:
-        raise KernelLaunchError(
-            f"supercell_topk launch failed: "
-            f"{lib.supercell_topk_error_string(rc).decode()} (code {rc}; "
-            f"S={s_total} Q={qcap} C={ccap} k={k} q_tile={q_tile})")
-    launches += 1
+    if qx.device.type == "cpu":
+        return supercell_topk_plain(*args, k, exclude_self, tgt, out)
+    out, launched = _launch("supercell_topk", args, s_total, qcap, ccap, k,
+                            (), exclude_self, tgt, out, q_tile)
+    launches += launched
+    return out
+
+
+def blocked_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
+                 exclude_self: bool, tgt: Optional[torch.Tensor] = None,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The blocked two-stage selection (``config.blocked_topm`` gives m):
+    the same arguments, modes and results as :func:`supercell_topk`,
+    except that ccap must be a multiple of 128 and a deficit row carries
+    NaN as its k-th d2.
+
+    CPU tensors run the plain version.  CUDA tensors launch
+    ``csrc/blocked_topk.cu`` on the current stream, or raise: there is no
+    fallback."""
+    global blocked_launches
+    args = (qx, qy, qz, qid, cx, cy, cz, cid)
+    s_total, qcap, ccap = _check(*args, k)
+    _check_blocked(ccap, m)
+    k, m = int(k), int(m)
+    q_tile = pick_q_tile(k, qcap, m)
+    if qx.device.type == "cpu":
+        return blocked_topk_plain(*args, k, m, exclude_self, tgt, out)
+    out, launched = _launch("blocked_topk", args, s_total, qcap, ccap, k,
+                            (m,), exclude_self, tgt, out, q_tile)
+    blocked_launches += launched
     return out

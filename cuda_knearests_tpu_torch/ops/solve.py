@@ -104,6 +104,17 @@ def _margin_sq(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return torch.where(torch.isinf(m), inf, m * m)
 
 
+def sum_sq_diff(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(m, t) squared distances of (m, d) queries to (t, d) points: the
+    subtract-square-accumulate over axes 0..d-1, every op rounded on its
+    own (the engine's 'diff' arithmetic)."""
+    d2 = None
+    for ax in range(q.shape[1]):
+        diff = q[:, None, ax] - p[None, :, ax]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    return d2
+
+
 def brute_force_by_index(points: torch.Tensor, q_idx: torch.Tensor, k: int,
                          exclude_self: bool = True, tile: int = 8192
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,7 +123,8 @@ def brute_force_by_index(points: torch.Tensor, q_idx: torch.Tensor, k: int,
     all -1/inf).  Returns ((m, k) ids ascending, (m, k) d2) in sorted
     indexing; ties go to the lowest stored id.  Query rows run in chunks of
     at most ``_BRUTE_CHUNK_PAIRS // tile``, which bounds the (rows, tile)
-    temporaries however many rows need the fallback."""
+    temporaries however many rows need the fallback.  Dimension-agnostic:
+    ``points`` may be (n, d) for any d >= 1, d2 summed over axes 0..d-1."""
     n = int(points.shape[0])
     m = int(q_idx.shape[0])
     out_d = torch.empty((m, k), dtype=torch.float32, device=points.device)
@@ -127,10 +139,7 @@ def brute_force_by_index(points: torch.Tensor, q_idx: torch.Tensor, k: int,
             pts_t = points[t0:t0 + tile]
             ids_t = torch.arange(t0, t0 + pts_t.shape[0], dtype=torch.int32,
                                  device=points.device)
-            d2 = None
-            for ax in range(3):
-                diff = q[:, None, ax] - pts_t[None, :, ax]
-                d2 = diff * diff if d2 is None else d2 + diff * diff
+            d2 = sum_sq_diff(q, pts_t)
             mask = q_ok[:, None].expand(d2.shape)
             if exclude_self:
                 mask = mask & (ids_t[None, :] != qi[:, None])

@@ -45,7 +45,11 @@ def test_no_jax_import_in_port_sources(path):
 def test_package_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, cuda_knearests_tpu_torch as pt\n"
             "import cuda_knearests_tpu_torch.api, "
-            "cuda_knearests_tpu_torch.ops.adaptive\n"
+            "cuda_knearests_tpu_torch.ops.adaptive, "
+            "cuda_knearests_tpu_torch.mxu.kernel\n"
+            "import cuda_knearests_tpu_torch.mxu as mxu\n"
+            "mxu.solve_general([[1.0, 2.0], [3.0, 4.0]], k=1, "
+            "device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
