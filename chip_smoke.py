@@ -8,10 +8,11 @@ H100: the kernels target sm_90a).  It imports only the port
 (``cuda_knearests_tpu_torch``), never JAX or the reference package.  It:
 
   1. prints the card (``nvidia-smi`` name and power limit) and builds the
-     three kernels of ``csrc/`` from the checkout, one ``nvcc`` each, all
-     at once, printing their ptxas lines;
+     four kernel sources of ``csrc/`` from the checkout, one ``nvcc`` each,
+     all at once, printing their ptxas lines;
   2. holds each kernel against its plain torch version on the card, equal
-     bit for bit (``torch.equal``; NaN deficit flags in the same places):
+     bit for bit (``torch.equal``; NaN deficit flags in the same places),
+     except the bf16 selection, which is held to its source's contract:
      - ``supercell_topk`` in both output modes on every class of the
        300k/k=50 and 300k clustered plans (whole, or a wide class's
        largest supercells) and on synthetic packs (k in {1, 10, 50, 128},
@@ -20,9 +21,16 @@ H100: the kernels target sm_90a).  It imports only the port
      - ``blocked_topk`` in both modes on the class packs of 900k/k=10 and
        300k/k=50, as packed and with candidates crowded in stored-id order
        (deficit rows), and on synthetic packs at several m;
-     - ``mxu_select`` at d in {1, 3, 17, 128}, k in {1, 10, 50, 128},
-       m in {1, 3, min(k, 128)}, exclude_self on and off, f32 and bf16,
-       n = 1000 and n = 40 < k candidates, 300 and 40 queries;
+     - ``mxu_select`` (f32) and ``mxu_select_bf16`` at d in {1, 3, 17,
+       128}, k in {1, 10, 50, 128}, m in {1, 3, min(k, 128)}, exclude_self
+       on and off, n = 1000 and n = 40 < k candidates, 300 and 40
+       queries, and well-separated blobs (k = 9 and 10) where bf16 rows
+       certify: f32 bit for bit; bf16 prep bit for bit, the selection bit
+       for bit on lattice coordinates (exact partial sums) and elsewhere
+       2*delta_max within the f32 term of B, 4*(d+8)*eps32*(qn + pn_max),
+       and every selected score within the row's 2*delta_max (delta_max
+       measured from the kernel's own scores); certified rows exact against
+       an f64 brute force, and on the blobs at m = k at least 90% certified;
   3. runs the grid main path -- ``KnnProblem.prepare(points).solve()`` then
      ``get_knearests_original()`` -- on 900k blue noise at k=10, 300k blue
      noise at k=50 and a clustered 300k cloud (ring_radius=1, several
@@ -45,7 +53,7 @@ H100: the kernels target sm_90a).  It imports only the port
   7. times each kernel at its main path's shapes against its plain version
      (the selection's plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound, and requires the timed outputs to
-     equal the plain version's.
+     equal the plain version's (bf16: to meet the contract above).
 
 Any failed check exits non-zero without printing a result.  The last three
 lines are the card, one JSON object of kernel measurements, and
@@ -75,11 +83,12 @@ PEAK_HBM_BYTES = 3.35e12
 SAMPLE_ROWS = 20_000
 DEV = "cuda"
 CSRC = "cuda_knearests_tpu_torch/csrc/"
-KERNELS = ("supercell_topk", "blocked_topk", "mxu_select")
+KERNELS = ("supercell_topk", "blocked_topk", "mxu_select", "mxu_select_bf16")
 REPLACES = {
     "supercell_topk": "cuda_knearests_tpu/ops/pallas_solve.py:480",
     "blocked_topk": "cuda_knearests_tpu/ops/pallas_solve.py:168",
     "mxu_select": "cuda_knearests_tpu/mxu/kernel.py:59",
+    "mxu_select_bf16": "cuda_knearests_tpu/mxu/kernel.py:59",
 }
 
 
@@ -122,11 +131,13 @@ def quiet(fn):
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
-    saved = cs.launches, cs.blocked_launches, mk.launches
+    saved = (cs.launches, cs.blocked_launches, mk.launches,
+             mk.launches_bf16, mk.prep_launches)
     try:
         return fn()
     finally:
-        cs.launches, cs.blocked_launches, mk.launches = saved
+        (cs.launches, cs.blocked_launches, mk.launches, mk.launches_bf16,
+         mk.prep_launches) = saved
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -317,11 +328,86 @@ def blocked_checks(problems) -> float:
     return err
 
 
-def select_checks() -> float:
-    """mxu_select against select_plain at small shapes: every d, k, m,
-    exclude_self and precision of the list, on lattice coordinates (exact
-    ties) and on random ones, with n not a multiple of 128, n < k, and
-    query counts that are not multiples of 128."""
+def certified_exact(what: str, points: np.ndarray, q, ids, cert, k: int,
+                    exclude_self: bool) -> None:
+    """Every certified row (queries ``q`` = points[:rows]) selects a true
+    top-k set of the f32 points in f64 arithmetic, ties allowed: as many
+    ids as there are candidates, up to k, none beyond the true k-th
+    distance."""
+    import torch
+
+    p = torch.as_tensor(points, device=DEV, dtype=torch.float64)
+    rows = torch.nonzero(cert).flatten()
+    if not rows.numel():
+        return
+    d2 = ((q[rows].double()[:, None, :] - p[None]) ** 2).sum(-1)
+    if exclude_self:
+        d2[torch.arange(rows.numel(), device=DEV), rows] = float("inf")
+    avail = int(min(k, points.shape[0] - (1 if exclude_self else 0)))
+    kth = torch.topk(d2, avail, dim=1, largest=False).values[:, -1]
+    sel = ids[rows].long()
+    require(bool((sel[:, :avail] >= 0).all())
+            and bool((sel[:, avail:] < 0).all()),
+            f"{what}: a certified row misses neighbours")
+    got = torch.gather(d2, 1, sel[:, :avail])
+    require(bool((got <= kth[:, None]).all()),
+            f"{what}: a certified row is not a true top-k set")
+
+
+def bf16_contract(what: str, got, want, dump, s_plain, cid, qn, pn_max,
+                  d: int, lattice: bool):
+    """The bf16 kernel's selection (ids, scores, certified) against
+    select_plain's: equal bit for bit on lattice inputs; everywhere, the
+    row's 2*delta_max (the largest |kernel score - plain score| over real
+    candidates, from the kernel's own scores ``dump``) within the f32 term
+    of B, 4*(d+8)*eps32*(qn + pn_max), and every selected score within
+    it.  Returns (largest |selected score difference|, largest
+    2*delta_max / B, largest 2*delta_max / f32 term)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.topk import dot_error_bound
+
+    torch.cuda.synchronize()
+    if lattice:
+        require_equal(what, (got[1], got[0], got[2]),
+                      (want[1], want[0], want[2]))
+    band = ms.score_band(dump, s_plain, cid)
+    f32_term = dot_error_bound(qn, pn_max, d, "f32")
+    require(bool((band <= f32_term).all()),
+            f"{what}: 2*delta_max above the f32 term of B on "
+            f"{int((band > f32_term).sum())} rows")
+    fin = torch.isfinite(want[1])
+    require(torch.equal(torch.isfinite(got[1]), fin),
+            f"{what}: missing entries differ from the plain version's")
+    diff = torch.where(fin, (got[1] - want[1]).abs(), 0.0)
+    require(bool((diff <= band[:, None]).all()),
+            f"{what}: a selected score differs from the plain version's "
+            f"by more than the row's 2*delta_max")
+    err_b = dot_error_bound(qn, pn_max, d, "bf16")
+    return (float(diff.max()), float((band / err_b).max()),
+            float((band / f32_term).max()))
+
+
+def separated(d: int, seed: int) -> np.ndarray:
+    """10-point blobs of radius ~1e-3 at +-e_i (20*d points): a row's 9
+    nearest others are its blob, and the next blob is ~sqrt(2) away, a gap
+    that clears the bf16 band, so rows certify."""
+    rng = np.random.default_rng(seed)
+    centers = np.concatenate([np.eye(d), -np.eye(d)])
+    return (np.repeat(centers, 10, axis=0)
+            + rng.normal(size=(20 * d, d)) * 1e-3).astype(np.float32)
+
+
+def select_checks() -> tuple:
+    """mxu_select (f32) and mxu_select_bf16 against select_plain at small
+    shapes: every d, k, m and exclude_self of the list, on lattice
+    coordinates (exact ties and exact partial sums), on random ones, with
+    n not a multiple of 128, n < k, and query counts that are not
+    multiples of 128, and on well-separated blobs where bf16 rows certify
+    (at m = k at least 90% of them must, each exact).  Returns the largest
+    |score difference| of each kernel, the largest 2*delta_max / B of the
+    bf16 one and its largest 2*delta_max / f32 term of B."""
     import torch
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
@@ -329,32 +415,65 @@ def select_checks() -> float:
     from cuda_knearests_tpu_torch.mxu.solve import select_inputs
 
     rng = np.random.default_rng(2026)
-    err, n_cmp = 0.0, 0
+    err, err16, ratio, ratio32, n_cmp, n_cert = 0.0, 0.0, 0.0, 0.0, 0, 0
     for d in (1, 3, 17, 128):
-        for n, lattice in ((1000, True), (1000, False), (40, False)):
-            pts = (rng.integers(0, 6, (n, d)) * 2.5 if lattice
+        for kind, n in (("lattice", 1000), ("random", 1000), ("random", 40),
+                        ("separated", 20 * d)):
+            pts = (rng.integers(0, 6, (n, d)) * 2.5 if kind == "lattice"
+                   else separated(d, d) if kind == "separated"
                    else rng.random((n, d)) * 100).astype(np.float32)
+            lattice = kind == "lattice"
             m_q = min(300, n)
             qid, pts_il, cid_il = select_inputs(pts, m_q, True)
             args = [torch.as_tensor(a, device=DEV)
                     for a in (pts[:m_q], qid, pts_il, cid_il)]
+            q, _, p, cid = args
+            for x, ids in ((q, None), (p, cid)):
+                for a, b in zip(quiet(lambda: mk.prep(x, ids)),
+                                mk.prep_plain(x, ids)):
+                    require(b is None or torch.equal(a, b),
+                            f"prep d={d} n={n}: differs from prep_plain")
+            s_plain = ms.score_tile(q, p, "bf16")
+            qn, pn_max = ms.norms(q), mk.prep_plain(p, cid)[3]
+            kex = (((9, True), (10, False)) if kind == "separated" else
+                   [(k, e) for k in (1, 10, 50, 128) for e in (True, False)])
             for precision in ("f32", "bf16"):
-                for k in (1, 10, 50, 128):
+                for k, excl in kex:
                     for m in sorted({1, 3, min(k, 128)}):
-                        for excl in (True, False):
+                        what = (f"select d={d} n={n} {kind} {precision} "
+                                f"k={k} m={m} excl={excl}")
+                        want = ms.select_plain(*args, k, m, d, excl,
+                                               precision)
+                        n_cmp += 1
+                        if precision == "f32":
                             got = quiet(lambda: mk.select(
                                 *args, k, m, d, excl, precision))
-                            want = ms.select_plain(*args, k, m, d, excl,
-                                                   precision)
                             err = max(err, require_equal(
-                                f"select d={d} n={n} lattice={lattice} "
-                                f"{precision} k={k} m={m} excl={excl}",
-                                (got[1], got[0], got[2]),
+                                what, (got[1], got[0], got[2]),
                                 (want[1], want[0], want[2])))
-                            n_cmp += 1
-        print(f"  mxu_select d={d}: equal to select_plain on every listed "
-              f"shape ({n_cmp} comparisons so far)", flush=True)
-    return err
+                            continue
+                        *got, dump = quiet(lambda: mk._select_bf16_with_scores(
+                            *args, k, m, d, excl))
+                        e, r, r32 = bf16_contract(what, got, want, dump,
+                                                  s_plain, cid, qn, pn_max, d,
+                                                  lattice)
+                        err16 = max(err16, e)
+                        ratio, ratio32 = max(ratio, r), max(ratio32, r32)
+                        certified_exact(what, pts, q, got[0], got[2], k,
+                                        excl)
+                        if kind == "separated" and m == k:
+                            frac = float(got[2].float().mean())
+                            require(frac >= 0.9,
+                                    f"{what}: only {frac:.3f} of the rows "
+                                    f"certify on separated blobs")
+                            n_cert += int(got[2].sum())
+        print(f"  mxu_select d={d}: f32 equal to select_plain, bf16 within "
+              f"its contract, on every listed shape ({n_cmp} comparisons "
+              f"so far; {n_cert} bf16 rows of separated blobs certified, "
+              f"each exact; largest bf16 2*delta_max/B {ratio:.3e}, "
+              f"/f32 term {ratio32:.3e}; largest bf16 |score difference| "
+              f"{err16:.6g})", flush=True)
+    return err, err16, ratio, ratio32
 
 
 # -- phase 3/4: the grid main path ---------------------------------------------
@@ -658,8 +777,13 @@ def sampled_hits(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
     ``mxu/measure.py`` counts them: exact f64 distance at most the true
     k-th (``kth``), widened by the row's ``band`` (2B), or without a band
     tying it at f32 resolution."""
+    return row_hits(points, rows, nbrs[rows], kth, band)
+
+
+def row_hits(points: np.ndarray, rows: np.ndarray, ids: np.ndarray,
+             kth: np.ndarray, band=None) -> np.ndarray:
+    """:func:`sampled_hits` of the (len(rows), k) ids of the rows."""
     q = points[rows].astype(np.float64)
-    ids = nbrs[rows]
     valid = ids >= 0
     c = points[np.where(valid, ids, 0)].astype(np.float64)
     gd = ((c - q[:, None, :]) ** 2).sum(-1)
@@ -741,9 +865,11 @@ def brute_run(label: str, points: np.ndarray, k: int, rt: float,
 
     n, d = points.shape
     times, max_syncs, split = [], 0, {}
-    before_all = mk.launches
+    counter = "launches_bf16" if precision == "bf16" else "launches"
+    other = "launches" if precision == "bf16" else "launches_bf16"
+    before_all, other_all = getattr(mk, counter), getattr(mk, other)
     for i in range(1 + runs):
-        before = mk.launches
+        before = getattr(mk, counter)
         restore = split_timers(split) if i == 0 else (lambda: None)
         dispatch.reset_stats()
         t0 = time.perf_counter()
@@ -755,9 +881,9 @@ def brute_run(label: str, points: np.ndarray, k: int, rt: float,
             restore()
         dt = time.perf_counter() - t0
         syncs = dispatch.stats().host_syncs
-        require(mk.launches == before + 1,
-                f"{label}: solve launched the selection kernel "
-                f"{mk.launches - before} times")
+        require(getattr(mk, counter) == before + 1,
+                f"{label}: solve launched the {precision} selection kernel "
+                f"{getattr(mk, counter) - before} times")
         require(syncs <= dispatch.SYNC_BUDGET,
                 f"{label}: solve made {syncs} host round trips")
         max_syncs = max(max_syncs, syncs)
@@ -765,7 +891,9 @@ def brute_run(label: str, points: np.ndarray, k: int, rt: float,
             times.append(dt)
         else:
             split["total"] = dt * 1e3
-    launches = mk.launches - before_all
+    launches = getattr(mk, counter) - before_all
+    require(getattr(mk, other) == other_all,
+            f"{label}: a {precision} solve launched the other tier's kernel")
     require(res.backend == "cuda" and res.precision == precision,
             f"{label}: ran {res.backend}/{res.precision}")
     require(res.neighbors.shape == (n, k) and bool((res.neighbors >= 0)
@@ -806,19 +934,23 @@ def brute_run(label: str, points: np.ndarray, k: int, rt: float,
 
 
 def select_timing(label: str, points: np.ndarray, k: int, m: int,
-                  precision: str, rows: np.ndarray) -> tuple:
+                  precision: str, rows: np.ndarray, ref) -> tuple:
     """The selection kernel over all queries at its main path's shape,
     against its plain version and the kernel itself on 1,024 of the
-    queries (which must agree exactly), a chunked matmul + topk yardstick
-    (f32 without TF32, or a bf16 matmul) and the bound: 2*d operations per
-    (query, candidate) pair over the FP32 (or dense BF16) peak, or the
-    bytes of inputs and outputs over the HBM rate, whichever is larger."""
+    queries (which must agree exactly at f32, and meet the bf16 contract
+    at bf16, certified rows exact against ``ref``), a chunked matmul +
+    topk yardstick (f32 without TF32, or a bf16 matmul) and the bound:
+    2*d operations per (query, candidate) pair over the FP32 (or dense
+    BF16) peak, or the bytes of inputs and outputs over the HBM rate,
+    whichever is larger.  At bf16 the kernel time covers the wrapper's
+    three launches (two prep passes and the selection)."""
     import torch
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.mxu import scorer as ms
     from cuda_knearests_tpu_torch.mxu.solve import select_inputs
 
+    bf16 = precision == "bf16"
     n, d = points.shape
     qid, pts_il, cid_il = select_inputs(points, n, True)
     q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
@@ -828,12 +960,36 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
         1 if d > 8 else 3))
     sub = torch.as_tensor(rows[:1024], device=DEV).long()
     qs, qids = q[sub].contiguous(), qid_t[sub].contiguous()
-    got = quiet(lambda: mk.select(qs, qids, p, cid, k, m, d, True,
-                                  precision))
+    what = f"{label} select on {sub.numel()} sampled queries"
     want = ms.select_plain(qs, qids, p, cid, k, m, d, True, precision)
-    err = require_equal(f"{label} select on {sub.numel()} sampled queries",
-                        (got[1], got[0], got[2]), (want[1], want[0],
-                                                   want[2]))
+    extra = ""
+    if bf16:
+        *got, dump = quiet(lambda: mk._select_bf16_with_scores(
+            qs, qids, p, cid, k, m, d, True))
+        s_plain = torch.cat([ms.score_tile(qs[r0:r0 + 256], p, "bf16")
+                             for r0 in range(0, sub.numel(), 256)])
+        err, ratio, ratio32 = bf16_contract(
+            what, got, want, dump, s_plain, cid, ms.norms(qs),
+            mk.prep_plain(p, cid)[3], d, False)
+        del dump, s_plain
+        cert = got[2].cpu().numpy()
+        hits = row_hits(points, rows[:sub.numel()], got[0].cpu().numpy(),
+                        ref[0][:sub.numel(), -1])
+        require(bool((hits[cert] == k).all()),
+                f"{what}: a certified row is not exact")
+        prep_ms = quiet(lambda: cuda_ms(lambda: (mk.prep(q),
+                                                 mk.prep(p, cid)), 3))
+        extra = (f"; 2*delta_max/B at most {ratio:.3e} (/f32 term "
+                 f"{ratio32:.3e}), selected scores "
+                 f"within 2*delta_max (largest difference {err:.6g}), "
+                 f"{int(cert.sum())} certified rows exact; prep passes "
+                 f"{prep_ms:.3f} ms of the kernel time")
+    else:
+        got = quiet(lambda: mk.select(qs, qids, p, cid, k, m, d, True,
+                                      precision))
+        err = require_equal(what, (got[1], got[0], got[2]),
+                            (want[1], want[0], want[2]))
+        ratio = ratio32 = 0.0
     sub_ms = quiet(lambda: cuda_ms(
         lambda: mk.select(qs, qids, p, cid, k, m, d, True, precision), 3))
     plain_ms = cuda_ms(lambda: ms.select_plain(qs, qids, p, cid, k, m, d,
@@ -841,7 +997,7 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
     allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     qn = (q * q).sum(1)
-    lib_q = q.to(torch.bfloat16) if precision == "bf16" else q
+    lib_q = q.to(torch.bfloat16) if bf16 else q
     step = max(1, (1 << 30) // (4 * n))
 
     def library():
@@ -855,31 +1011,34 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
     flops = 2 * d * n * n
-    peak = PEAK_BF16_FLOPS if precision == "bf16" else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     nbytes = (4 * n * d + 4 * pts_il.size + 4 * n + 4 * cid_il.size
               + 8 * n * k + n)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    print(f"  {label}: select kernel {ms_full:.3f} ms over {n} queries; on "
-          f"{sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms (equal outputs); matmul+topk "
-          f"{library_ms:.3f} ms; {flops} ops -> {t_ops:.4f} ms at "
-          f"{peak / 1e12:.0f} TFLOP/s, {nbytes} bytes -> {t_bytes:.4f} ms",
-          flush=True)
+    print(f"  {label}: select kernel {ms_full:.3f} ms over {n} queries (m="
+          f"{m}); on {sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms ({'within the contract' if bf16 else 'equal outputs'}"
+          f"{extra}); matmul+topk {library_ms:.3f} ms; {flops} ops -> "
+          f"{t_ops:.4f} ms at {peak / 1e12:.0f} TFLOP/s, {nbytes} bytes -> "
+          f"{t_bytes:.4f} ms", flush=True)
     return {"ms": ms_full, "plain_ms": plain_ms,
             "plain_queries": int(sub.numel()), "ms_on_plain_queries": sub_ms,
             "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}, err
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}, \
+        err, (ratio, ratio32)
 
 
 def path_a():
-    """The brute route at full width; returns (selection launches, the
-    timing entries by shape, the largest |score difference| seen)."""
+    """The brute route at full width; returns (selection launches by tier,
+    the timing entries by shape, the largest |score difference| seen by
+    tier, the largest bf16 2*delta_max / B and / the f32 term of B)."""
     from scipy.spatial import cKDTree
 
     from cuda_knearests_tpu_torch.io import generate_uniform
 
     k = 10
-    launches, timing, err = 0, {}, 0.0
+    launches = {"f32": 0, "bf16": 0}
+    timing, err, ratio = {}, {"f32": 0.0, "bf16": 0.0}, (0.0, 0.0)
     rng = np.random.default_rng(11)
     pts3 = generate_uniform(300_000, seed=300)
     rows3 = np.sort(rng.permutation(pts3.shape[0])[:SAMPLE_ROWS])
@@ -891,7 +1050,7 @@ def path_a():
     for rt, refine, precision in runs3:
         out = brute_run("300k x 3", pts3, k, rt, refine, precision, 3,
                         rows3, ref3)
-        launches += out["launches"]
+        launches[precision] += out["launches"]
         m3.setdefault(precision, out["m"])
     gen = np.random.default_rng(128)
     pts128 = (gen.random((100_000, 128)) * 100).astype(np.float32)
@@ -902,18 +1061,23 @@ def path_a():
                                   (0.9, "none", "bf16")):
         out = brute_run("100k x 128", pts128, k, rt, refine, precision, 3,
                         rows128, ref128)
-        launches += out["launches"]
+        launches[precision] += out["launches"]
         m128.setdefault(precision, out["m"])
-    phase("timing the selection kernel")
-    timing["300k x 3 f32"], e = select_timing("300k x 3 f32", pts3, k,
-                                              m3["f32"], "f32", rows3)
-    err = max(err, e)
+    phase("timing the selection kernels")
+    for precision in ("f32", "bf16"):
+        label = f"300k x 3 {precision}"
+        timing[label], e, r = select_timing(label, pts3, k, m3[precision],
+                                            precision, rows3, ref3)
+        err[precision] = max(err[precision], e)
+        ratio = tuple(map(max, ratio, r))
     for precision in ("f32", "bf16"):
         label = f"100k x 128 {precision}"
-        timing[label], e = select_timing(label, pts128, k, m128[precision],
-                                         precision, rows128)
-        err = max(err, e)
-    return launches, timing, err
+        timing[label], e, r = select_timing(label, pts128, k,
+                                            m128[precision], precision,
+                                            rows128, ref128)
+        err[precision] = max(err[precision], e)
+        ratio = tuple(map(max, ratio, r))
+    return launches, timing, err, ratio
 
 
 # -- phase 6: the grid path with the blocked kernel ----------------------------
@@ -1005,7 +1169,8 @@ def main() -> int:
         [("300k/k=50", prob50, cfg50), ("300k clustered", prob_cl, cfg_cl)])}
     max_err["blocked_topk"] = blocked_checks(
         [("900k/k=10", prob10, cfg10), ("300k/k=50", prob50, cfg50)])
-    max_err["mxu_select"] = select_checks()
+    max_err["mxu_select"], max_err["mxu_select_bf16"], *band_ratio = \
+        select_checks()
 
     phase("grid main path")
     launches, _, _ = main_path("900k blue noise", pts900, cfg10, 3, prob10,
@@ -1020,11 +1185,20 @@ def main() -> int:
     solve_breakdown("300k/k=50", prob50)
 
     phase("brute route at full width")
-    mk.launches = 0
-    select_launches, select_timings, err = path_a()
-    require(mk.launches == select_launches > 0,
-            "brute route: selection launches miscounted")
-    max_err["mxu_select"] = max(max_err["mxu_select"], err)
+    mk.launches = mk.launches_bf16 = mk.prep_launches = 0
+    select_launches, select_timings, err, ratio = path_a()
+    require(mk.launches == select_launches["f32"] > 0
+            and mk.launches_bf16 == select_launches["bf16"] > 0
+            and mk.prep_launches == 2 * mk.launches_bf16,
+            f"brute route: selection launches miscounted ({mk.launches} "
+            f"f32, {mk.launches_bf16} bf16, {mk.prep_launches} prep)")
+    max_err["mxu_select"] = max(max_err["mxu_select"], err["f32"])
+    max_err["mxu_select_bf16"] = max(max_err["mxu_select_bf16"],
+                                     err["bf16"])
+    band_ratio = tuple(map(max, band_ratio, ratio))
+    print(f"  mxu_select_bf16: largest 2*delta_max over every check "
+          f"{band_ratio[0]:.6e} of B, {band_ratio[1]:.6e} of its f32 term",
+          flush=True)
 
     phase("grid main path with the blocked kernel")
     prob_b, cfg_b, blocked_launches = path_b(pts900, prob10)
@@ -1047,9 +1221,18 @@ def main() -> int:
              max_abs_err=max(max_err["blocked_topk"], err_b),
              **blocked_timing),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
-             replaces=REPLACES["mxu_select"], launches=select_launches,
+             replaces=REPLACES["mxu_select"],
+             launches=select_launches["f32"],
              max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
              **select_timings["100k x 128 f32"]),
+        dict(name="mxu_select_bf16", route="cuda",
+             source=CSRC + "mxu_select_bf16.cu",
+             replaces=REPLACES["mxu_select_bf16"],
+             launches=select_launches["bf16"],
+             max_abs_err=max_err["mxu_select_bf16"],
+             max_band_ratio=band_ratio[0],
+             max_band_ratio_f32=band_ratio[1], shape="100k x 128 bf16",
+             **select_timings["100k x 128 bf16"]),
     ]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

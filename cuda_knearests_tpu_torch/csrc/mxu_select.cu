@@ -1,20 +1,19 @@
-// Dot-form selection of the brute route: for every query, its top-k of all
-// candidates under the TPU-KNN per-block fold, and the certificate that the
-// selection is a true top-k set.  For NVIDIA Hopper (sm_90a).
+// Dot-form selection of the brute route, f32 tier: for every query, its
+// top-k of all candidates under the TPU-KNN per-block fold, and the
+// certificate that the selection is a true top-k set.  For NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel _select_kernel of
-// cuda_knearests_tpu/mxu/kernel.py (:59), launched by select_pallas (:146).
+// Replaces the f32 tier of the Pallas TPU kernel _select_kernel of
+// cuda_knearests_tpu/mxu/kernel.py (:59), launched by select_pallas (:146);
+// the bf16 tier runs on tensor cores in mxu_select_bf16.cu.
 // It computes what that kernel and its XLA twin (mxu/scorer.py
 // solve_blocks_xla) compute, and bit for bit what the plain torch version
 // (cuda_knearests_tpu_torch/mxu/scorer.py select_plain) computes:
 //   * score s = (qn + pn) - 2*qp, with qn, pn and qp = q.p each summed in
 //     order over axes 0..d-1, every multiply and add rounded on its own
 //     (the intrinsics below, and the build passes --fmad=false);
-//   * f32 tier: on CUDA cores, never TF32 (the f32 certification band,
-//     (d+8)*eps32, does not cover TF32's 10-bit mantissa);
-//   * bf16 tier: coordinates rounded to bf16 (round to nearest even); each
-//     norm term x*x rounded to bf16, then summed in f32; the products of
-//     q.p exact in f32 and summed in f32;
+//   * on CUDA cores, never TF32 (the f32 certification band, (d+8)*eps32,
+//     does not cover TF32's 10-bit mantissa);
 //   * pads (id < 0), the query's own id (exclude_self) and non-finite
 //     scores are skipped; missing entries are (inf, -1);
 //   * candidates form 128-slot blocks; each block keeps its first m by
@@ -44,13 +43,11 @@
 // no VMEM-style gate: the only limit is that the lists and tiles fit one
 // block's shared memory, which the wrapper checks (LaunchBudgetError).
 // When m >= k or m >= 128 the block lists cannot change the selection or
-// kplus, and candidates go straight to the running list.  Tensor cores
-// (wgmma) are later work.
+// kplus, and candidates go straight to the running list.
 //
 // Plain C interface, loaded with ctypes.  The launcher allocates nothing,
 // runs on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -61,10 +58,6 @@ constexpr int kBlock = 128;  // candidate slots per block (topk.BLOCK)
 
 __device__ __forceinline__ bool key_less(float s, int i, float es, int ei) {
   return s < es || (s == es && i < ei);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Sorted (score, id) list of `len` entries of thread t, entry j at
@@ -119,7 +112,7 @@ struct List {
 __global__ void mxu_select_kernel(
     const float* __restrict__ q, const int* __restrict__ qid,
     const float* __restrict__ p, const int* __restrict__ cid, int n_q,
-    int n_c, int d, int k, int m, int exclude_self, int bf16, float coef,
+    int n_c, int d, int k, int m, int exclude_self, float coef,
     int tile, int* __restrict__ out_i, float* __restrict__ out_s,
     uint8_t* __restrict__ out_cert) {
   extern __shared__ float smem[];
@@ -128,9 +121,8 @@ __global__ void mxu_select_kernel(
   const bool direct = m >= k || m >= kBlock;
   float* sq = smem;                            // d * nt query coordinates
   float* sp = sq + (size_t)d * nt;             // tile * d candidates
-  float* spn = sp + (size_t)tile * d;          // tile scoring norms
-  float* spf = spn + tile;                     // tile f32 norms
-  int* sid = reinterpret_cast<int*>(spf + tile);
+  float* spn = sp + (size_t)tile * d;          // tile norms
+  int* sid = reinterpret_cast<int*>(spn + tile);
   List run{reinterpret_cast<float*>(sid + tile), nullptr, k, 0.f, 0};
   run.i = reinterpret_cast<int*>(run.s + (size_t)k * nt);
   List blk{reinterpret_cast<float*>(run.i + (size_t)k * nt), nullptr,
@@ -139,18 +131,15 @@ __global__ void mxu_select_kernel(
 
   const int64_t row = (int64_t)blockIdx.x * nt + t;
   const bool active = row < n_q;
-  float qn_f = 0.f, qn_s = 0.f;
+  float qn = 0.f;
   int self = -1;  // pads (id < 0) are skipped before this compare
   if (active) {
     self = exclude_self ? qid[row] : -1;
     for (int ax = 0; ax < d; ++ax) {
       const float x = q[row * d + ax];
       const float f = __fmul_rn(x, x);
-      qn_f = ax ? __fadd_rn(qn_f, f) : f;
-      const float xs = bf16 ? round_bf16(x) : x;
-      const float fs = bf16 ? round_bf16(__fmul_rn(xs, xs)) : f;
-      qn_s = ax ? __fadd_rn(qn_s, fs) : fs;
-      sq[ax * nt + t] = xs;
+      qn = ax ? __fadd_rn(qn, f) : f;
+      sq[ax * nt + t] = x;
     }
     run.init(nt, t);
     blk.init(nt, t);
@@ -164,33 +153,42 @@ __global__ void mxu_select_kernel(
     for (int e = t; e < tile * d; e += nt) sp[e] = src[e];
     for (int j = t; j < tile; j += nt) sid[j] = cid[c0 + j];
     __syncthreads();
-    for (int j = t; j < tile; j += nt) {  // norms, then scoring coords
-      float* pj = sp + (size_t)j * d;
-      float nf = 0.f, ns = 0.f;
+    for (int j = t; j < tile; j += nt) {  // norms
+      const float* pj = sp + (size_t)j * d;
+      float nf = 0.f;
       for (int ax = 0; ax < d; ++ax) {
-        const float x = pj[ax];
-        const float f = __fmul_rn(x, x);
+        const float f = __fmul_rn(pj[ax], pj[ax]);
         nf = ax ? __fadd_rn(nf, f) : f;
-        const float xs = bf16 ? round_bf16(x) : x;
-        const float fs = bf16 ? round_bf16(__fmul_rn(xs, xs)) : f;
-        ns = ax ? __fadd_rn(ns, fs) : fs;
-        pj[ax] = xs;
       }
-      spf[j] = nf;
-      spn[j] = ns;
+      spn[j] = nf;
     }
     __syncthreads();
     if (!active) continue;
     for (int j = 0; j < tile; ++j) {
       const int id = sid[j];
       if (id >= 0) {
-        pn_max = fmaxf(pn_max, spf[j]);
+        pn_max = fmaxf(pn_max, spn[j]);
         if (id != self) {
           const float* pj = sp + (size_t)j * d;
-          float qp = __fmul_rn(sq[t], pj[0]);
-          for (int ax = 1; ax < d; ++ax)
-            qp = __fadd_rn(qp, __fmul_rn(sq[ax * nt + t], pj[ax]));
-          const float s = __fsub_rn(__fadd_rn(qn_s, spn[j]),
+          const float* qt = sq + t;
+          float qp = __fmul_rn(qt[0], pj[0]);
+          int ax = 1;
+          // Eight axes' loads first, then their in-order sum: the loads
+          // overlap instead of each multiply waiting on its own.
+          for (; ax + 8 <= d; ax += 8) {
+            float a[8], b[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              a[u] = qt[(ax + u) * nt];
+              b[u] = pj[ax + u];
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              qp = __fadd_rn(qp, __fmul_rn(a[u], b[u]));
+          }
+          for (; ax < d; ++ax)
+            qp = __fadd_rn(qp, __fmul_rn(qt[ax * nt], pj[ax]));
+          const float s = __fsub_rn(__fadd_rn(qn, spn[j]),
                                     __fmul_rn(2.f, qp));
           if (isfinite(s)) {
             if (direct) run.offer(s, id, nt, t, out_min);
@@ -209,7 +207,7 @@ __global__ void mxu_select_kernel(
     }
   }
   if (!active) return;
-  const float err = __fmul_rn(coef, __fadd_rn(qn_f, pn_max));
+  const float err = __fmul_rn(coef, __fadd_rn(qn, pn_max));
   const float thr = __fadd_rn(run.ws, __fmul_rn(2.f, err));
   out_cert[row] = out_min >= thr ? 1 : 0;
   for (int j = 0; j < k; ++j) {
@@ -225,7 +223,7 @@ extern "C" {
 // Shared memory of one block of nt threads.
 size_t mxu_select_smem_bytes(int d, int k, int m, int nt, int tile) {
   const int mb = (m >= k || m >= kBlock) ? 0 : m;
-  return (size_t)4 * ((size_t)d * nt + (size_t)tile * d + 3 * (size_t)tile +
+  return (size_t)4 * ((size_t)d * nt + (size_t)tile * d + 2 * (size_t)tile +
                       2 * (size_t)(k + mb) * nt);
 }
 
@@ -234,7 +232,7 @@ size_t mxu_select_smem_bytes(int d, int k, int m, int nt, int tile) {
 // (0 = launched).
 int mxu_select_launch(const float* q, const int* qid, const float* p,
                       const int* cid, int n_q, int n_c, int d, int k, int m,
-                      int exclude_self, int bf16, float coef, int nt,
+                      int exclude_self, float coef, int nt,
                       int tile, int* out_i, float* out_s, uint8_t* out_cert,
                       void* stream) {
   const size_t smem = mxu_select_smem_bytes(d, k, m, nt, tile);
@@ -244,7 +242,7 @@ int mxu_select_launch(const float* q, const int* qid, const float* p,
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n_q + nt - 1) / nt);
   mxu_select_kernel<<<blocks, nt, smem, (cudaStream_t)stream>>>(
-      q, qid, p, cid, n_q, n_c, d, k, m, exclude_self, bf16, coef, tile,
+      q, qid, p, cid, n_q, n_c, d, k, m, exclude_self, coef, tile,
       out_i, out_s, out_cert);
   return (int)cudaGetLastError();
 }

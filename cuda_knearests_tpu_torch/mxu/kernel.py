@@ -1,30 +1,35 @@
-"""The brute route's selection kernel: CUDA wrapper and launch gate.
+"""The brute route's selection kernels: CUDA wrappers and launch gates.
 
 Counterpart of ``cuda_knearests_tpu/mxu/kernel.py`` (``select_pallas``).
 :func:`select` takes the queries, the interleaved candidates and their ids
 and returns every query's selection and certificate:
 
-  * on CUDA tensors it launches ``csrc/mxu_select.cu`` (or raises);
+  * on CUDA tensors it launches ``csrc/mxu_select.cu`` (f32, CUDA cores,
+    bit for bit the plain version) or, at bf16, the prep pass and the
+    tensor-core selection of ``csrc/mxu_select_bf16.cu`` (norms bit for
+    bit, q.p within the certification band: see that source's contract),
+    or raises;
   * on CPU tensors it runs ``scorer.select_plain``, the same function in
     plain torch with the same per-op rounding.
 
 The TPU kernel kept the candidate set and a (G*m, 128) pool in VMEM and
-was gated on fitting it (``kernel_fits``); this kernel streams candidates
-and keeps per-query lists, so its only gate is shared memory per block
-(:func:`pick_launch`), refused with a typed :class:`LaunchBudgetError`.
+was gated on fitting it (``kernel_fits``); these kernels stream candidates
+and keep per-query lists, so their only gate is shared memory per block
+(:func:`pick_launch`, :func:`pick_launch_bf16`), refused with a typed
+:class:`LaunchBudgetError`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..ops import _build
 from ..ops.cuda_solve import SMEM_LIMIT, KernelLaunchError
 from ..utils.memory import LaunchBudgetError
-from .scorer import check_select_args, select_plain
+from .scorer import check_select_args, norms, select_plain
 from .topk import BLOCK, dot_error_bound
 
 # Threads (queries) per block, widest first.
@@ -35,8 +40,20 @@ _TILES = (128, 64, 32, 16, 8, 4, 2, 1)
 # small enough to share an SM.
 _TILE_BYTES = 16 * 1024
 
-# Kernel launches made by select (CUDA tensors only).
+# bf16 kernel: query rows per block, widest first (16: one warp of 16
+# rows, for lists too long for 32); candidates per step (kCols); widest
+# d-chunk of the candidates with the queries resident, and the d-chunk of
+# both when the queries stream.
+_ROWS_BF16 = (128, 64, 32, 16)
+_COLS_BF16 = 64
+_KC_RESIDENT = 128
+_KC_STREAM = 64
+
+# Kernel launches (CUDA tensors only): the f32 selection kernel, the bf16
+# selection kernel, and the bf16 prep pass (two per bf16 selection).
 launches = 0
+launches_bf16 = 0
+prep_launches = 0
 
 
 def smem_bytes(d: int, k: int, m: int, threads: int, tile: int) -> int:
@@ -46,7 +63,7 @@ def smem_bytes(d: int, k: int, m: int, threads: int, tile: int) -> int:
     m < BLOCK), its block list of length m.  Must match
     ``mxu_select_smem_bytes`` in the source."""
     mb = 0 if (m >= k or m >= BLOCK) else m
-    return 4 * (d * threads + tile * d + 3 * tile + 2 * (k + mb) * threads)
+    return 4 * (d * threads + tile * d + 2 * tile + 2 * (k + mb) * threads)
 
 
 def pick_launch(d: int, k: int, m: int) -> Tuple[int, int]:
@@ -67,11 +84,52 @@ def pick_launch(d: int, k: int, m: int) -> Tuple[int, int]:
         site="mxu_select")
 
 
+def pad16(d: int) -> int:
+    """d rounded up to a multiple of 16: the bf16 kernel's row width (the
+    k depth of one mma.sync)."""
+    return -(-int(d) // 16) * 16
+
+
+def smem_bytes_bf16(d: int, k: int, m: int, rows: int, kc: int,
+                    qres: bool) -> int:
+    """Shared memory of one bf16 selection block: the query rows (all of
+    d16 when resident, else two d-chunks of kc), two candidate chunks of
+    ``_COLS_BF16`` rows with their norms and ids, the score tile (row stride
+    rows + 4) and each row's lists of k and, when the fold can matter, m.
+    Must match ``mxu_select_bf16_smem_bytes`` in the source."""
+    mb = 0 if (m >= k or m >= BLOCK) else m
+    q = rows * (pad16(d) + 8) if qres else 2 * rows * (kc + 8)
+    p = 2 * _COLS_BF16 * (kc + 8)
+    return (2 * (q + p) + 16 * _COLS_BF16 + 4 * _COLS_BF16 * (rows + 4)
+            + 8 * (k + mb) * rows)
+
+
+def pick_launch_bf16(d: int, k: int, m: int) -> Tuple[int, int, bool]:
+    """(query rows per block, d-chunk, queries resident) of the bf16
+    kernel: the widest block that fits shared memory, with its queries
+    resident when they fit, else streamed in d-chunks of ``_KC_STREAM``.
+    Accepts every (d, k, m) that :func:`pick_launch` accepts; raises
+    :class:`LaunchBudgetError` beyond."""
+    d16 = pad16(d)
+    for rows in _ROWS_BF16:
+        for qres, kc in ((True, min(d16, _KC_RESIDENT)),
+                         (False, min(d16, _KC_STREAM))):
+            if smem_bytes_bf16(d, k, m, rows, kc, qres) <= SMEM_LIMIT:
+                return rows, kc, qres
+    need = smem_bytes_bf16(d, k, m, _ROWS_BF16[-1], min(d16, _KC_STREAM),
+                           False)
+    raise LaunchBudgetError(
+        f"mxu_select_bf16 at d={d}, k={k}, m={m} needs {need} bytes of "
+        f"shared memory for one 16-row block, above the {SMEM_LIMIT}-byte "
+        f"limit of a Hopper block", requested=need, budget=SMEM_LIMIT,
+        site="mxu_select_bf16")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mxu_select")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mxu_select_launch.argtypes = ([p] * 4 + [i] * 7
+        lib.mxu_select_launch.argtypes = ([p] * 4 + [i] * 6
                                           + [ctypes.c_float, i, i]
                                           + [p] * 4)
         lib.mxu_select_launch.restype = i
@@ -79,6 +137,70 @@ def _lib() -> ctypes.CDLL:
         lib.mxu_select_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _lib_bf16() -> ctypes.CDLL:
+    lib = _build.load("mxu_select_bf16")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mxu_select_bf16_prep_launch.argtypes = [p, p, i, i, i] + [p] * 5
+        lib.mxu_select_bf16_prep_launch.restype = i
+        lib.mxu_select_bf16_launch.argtypes = ([p] * 8 + [i] * 6
+                                               + [ctypes.c_float, i, i, i]
+                                               + [p] * 5)
+        lib.mxu_select_bf16_launch.restype = i
+        lib.mxu_select_bf16_error_string.argtypes = [i]
+        lib.mxu_select_bf16_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def prep_plain(x: torch.Tensor, ids: Optional[torch.Tensor] = None):
+    """The bf16 prep pass in plain torch: (xb (rows, d16) bf16, the
+    coordinates rounded to bf16 and zero padded; ns, the bf16 scoring
+    norms; nf, the f32 norms; pn_max (1,) f32, the largest nf of a real id
+    (>= 0), or None without ``ids``) -- the casts and
+    :func:`scorer.norms` that ``select_plain`` uses."""
+    rows, d = x.shape
+    xb = torch.zeros((rows, pad16(d)), dtype=torch.bfloat16,
+                     device=x.device)
+    xb[:, :d] = x.to(torch.bfloat16)
+    nf = norms(x)
+    pn_max = None
+    if ids is not None:
+        pn_max = torch.clamp(torch.where(ids >= 0, nf, float("-inf"))
+                             .amax(), min=0.0).reshape(1)
+    return xb, norms(x, "bf16"), nf, pn_max
+
+
+def prep(x: torch.Tensor, ids: Optional[torch.Tensor] = None):
+    """The bf16 prep pass of (rows, d) f32 ``x`` (and its int32 ``ids``,
+    for candidates): :func:`prep_plain`'s outputs.  CPU tensors run
+    :func:`prep_plain`; CUDA tensors launch the kernel or raise."""
+    global prep_launches
+    if x.device.type == "cpu":
+        return prep_plain(x, ids)
+    rows, d = x.shape
+    dev = x.device
+    xb = torch.empty((rows, pad16(d)), dtype=torch.bfloat16, device=dev)
+    ns = torch.empty((rows,), dtype=torch.float32, device=dev)
+    nf = torch.empty((rows,), dtype=torch.float32, device=dev)
+    pn_max = (torch.zeros((1,), dtype=torch.float32, device=dev)
+              if ids is not None else None)
+    lib = _lib_bf16()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mxu_select_bf16_prep_launch(
+            x.data_ptr(), None if ids is None else ids.data_ptr(), rows, d,
+            pad16(d), xb.data_ptr(), ns.data_ptr(), nf.data_ptr(),
+            None if pn_max is None else pn_max.data_ptr(), stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"mxu_select_bf16 prep launch failed: "
+            f"{lib.mxu_select_bf16_error_string(rc).decode()} (code {rc}; "
+            f"rows={rows} d={d})")
+    prep_launches += 1
+    return xb, ns, nf, pn_max
 
 
 def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
@@ -100,18 +222,21 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
     n_q, n_c, d = check_select_args(queries, q_ids, pts_il, cid_il, k, m,
                                     d_real, precision)
     k, m = int(k), int(m)
-    threads, tile = pick_launch(d, k, m)
+    bf16 = precision == "bf16"
+    plan = pick_launch_bf16(d, k, m) if bf16 else pick_launch(d, k, m)
     device = queries.device
     if device.type == "cpu":
         return select_plain(queries, q_ids, pts_il, cid_il, k, m, d_real,
                             exclude_self, precision)
     if device.type != "cuda":
         raise ValueError(f"select runs on CPU or CUDA tensors, got {device}")
-    out_i = torch.empty((n_q, k), dtype=torch.int32, device=device)
-    out_s = torch.empty((n_q, k), dtype=torch.float32, device=device)
-    cert = torch.empty((n_q,), dtype=torch.bool, device=device)
+    if bf16:
+        return _launch_bf16(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                            exclude_self, plan, None)
+    out_i, out_s, cert = _outputs(n_q, k, device)
     if n_q == 0:
         return out_i, out_s, cert
+    threads, tile = plan
     coef = float(dot_error_bound(1.0, 0.0, int(d_real), precision))
     lib = _lib()
     with torch.cuda.device(device):
@@ -119,8 +244,8 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
         rc = lib.mxu_select_launch(
             queries.data_ptr(), q_ids.data_ptr(), pts_il.data_ptr(),
             cid_il.data_ptr(), n_q, n_c, d, k, m, int(bool(exclude_self)),
-            int(precision == "bf16"), coef, threads, tile, out_i.data_ptr(),
-            out_s.data_ptr(), cert.data_ptr(), stream)
+            coef, threads, tile, out_i.data_ptr(), out_s.data_ptr(),
+            cert.data_ptr(), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"mxu_select launch failed: "
@@ -128,3 +253,65 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
             f"C={n_c} d={d} k={k} m={m} threads={threads} tile={tile})")
     launches += 1
     return out_i, out_s, cert
+
+
+def _outputs(n_q: int, k: int, device):
+    return (torch.empty((n_q, k), dtype=torch.int32, device=device),
+            torch.empty((n_q, k), dtype=torch.float32, device=device),
+            torch.empty((n_q,), dtype=torch.bool, device=device))
+
+
+def _launch_bf16(queries, q_ids, pts_il, cid_il, k: int, m: int,
+                 d_real: int, exclude_self: bool, plan, scores):
+    """The bf16 tier on CUDA tensors: both prep passes, then the
+    tensor-core selection with launch ``plan`` (pick_launch_bf16);
+    ``scores``, when not None, is an (M, C) f32 tensor the kernel fills
+    with every score it computes."""
+    global launches_bf16
+    n_q, n_c = queries.shape[0], pts_il.shape[0]
+    d = queries.shape[1]
+    device = queries.device
+    out_i, out_s, cert = _outputs(n_q, k, device)
+    if n_q == 0:
+        return out_i, out_s, cert
+    rows, kc, qres = plan
+    coef = float(dot_error_bound(1.0, 0.0, int(d_real), "bf16"))
+    lib = _lib_bf16()
+    qb, qns, qnf, _ = prep(queries)
+    pb, pns, _, pn_max = prep(pts_il, cid_il)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.mxu_select_bf16_launch(
+            qb.data_ptr(), qns.data_ptr(), qnf.data_ptr(), q_ids.data_ptr(),
+            pb.data_ptr(), pns.data_ptr(), cid_il.data_ptr(),
+            pn_max.data_ptr(), n_q, n_c, pad16(d), k, m,
+            int(bool(exclude_self)), coef, rows, kc, int(qres),
+            out_i.data_ptr(), out_s.data_ptr(), cert.data_ptr(),
+            None if scores is None else scores.data_ptr(), stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"mxu_select_bf16 launch failed: "
+            f"{lib.mxu_select_bf16_error_string(rc).decode()} (code {rc}; "
+            f"M={n_q} C={n_c} d={d} k={k} m={m} rows={rows} kc={kc} "
+            f"qres={qres})")
+    launches_bf16 += 1
+    return out_i, out_s, cert
+
+
+def _select_bf16_with_scores(queries, q_ids, pts_il, cid_il, k: int, m: int,
+                             d_real: int, exclude_self: bool):
+    """``select(..., precision='bf16')`` on CUDA tensors, plus the (M, C)
+    f32 tile of every score the kernel computed, before masking: how the
+    checks of the tensor-core sum measure delta_max against the plain
+    tile (``scorer.score_band``).  No solve calls it."""
+    n_q, n_c, d = check_select_args(queries, q_ids, pts_il, cid_il, k, m,
+                                    d_real, "bf16")
+    if queries.device.type != "cuda":
+        raise ValueError(f"the bf16 score dump needs CUDA tensors, got "
+                         f"{queries.device}")
+    k, m = int(k), int(m)
+    scores = torch.empty((n_q, n_c), dtype=torch.float32,
+                         device=queries.device)
+    out = _launch_bf16(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                       exclude_self, pick_launch_bf16(d, k, m), scores)
+    return out + (scores,)

@@ -6,8 +6,10 @@ each 128-slot block's first m, selects the first k of the kept pool, and
 certifies the rows whose selection is provably a true top-k set
 (``mxu/topk.py``).  :func:`select_plain` is the whole selection of the
 brute route -- the reference's ``solve_blocks_xla`` -- and the plain
-version of the kernel ``csrc/mxu_select.cu`` (``mxu/kernel.py``): the same
-arithmetic written step by step, so the two agree bit for bit on the card:
+version of the kernels ``csrc/mxu_select.cu`` and ``csrc/mxu_select_bf16.cu``
+(``mxu/kernel.py``): the same arithmetic written step by step, so the f32
+kernel agrees with it bit for bit on the card (the bf16 one sums q.p on
+tensor cores in its own order, within the band its source states):
 
   * norms and ``q.p`` summed in order over axes 0..d-1, every op rounded
     on its own; score ``(qn + pn) - 2 * qp``;
@@ -139,6 +141,17 @@ def block_fold(s: torch.Tensor, ids: torch.Tensor, k: int, m: int,
     kplus = torch.minimum(rem, key_score(pool[..., k]))
     cert = kplus >= sel_s[..., k - 1] + 2.0 * err_b
     return key_id(pool[..., :k]), sel_s, cert
+
+
+def score_band(s_got: torch.Tensor, s_plain: torch.Tensor,
+               cid_il: torch.Tensor) -> torch.Tensor:
+    """Per row, the largest |s_got - s_plain| over the real candidates
+    (cid_il >= 0) of two (M, C) unmasked score tiles: 2 * delta_max, the
+    band within which a fold of ``s_got`` selects the scores a fold of
+    ``s_plain`` selects (order statistics move at most as far as the
+    scores)."""
+    diff = (s_got - s_plain).abs()
+    return torch.where(cid_il[None, :] >= 0, diff, 0.0).amax(dim=1)
 
 
 def check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,

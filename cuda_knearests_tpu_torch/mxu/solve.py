@@ -2,9 +2,9 @@
 recall-bounded.
 
 Counterpart of ``cuda_knearests_tpu/mxu/solve.py``.  Every query is scored
-against every stored point by the selection kernel (``mxu/kernel.py``,
-``csrc/mxu_select.cu``) under the TPU-KNN per-block fold at
-``recall_target``, with per-row certificates.  The solve then follows the
+against every stored point by the selection kernel (``mxu/kernel.py``:
+``csrc/mxu_select.cu``, or ``csrc/mxu_select_bf16.cu`` at bf16) under the
+TPU-KNN per-block fold at ``recall_target``, with per-row certificates.  The solve then follows the
 one-sync discipline of ``api._finalize``: one batched fetch of the
 selection (ids and certificates), exact distances computed on the host
 (:func:`_host_rescore`), and one more fetch only when uncertified rows go

@@ -11,7 +11,10 @@ The kernels and the plain versions round every multiply and add on its
 own (the kernels are built with ``--fmad=false``), so d2, scores, ids and
 certificates must be equal, not close (NaN deficit flags in the same
 places).  The CPU solves run the plain versions with the same arithmetic,
-so GPU and CPU results must be equal too.
+so GPU and CPU results must be equal too.  The one exception is the bf16
+selection (``csrc/mxu_select_bf16.cu``), whose q.p the tensor cores sum in
+their own order: it is held to the contract stated in its source (equal
+on exact inputs, within the certification band elsewhere).
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ from cuda_knearests_tpu_torch.io import generate_blue_noise, generate_clustered
 from cuda_knearests_tpu_torch import mxu
 from cuda_knearests_tpu_torch.mxu import kernel as mk
 from cuda_knearests_tpu_torch.mxu import scorer as ms
-from cuda_knearests_tpu_torch.mxu.topk import interleave_slots
+from cuda_knearests_tpu_torch.mxu.topk import dot_error_bound, interleave_slots
 from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
 
@@ -80,50 +83,185 @@ def _equal_nan(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
+def _select_inputs(rng, n, d, kind, device):
+    """(points, (queries, q_ids, pts_il, cid_il)) of a self-solve, 300
+    queries, on lattice coordinates (exact partial sums), random ones, or
+    'separated' 10-point blobs of radius ~1e-3 at +-e_i (n = 20*d): a
+    row's 9 nearest others are its blob and the next blob is ~sqrt(2)
+    away, a gap that clears the bf16 band, so bf16 rows certify."""
+    if kind == "separated":
+        centers = np.concatenate([np.eye(d), -np.eye(d)])
+        pts = np.repeat(centers, 10, axis=0) + rng.normal(size=(n, d)) * 1e-3
+    elif kind == "lattice":
+        pts = rng.integers(0, 6, (n, d)) * 2.5
+    else:
+        pts = rng.random((n, d)) * 100
+    pts = pts.astype(np.float32)
+    c_pad = -(-n // 128) * 128
+    il = interleave_slots(c_pad)
+    pp = np.zeros((c_pad, d), np.float32)
+    pp[:n] = pts
+    cid = np.where(il < n, il, -1).astype(np.int32)
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                    device=device)
+    return pts, (dev(pts[:300]), dev(np.arange(min(300, n), dtype=np.int32)),
+                 dev(pp[il]), dev(cid))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [1, 3, 17, 128])
-def test_select_kernel_matches_plain_bit_for_bit(cuda_device, d, precision):
+def test_select_kernel_matches_plain_bit_for_bit(cuda_device, d):
     rng = np.random.default_rng(d)
-    for n, lattice in ((1000, True), (1000, False), (40, False)):
-        pts = (rng.integers(0, 6, (n, d)) * 2.5 if lattice
-               else rng.random((n, d)) * 100).astype(np.float32)
-        c_pad = -(-n // 128) * 128
-        il = interleave_slots(c_pad)
-        pp = np.zeros((c_pad, d), np.float32)
-        pp[:n] = pts
-        cid = np.where(il < n, il, -1).astype(np.int32)
-        dev = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
-                                        device=cuda_device)
-        q, qid = dev(pts[:300]), dev(np.arange(min(300, n), dtype=np.int32))
-        args = (q, qid, dev(pp[il]), dev(cid))
+    for n, kind in ((1000, "lattice"), (1000, "random"), (40, "random")):
+        _, args = _select_inputs(rng, n, d, kind, cuda_device)
         for k in (1, 10, 50, 128):
             for m in sorted({1, 3, min(k, 128)}):
                 for excl in (True, False):
                     before = mk.launches
-                    got = mk.select(*args, k, m, d, excl, precision)
+                    got = mk.select(*args, k, m, d, excl, "f32")
                     assert mk.launches == before + 1
-                    want = ms.select_plain(*args, k, m, d, excl, precision)
+                    want = ms.select_plain(*args, k, m, d, excl, "f32")
                     torch.cuda.synchronize()
                     for g, w in zip(got, want):
-                        assert torch.equal(g, w), (n, lattice, k, m, excl)
+                        assert torch.equal(g, w), (n, kind, k, m, excl)
+
+
+def _certified_exact(pts, q, ids, cert, k, excl):
+    """Every certified row's ids are a true top-k set of the f32 points in
+    f64 arithmetic (ties allowed): as many as there are candidates, up to
+    k, none beyond the true k-th distance."""
+    p = torch.as_tensor(pts, device=q.device, dtype=torch.float64)
+    rows = torch.nonzero(cert).flatten()
+    d2 = ((q[rows].double()[:, None, :] - p[None]) ** 2).sum(-1)
+    if excl:
+        d2[torch.arange(rows.numel(), device=q.device), rows] = float("inf")
+    avail = int(min(k, pts.shape[0] - (1 if excl else 0)))
+    kth = torch.topk(d2, avail, dim=1, largest=False).values[:, -1]
+    sel = ids[rows].long()
+    assert bool((sel[:, :avail] >= 0).all())
+    assert bool((sel[:, avail:] < 0).all())
+    got = torch.gather(d2, 1, sel[:, :avail])
+    assert bool((got <= kth[:, None]).all())
+
+
+def _bf16_within_band(got, want, dump, s_plain, args, d):
+    """Every selected score within the row's 2 * delta_max (measured from
+    the kernel's own scores ``dump``), and 2 * delta_max within the f32
+    term of B, 4 * (d + 8) * eps32 * (qn + pn_max)."""
+    q, _, p, cid = args
+    band = ms.score_band(dump, s_plain, cid)
+    f32_term = dot_error_bound(ms.norms(q), mk.prep_plain(p, cid)[3], d,
+                               "f32")
+    assert bool((band <= f32_term).all())
+    fin = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    diff = torch.where(fin, (got[1] - want[1]).abs(), 0.0)
+    assert bool((diff <= band[:, None]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 17, 128])
+def test_select_bf16_kernel_contract(cuda_device, d):
+    """The bf16 kernel's contract: prep equal to its plain twin bit for bit;
+    on lattice inputs the selection equal bit for bit; elsewhere every
+    selected score within 2 * delta_max of the plain version's, with
+    delta_max measured from the kernel's own scores and 2 * delta_max
+    within the f32 term of B; certified rows exact, and on separated blobs
+    at m = k at least 90% of the rows certified."""
+    rng = np.random.default_rng(100 + d)
+    for n, kind in ((1000, "lattice"), (1000, "random"), (40, "random"),
+                    (20 * d, "separated")):
+        pts, args = _select_inputs(rng, n, d, kind, cuda_device)
+        q, _, p, cid = args
+        for got, want in zip(mk.prep(p, cid), mk.prep_plain(p, cid)):
+            assert torch.equal(got, want)
+        s_plain = ms.score_tile(q, p, "bf16")
+        kex = (((9, True), (10, False)) if kind == "separated" else
+               [(k, e) for k in (1, 10, 50, 128) for e in (True, False)])
+        for k, excl in kex:
+            for m in sorted({1, 3, min(k, 128)}):
+                before = mk.launches, mk.launches_bf16
+                *got, dump = mk._select_bf16_with_scores(*args, k, m, d,
+                                                         excl)
+                assert (mk.launches, mk.launches_bf16) == (
+                    before[0], before[1] + 1)
+                want = ms.select_plain(*args, k, m, d, excl, "bf16")
+                torch.cuda.synchronize()
+                what = (n, kind, k, m, excl)
+                if kind == "lattice":
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), what
+                _bf16_within_band(got, want, dump, s_plain, args, d)
+                _certified_exact(pts, q, got[0], got[2], k, excl)
+                if kind == "separated" and m == k:
+                    assert float(got[2].float().mean()) >= 0.9, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,m,plan", [
+    (300, 10, 1, (128, 128, True)),     # three d-chunks, the last ragged
+    (1000, 10, 3, (128, 64, False)),    # queries streamed with candidates
+    (3, 900, 128, (16, 16, True)),      # lists that fit one 16-row warp
+])
+def test_select_bf16_kernel_launch_shapes(cuda_device, d, k, m, plan):
+    """The bf16 kernel's other launch shapes against select_plain: on
+    lattice inputs bit for bit; on random ones within the band."""
+    assert mk.pick_launch_bf16(d, k, m) == plan
+    rng = np.random.default_rng(d + k)
+    for kind in ("lattice", "random"):
+        pts, args = _select_inputs(rng, 1000, d, kind, cuda_device)
+        args = (args[0][:40].contiguous(), args[1][:40].contiguous(),
+                *args[2:])
+        s_plain = ms.score_tile(args[0], args[2], "bf16")
+        *got, dump = mk._select_bf16_with_scores(*args, k, m, d, True)
+        want = ms.select_plain(*args, k, m, d, True, "bf16")
+        torch.cuda.synchronize()
+        if kind == "lattice":
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        _bf16_within_band(got, want, dump, s_plain, args, d)
+        _certified_exact(pts, args[0], got[0], got[2], k, True)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_gpu_solve_general_equals_cpu(cuda_device, precision):
+    """f32: the GPU solve equals the CPU solve.  bf16 (q.p on tensor
+    cores): refined rows equal up to exact distance ties; unrefined, rows
+    certified on both devices agree and recall meets the fold's bound."""
     rng = np.random.default_rng(5)
     pts = (rng.random((3000, 24)) * 10).astype(np.float32)
     for rt, refine in ((1.0, "brute"), (0.6, "none")):
-        mk.launches = 0
+        mk.launches = mk.launches_bf16 = 0
         g = mxu.solve_general(pts, k=10, recall_target=rt, refine=refine,
                               precision=precision, device=cuda_device)
-        assert mk.launches == 1 and g.backend == "cuda"
+        assert g.backend == "cuda"
+        assert (mk.launches, mk.launches_bf16) == (
+            (1, 0) if precision == "f32" else (0, 1))
         c = mxu.solve_general(pts, k=10, recall_target=rt, refine=refine,
                               precision=precision, device="cpu")
-        np.testing.assert_array_equal(g.neighbors, c.neighbors)
-        np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
-        np.testing.assert_array_equal(g.certified, c.certified)
+        if precision == "f32":
+            np.testing.assert_array_equal(g.neighbors, c.neighbors)
+            np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+            np.testing.assert_array_equal(g.certified, c.certified)
+            continue
+        if refine == "brute":
+            np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+            for r, col in zip(*np.nonzero(g.neighbors != c.neighbors)):
+                assert int((c.dists_sq[r] == c.dists_sq[r, col]).sum()) > 1
+            continue
+        both = g.certified & c.certified
+        np.testing.assert_array_equal(np.sort(g.neighbors[both], axis=1),
+                                      np.sort(c.neighbors[both], axis=1))
+        p64 = pts.astype(np.float64)
+        d2 = ((p64[:, None, :] - p64[None]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        kth = np.sort(d2, axis=1)[:, 9]
+        band = 2 * dot_error_bound((p64 ** 2).sum(1), (p64 ** 2).sum(1).max(),
+                                   24, "bf16")
+        got = np.take_along_axis(d2, g.neighbors.astype(np.int64), axis=1)
+        recall = float((got <= (kth + band)[:, None]).sum()) / got.size
+        assert recall >= g.bound
 
 
 @pytest.mark.cuda
