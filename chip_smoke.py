@@ -31,6 +31,10 @@ H100: the kernels target sm_90a).  It imports only the port
        and every selected score within the row's 2*delta_max (delta_max
        measured from the kernel's own scores); certified rows exact against
        an f64 brute force, and on the blobs at m = k at least 90% certified;
+       then the f32 selection alone, and its prep pass, bit for bit at
+       ``F32_WIDE``: d=64 (resident queries, two d-chunks), d=300 and
+       d=2,048 (queries streamed in d-chunks), and k=900 and 1,707 in
+       16-row blocks;
   3. runs the grid main path -- ``KnnProblem.prepare(points).solve()`` then
      ``get_knearests_original()`` -- on 900k blue noise at k=10, 300k blue
      noise at k=50 and a clustered 300k cloud (ring_radius=1, several
@@ -50,10 +54,17 @@ H100: the kernels target sm_90a).  It imports only the port
   6. runs the grid main path with ``KnnConfig(kernel='blocked')`` on the
      900k/k=10 cloud: the blocked kernel launched, deficit rows counted,
      exact vs cKDTree, and the same distances as the one-stage path;
-  7. times each kernel at its main path's shapes against its plain version
+  7. runs the grid main path at k=1000 on 100k blue noise, where no class
+     kernel holds the lists and every class takes the streamed route: no
+     class-kernel launch, exact vs cKDTree on 2,000 sampled rows, each
+     streamed class's peak allocation within the plan's memory model, the
+     route of each class and the streamed route's time printed;
+  8. times each kernel at its main path's shapes against its plain version
      (the selection's plain version on 1,024 of the queries), a PyTorch
-     library yardstick and its bound, and requires the timed outputs to
-     equal the plain version's (bf16: to meet the contract above).
+     library yardstick and its bound (at f32 also the --fmad=false
+     ceiling, twice the bound), and requires the timed outputs to equal
+     the plain version's (bf16: to meet the contract above); the bf16
+     selection also at m = k, where its fold takes the m >= 2 path.
 
 Any failed check exits non-zero without printing a result.  The last three
 lines are the card, one JSON object of kernel measurements, and
@@ -132,12 +143,12 @@ def quiet(fn):
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
     saved = (cs.launches, cs.blocked_launches, mk.launches,
-             mk.launches_bf16, mk.prep_launches)
+             mk.launches_bf16, mk.prep_launches, mk.prep_launches_f32)
     try:
         return fn()
     finally:
         (cs.launches, cs.blocked_launches, mk.launches, mk.launches_bf16,
-         mk.prep_launches) = saved
+         mk.prep_launches, mk.prep_launches_f32) = saved
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -473,7 +484,55 @@ def select_checks() -> tuple:
               f"each exact; largest bf16 2*delta_max/B {ratio:.3e}, "
               f"/f32 term {ratio32:.3e}; largest bf16 |score difference| "
               f"{err16:.6g})", flush=True)
+    err = max(err, select_checks_f32_wide(rng))
     return err, err16, ratio, ratio32
+
+
+# f32 launch shapes beyond select_checks' grid: (d, k, m) with resident
+# queries in two d-chunks, streamed queries (a ragged last chunk; 128
+# chunks), and lists past the old f32 limit in 16-row blocks (at d=13 with
+# narrower d-chunks).
+F32_WIDE = ((64, 10, 3), (300, 1, 1), (300, 10, 1), (300, 50, 3),
+            (300, 128, 128), (2048, 1, 1), (2048, 10, 10), (2048, 50, 3),
+            (2048, 128, 1), (3, 900, 128), (3, 900, 1), (3, 900, 3),
+            (13, 1707, 3))
+
+
+def select_checks_f32_wide(rng) -> float:
+    """mxu_select (f32) against select_plain bit for bit at ``F32_WIDE``
+    on 40 of 1,000 lattice and random points, exclude_self on and off,
+    and its prep pass against the plain prep.  Returns the largest
+    |score difference| (0 when equal)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    err, plans = 0.0, set()
+    for d, k, m in F32_WIDE:
+        plans.add(mk.pick_launch(d, k, m))
+        for kind in ("lattice", "random"):
+            pts = (rng.integers(0, 6, (1000, d)) * 2.5 if kind == "lattice"
+                   else rng.random((1000, d)) * 100).astype(np.float32)
+            qid, pts_il, cid_il = select_inputs(pts, 40, True)
+            args = [torch.as_tensor(a, device=DEV)
+                    for a in (pts[:40], qid, pts_il, cid_il)]
+            for a, b in zip(quiet(lambda: mk.prep_f32(args[2], args[3])),
+                            mk.prep_f32_plain(args[2], args[3])):
+                require(torch.equal(a, b),
+                        f"f32 prep d={d}: differs from prep_f32_plain")
+            for excl in (True, False):
+                what = f"select d={d} {kind} f32 k={k} m={m} excl={excl}"
+                want = ms.select_plain(*args, k, m, d, excl, "f32")
+                got = quiet(lambda: mk.select(*args, k, m, d, excl, "f32"))
+                err = max(err, require_equal(
+                    what, (got[1], got[0], got[2]),
+                    (want[1], want[0], want[2])))
+    print(f"  mxu_select f32 at (d, k, m) {list(F32_WIDE)}: equal to "
+          f"select_plain, prep equal to prep_f32_plain; launch plans "
+          f"(rows, kc, queries resident) {sorted(plans)}", flush=True)
+    return err
 
 
 # -- phase 3/4: the grid main path ---------------------------------------------
@@ -649,7 +708,7 @@ def solve_certificates(prob, cfg):
                  .certified.cpu().numpy())
 
 
-# -- phase 7: timing at the main path's class shape -----------------------------
+# -- phase 8: timing at the main path's class shape -----------------------------
 
 def class_timing(name: str, prob, cfg) -> dict:
     """The class kernel ``cfg`` selects over every class of a prepared
@@ -990,6 +1049,11 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
         err = require_equal(what, (got[1], got[0], got[2]),
                             (want[1], want[0], want[2]))
         ratio = ratio32 = 0.0
+        prep_ms = quiet(lambda: cuda_ms(lambda: (mk.prep_f32(q),
+                                                 mk.prep_f32(p, cid)), 3))
+        extra = (f"; plan (rows, kc, queries resident) "
+                 f"{mk.pick_launch(d, k, m)}; prep passes {prep_ms:.3f} ms "
+                 f"of the kernel time")
     sub_ms = quiet(lambda: cuda_ms(
         lambda: mk.select(qs, qids, p, cid, k, m, d, True, precision), 3))
     plain_ms = cuda_ms(lambda: ms.select_plain(qs, qids, p, cid, k, m, d,
@@ -1015,17 +1079,22 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
     nbytes = (4 * n * d + 4 * pts_il.size + 4 * n + 4 * cid_il.size
               + 8 * n * k + n)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    # at f32 each (pair, axis) is a separate FMUL and FADD (bit identity
+    # with the plain version), so the FP32 pipes, rated for fused
+    # multiply-adds, need twice the operations bound
+    ceiling = "" if bf16 else (f"; --fmad=false ceiling {2 * t_ops:.4f} ms "
+                               f"(one instruction per operation)")
     print(f"  {label}: select kernel {ms_full:.3f} ms over {n} queries (m="
           f"{m}); on {sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms ({'within the contract' if bf16 else 'equal outputs'}"
           f"{extra}); matmul+topk {library_ms:.3f} ms; {flops} ops -> "
-          f"{t_ops:.4f} ms at {peak / 1e12:.0f} TFLOP/s, {nbytes} bytes -> "
-          f"{t_bytes:.4f} ms", flush=True)
-    return {"ms": ms_full, "plain_ms": plain_ms,
-            "plain_queries": int(sub.numel()), "ms_on_plain_queries": sub_ms,
-            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}, \
-        err, (ratio, ratio32)
+          f"{t_ops:.4f} ms at {peak / 1e12:.0f} TFLOP/s{ceiling}, {nbytes} "
+          f"bytes -> {t_bytes:.4f} ms", flush=True)
+    out = {"ms": ms_full, "plain_ms": plain_ms,
+           "plain_queries": int(sub.numel()), "ms_on_plain_queries": sub_ms,
+           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return out, err, (ratio, ratio32)
 
 
 def path_a():
@@ -1077,7 +1146,31 @@ def path_a():
                                             rows128, ref128)
         err[precision] = max(err[precision], e)
         ratio = tuple(map(max, ratio, r))
+    # the bf16 fold at m >= 2, which the recall-bounded bf16 runs (m=1)
+    # do not reach
+    for label, pts in (("300k x 3", pts3), ("100k x 128", pts128)):
+        fold_timing(f"{label} bf16", pts, k, k)
     return launches, timing, err, ratio
+
+
+def fold_timing(label: str, points: np.ndarray, k: int, m: int) -> float:
+    """The bf16 selection over all queries at m >= 2, where each row's
+    fold runs select_fold.cuh's ``fold_step``: ms per call (CUDA events,
+    mean of 3 after a warm-up, prep passes included)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    n, d = points.shape
+    qid, pts_il, cid_il = select_inputs(points, n, True)
+    q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
+                        for a in (points, qid, pts_il, cid_il)]
+    t = quiet(lambda: cuda_ms(
+        lambda: mk.select(q, qid_t, p, cid, k, m, d, True, "bf16"), 3))
+    print(f"  {label}: select kernel {t:.3f} ms over {n} queries at m={m} "
+          f"(the fold's m >= 2 path)", flush=True)
+    return t
 
 
 # -- phase 6: the grid path with the blocked kernel ----------------------------
@@ -1118,6 +1211,103 @@ def path_b(points: np.ndarray, kpass_prob) -> tuple:
           f"{int((a_i != b_i).sum())} entries inside distance ties",
           flush=True)
     return prob, cfg, launches
+
+
+# -- phase 7: the grid path at a k no class kernel holds -----------------------
+
+def streamed_path(points: np.ndarray, k: int, runs: int) -> dict:
+    """``KnnProblem.prepare(points).solve()`` at k = ``k`` (>= 893: the
+    class kernels' lists do not fit one block, so every class takes the
+    streamed route): no class-kernel launch, at most two host round trips,
+    every row certified after the fallback, and exact against cKDTree on
+    2,000 sampled rows (tie-aware), and in one more solve each streamed
+    class's peak allocation (``torch.cuda.max_memory_allocated``) within
+    the model the plan routes by.  Prints each class's route and streaming
+    geometry, the solve times, and the streamed route's time and memory
+    in that solve."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.ops import adaptive
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    cfg = pt.KnnConfig(k=k)
+    prob, prep_s = prepared(points, cfg)
+    classes = prob.aplan.classes
+    require(all(cp.route == "streamed" for cp in classes),
+            f"k={k}: a class was routed to the kernel")
+    cs.launches = cs.blocked_launches = 0
+    times, max_syncs = [], 0
+    for i in range(1 + runs):
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        res = prob.solve()
+        dt = time.perf_counter() - t0
+        syncs = dispatch.stats().host_syncs
+        require(syncs <= dispatch.SYNC_BUDGET,
+                f"k={k}: solve made {syncs} host round trips")
+        max_syncs = max(max_syncs, syncs)
+        if i:
+            times.append(dt)
+    require(cs.launches == cs.blocked_launches == 0,
+            f"k={k}: a class kernel was launched on the streamed path")
+    n = prob.grid.n_points
+    nbrs = prob.get_knearests_original()
+    require(nbrs.shape == (n, k), f"k={k}: result shape {nbrs.shape}")
+    require(bool(np.isfinite(prob.get_dists_sq()).all()),
+            f"k={k}: non-finite distances")
+    require(bool(np.asarray(res.certified).all()),
+            f"k={k}: rows left uncertified after the fallback")
+    rows = np.sort(np.random.default_rng(17).permutation(n)[:2000])
+    t0 = time.perf_counter()
+    check_exact(points, nbrs, rows, k, cKDTree(points.astype(np.float64)))
+    check_s = time.perf_counter() - t0
+    streamed_ms, peak_mb = [], []
+    orig = adaptive._streamed_class
+
+    def timed(grid, cp, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        orig(grid, cp, *a, **kw)
+        torch.cuda.synchronize()
+        streamed_ms.append((time.perf_counter() - t1) * 1e3)
+        # the class's solve-time temporaries against the model the plan
+        # routes by
+        peak = torch.cuda.max_memory_allocated() - base
+        model = (adaptive._SLOT_SOLVE_BYTES * cp.n_sc * cp.qcap
+                 + adaptive.stream_step_bytes(cp.step_rows, cp.qcap,
+                                              cp.ccap, k))
+        peak_mb.append((peak / 2**20, model / 2**20))
+        require(peak <= model, f"k={k}: a streamed class allocated {peak} "
+                f"bytes, above its modeled {model}")
+
+    adaptive._streamed_class = timed
+    try:
+        adaptive.solve_adaptive(prob.grid, cfg, prob.aplan)
+    finally:
+        adaptive._streamed_class = orig
+    med = float(np.median(times))
+    print(f"  {n // 1000}k blue noise k={k}: classes (route, supercells "
+          f"a step, tile, qcap, ccap, radius, supercells) "
+          f"{[(cp.route, cp.step_rows, adaptive.stream_tile(cp.ccap), cp.qcap, cp.ccap, cp.radius, cp.n_sc) for cp in classes]}"
+          f"\n    prepare {prep_s:.3f} s; solve median of {runs} "
+          f"{med * 1e3:.3f} ms (runs ms "
+          f"{[round(t * 1e3, 3) for t in times]}); streamed route "
+          f"{sum(streamed_ms):.3f} ms of one more solve (host clock between "
+          f"synchronizations, by class {[round(t, 3) for t in streamed_ms]})"
+          f"\n    streamed classes' peak allocation (torch.cuda."
+          f"max_memory_allocated) against the plan's model, MiB "
+          f"{[(round(a, 3), round(b, 3)) for a, b in peak_mb]}"
+          f"\n    class-kernel launches 0; fallback rows "
+          f"{int(res.uncert_count)}; host round trips {max_syncs}; exact vs "
+          f"cKDTree on {rows.size} rows, checked in {check_s:.1f} s",
+          flush=True)
+    return {"median_s": med, "streamed_ms": sum(streamed_ms),
+            "fallback_rows": int(res.uncert_count)}
 
 
 _T0 = time.perf_counter()
@@ -1186,12 +1376,15 @@ def main() -> int:
 
     phase("brute route at full width")
     mk.launches = mk.launches_bf16 = mk.prep_launches = 0
+    mk.prep_launches_f32 = 0
     select_launches, select_timings, err, ratio = path_a()
     require(mk.launches == select_launches["f32"] > 0
             and mk.launches_bf16 == select_launches["bf16"] > 0
-            and mk.prep_launches == 2 * mk.launches_bf16,
+            and mk.prep_launches == 2 * mk.launches_bf16
+            and mk.prep_launches_f32 == 2 * mk.launches,
             f"brute route: selection launches miscounted ({mk.launches} "
-            f"f32, {mk.launches_bf16} bf16, {mk.prep_launches} prep)")
+            f"f32, {mk.launches_bf16} bf16, {mk.prep_launches_f32} f32 "
+            f"prep, {mk.prep_launches} bf16 prep)")
     max_err["mxu_select"] = max(max_err["mxu_select"], err["f32"])
     max_err["mxu_select_bf16"] = max(max_err["mxu_select_bf16"],
                                      err["bf16"])
@@ -1203,6 +1396,9 @@ def main() -> int:
     phase("grid main path with the blocked kernel")
     prob_b, cfg_b, blocked_launches = path_b(pts900, prob10)
     require(blocked_launches > 0, "the blocked path launched no kernel")
+
+    phase("grid main path at k=1000 (streamed route)")
+    streamed_path(generate_blue_noise(100_000, seed=1000), 1000, 5)
 
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)

@@ -24,13 +24,15 @@
 //     id and non-finite scores +inf (missing), and stores s column-major
 //     into a score tile whose row stride R + 4 makes both the stores and
 //     the fold's reads free of bank conflicts.  Then one thread per query
-//     row folds its 64 scores as mxu_select.cu does: skip missing scores,
-//     keep the block list of m and the running list of k, lower kplus with
-//     everything left out, flush the block list every 128 candidates, and
-//     take the direct path when m >= k or m >= 128.  A block list of one
-//     (m = 1, the recall-bounded runs at scale) is two registers updated
-//     once per step, branch free.  The certificate is written at the end:
-//     kplus >= t + 2*B, B = coef * (qn_f + pn_max).
+//     row folds its 64 scores with select_fold.cuh's RowFold, shared with
+//     mxu_select.cu: one branch-free pass leaves out every score above the
+//     list's last entry, the rest enter the block list of m or the running
+//     list of k, kplus falls with everything left out, the block list
+//     flushes every 128 candidates, and the direct path runs when m >= k
+//     or m >= 128.  A block list of one (m = 1, the recall-bounded runs at
+//     scale) is two registers updated once per step, branch free.  The
+//     certificate is written at the end: kplus >= t + 2*B,
+//     B = coef * (qn_f + pn_max).
 //
 // The contract (against mxu/scorer.py select_plain, the plain version):
 //   * ns, nf and pn_max equal scorer.norms bit for bit (same ops, same
@@ -77,97 +79,15 @@
 // run on the caller's stream and return cudaGetLastError().
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "select_fold.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // candidate slots per fold block (topk.BLOCK)
-constexpr int kCols = 64;    // candidates per step
-constexpr int kPad = 8;      // bf16 pad of each staged row (16 bytes)
-
-__device__ __forceinline__ bool key_less(float s, int i, float es, int ei) {
-  return s < es || (s == es && i < ei);
-}
+constexpr int kPad = 8;  // bf16 pad of each staged row (16 bytes)
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Sorted (score, id) list of `len` entries of row r, entry j at j * nr + r.
-// Inserts (s, id), which must order before the last entry, and returns the
-// score of the entry pushed out.
-__device__ __forceinline__ float list_insert(float* ls, int* li, int len,
-                                             int nr, int r, float s, int id) {
-  const float out = ls[(len - 1) * nr + r];
-  int p = len - 1;
-  while (p > 0) {
-    const float ps = ls[(p - 1) * nr + r];
-    const int pi = li[(p - 1) * nr + r];
-    if (key_less(ps, pi, s, id)) break;
-    ls[p * nr + r] = ps;
-    li[p * nr + r] = pi;
-    --p;
-  }
-  ls[p * nr + r] = s;
-  li[p * nr + r] = id;
-  return out;
-}
-
-struct List {
-  float* s;
-  int* i;
-  int len;
-  float ws;  // last entry, in registers
-  int wi;
-
-  __device__ void init(int nr, int r) {
-    for (int j = 0; j < len; ++j) {
-      s[j * nr + r] = INFINITY;
-      i[j * nr + r] = -1;
-    }
-    ws = INFINITY;
-    wi = -1;
-  }
-
-  // Offer (s, id); the score of whatever is left out (the offer itself or
-  // the entry it pushed out) lowers `out_min`.
-  __device__ void offer(float sc, int id, int nr, int r, float& out_min) {
-    if (key_less(sc, id, ws, wi)) {
-      out_min = fminf(out_min, list_insert(s, i, len, nr, r, sc, id));
-      ws = s[(len - 1) * nr + r];
-      wi = i[(len - 1) * nr + r];
-    } else {
-      out_min = fminf(out_min, sc);
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -233,8 +153,6 @@ __global__ void __launch_bounds__(128) select_kernel(
   const int R = (nt >> 5) * RW;  // query rows of the block
   const int RS = R + 4;          // score tile stride (conflict free)
   const int row0 = blockIdx.x * R;
-  const bool direct = m >= k || m >= kBlock;
-  const int mb = direct ? 0 : m;
   const int qs = qres ? d16 + kPad : kc + kPad;  // staged query row stride
   const int ps = kc + kPad;                      // staged candidate stride
 
@@ -243,13 +161,7 @@ __global__ void __launch_bounds__(128) select_kernel(
   float* spn = reinterpret_cast<float*>(sp + (size_t)2 * kCols * ps);
   int* sid = reinterpret_cast<int*>(spn + 2 * kCols);
   float* ss = reinterpret_cast<float*>(sid + 2 * kCols);
-  List run{ss + (size_t)kCols * RS, nullptr, k, 0.f, 0};
-  run.i = reinterpret_cast<int*>(run.s + (size_t)k * R);
-  List blk{reinterpret_cast<float*>(run.i + (size_t)k * R), nullptr,
-           mb == 1 ? 0 : mb, 0.f, 0};
-  float b1s = INFINITY;  // the block list when mb == 1
-  int b1i = -1;
-  blk.i = reinterpret_cast<int*>(blk.s + (size_t)mb * R);
+  RowFold fold(ss + (size_t)kCols * RS, k, m, R);
 
   // The fold's row: one per lane (the first RW lanes of each warp).
   const int r = warp * RW + lane;
@@ -258,8 +170,7 @@ __global__ void __launch_bounds__(128) select_kernel(
   float qn_f = 0.f;
   if (folds) {
     qn_f = qnf[row];
-    run.init(R, r);
-    blk.init(R, r);
+    fold.init(R, r);
   }
   // The epilogue's rows: g and g + 8 of each m16 tile of the warp.
   const int g = lane >> 2, q4 = lane & 3;
@@ -318,7 +229,6 @@ __global__ void __launch_bounds__(128) select_kernel(
   };
 
   float acc[MT][kCols / 8][4];
-  float out_min = INFINITY;  // kplus
   load_step(0, 0);
   for (int step = 0; step < n_steps; ++step) {
     const int buf = step & 1;
@@ -418,72 +328,11 @@ __global__ void __launch_bounds__(128) select_kernel(
           }
       }
     __syncwarp();
-    if (folds) {
-      if (mb == 1) {
-        // A block list of one lives in registers and takes this step's
-        // best in one merge: the step's smallest score m1 (its column jm,
-        // two interleaved chains for latency), its second smallest m2 (the
-        // smallest of the rest, all left out), and on a tie for m1 the
-        // lowest id among the tied.  No branch on the data, so the lanes of
-        // a warp, which beat their block's best at different columns, stay
-        // together.  Scores are finite or +inf here (epilogue).
-        float m1a = INFINITY, m2a = INFINITY, m1b = INFINITY, m2b = INFINITY;
-        int ja = -1, jb = -1;
-#pragma unroll
-        for (int j = 0; j < kCols; j += 2) {
-          const float va = ss[j * RS + r], vb = ss[(j + 1) * RS + r];
-          m2a = fminf(m2a, fmaxf(m1a, va));
-          m2b = fminf(m2b, fmaxf(m1b, vb));
-          ja = va < m1a ? j : ja;
-          jb = vb < m1b ? j + 1 : jb;
-          m1a = fminf(m1a, va);
-          m1b = fminf(m1b, vb);
-        }
-        const float m1 = fminf(m1a, m1b);
-        const float m2 = fminf(fminf(m2a, m2b), fmaxf(m1a, m1b));
-        const int jm = m1b < m1a ? jb : ja;
-        if (jm >= 0) {
-          int id1 = ti[jm];
-          if (m2 == m1) {  // tied for the smallest: the lowest id wins
-            for (int j = 0; j < kCols; ++j)
-              if (ss[j * RS + r] == m1) id1 = min(id1, ti[j]);
-          }
-          const bool lt = key_less(m1, id1, b1s, b1i);
-          out_min = fminf(out_min, lt ? fminf(b1s, m2) : m1);
-          b1s = lt ? m1 : b1s;
-          b1i = lt ? id1 : b1i;
-        }
-      } else {
-        for (int j = 0; j < kCols; ++j) {
-          const float s = ss[j * RS + r];
-          if (isfinite(s)) {
-            if (direct) run.offer(s, ti[j], R, r, out_min);
-            else blk.offer(s, ti[j], R, r, out_min);
-          }
-        }
-      }
-      if (!direct && (c0 + kCols) % kBlock == 0) {  // block ends: pool it
-        if (mb == 1 && b1i >= 0) run.offer(b1s, b1i, R, r, out_min);
-        b1s = INFINITY;
-        b1i = -1;
-        for (int e = 0; e < blk.len; ++e) {
-          const int bi = blk.i[e * R + r];
-          if (bi < 0) break;  // missing entries trail
-          run.offer(blk.s[e * R + r], bi, R, r, out_min);
-        }
-        blk.init(R, r);
-      }
-    }
+    if (folds) fold.step(ss, ti, RS, R, r, c0);
     __syncwarp();
   }
-  if (!folds) return;
-  const float err = __fmul_rn(coef, __fadd_rn(qn_f, pn_max));
-  const float thr = __fadd_rn(run.ws, __fmul_rn(2.f, err));
-  out_cert[row] = out_min >= thr ? 1 : 0;
-  for (int j = 0; j < k; ++j) {
-    out_s[row * k + j] = run.s[j * R + r];
-    out_i[row * k + j] = run.i[j * R + r];
-  }
+  if (folds)
+    fold.finish(coef, qn_f, pn_max, row, k, R, r, out_i, out_s, out_cert);
 }
 
 }  // namespace

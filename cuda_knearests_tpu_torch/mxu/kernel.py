@@ -4,8 +4,9 @@ Counterpart of ``cuda_knearests_tpu/mxu/kernel.py`` (``select_pallas``).
 :func:`select` takes the queries, the interleaved candidates and their ids
 and returns every query's selection and certificate:
 
-  * on CUDA tensors it launches ``csrc/mxu_select.cu`` (f32, CUDA cores,
-    bit for bit the plain version) or, at bf16, the prep pass and the
+  * on CUDA tensors it launches, at f32, two prep passes and the
+    register-tiled CUDA-core selection of ``csrc/mxu_select.cu`` (bit for
+    bit the plain version) or, at bf16, two prep passes and the
     tensor-core selection of ``csrc/mxu_select_bf16.cu`` (norms bit for
     bit, q.p within the certification band: see that source's contract),
     or raises;
@@ -13,9 +14,11 @@ and returns every query's selection and certificate:
     plain torch with the same per-op rounding.
 
 The TPU kernel kept the candidate set and a (G*m, 128) pool in VMEM and
-was gated on fitting it (``kernel_fits``); these kernels stream candidates
-and keep per-query lists, so their only gate is shared memory per block
-(:func:`pick_launch`, :func:`pick_launch_bf16`), refused with a typed
+was gated on fitting it (``kernel_fits``); these kernels stream candidates,
+and queries too when d is large, and keep per-query lists, so their only
+gate is shared memory per block (:func:`pick_launch`,
+:func:`pick_launch_bf16`; both accept the same (d, k, m): every d, and k
+up to what a 16-row bf16 block's lists hold), refused with a typed
 :class:`LaunchBudgetError`.
 """
 
@@ -32,54 +35,80 @@ from ..utils.memory import LaunchBudgetError
 from .scorer import check_select_args, norms, select_plain
 from .topk import BLOCK, dot_error_bound
 
-# Threads (queries) per block, widest first.
-_THREADS = (128, 64, 32)
-# Candidates per shared-memory tile: divisors of BLOCK, widest first.
-_TILES = (128, 64, 32, 16, 8, 4, 2, 1)
-# Bytes of candidate coordinates a tile should stay within, so blocks stay
-# small enough to share an SM.
-_TILE_BYTES = 16 * 1024
+# Candidates per step of both selection kernels (kCols in the sources).
+_COLS = 64
+# f32 kernel: query rows (= threads) per block, widest first; the most
+# bytes of a block's query rows kept resident in shared memory for the
+# launch; axes per d-chunk of the candidates with the queries resident, and
+# of both when the queries stream (wider rows stream, which leaves room for
+# three blocks on an SM).
+_ROWS = (128, 64, 32, 16)
+_QRES_BYTES = 32 * 1024
+_KC_F32_RESIDENT = 32
+_KC_F32_STREAM = 16
 
 # bf16 kernel: query rows per block, widest first (16: one warp of 16
-# rows, for lists too long for 32); candidates per step (kCols); widest
-# d-chunk of the candidates with the queries resident, and the d-chunk of
-# both when the queries stream.
+# rows, for lists too long for 32); widest d-chunk of the candidates with
+# the queries resident, and the d-chunk of both when the queries stream.
 _ROWS_BF16 = (128, 64, 32, 16)
-_COLS_BF16 = 64
 _KC_RESIDENT = 128
 _KC_STREAM = 64
 
 # Kernel launches (CUDA tensors only): the f32 selection kernel, the bf16
-# selection kernel, and the bf16 prep pass (two per bf16 selection).
+# selection kernel, and the prep passes of each tier (two per selection:
+# ``prep_launches_f32`` for the f32 tier, ``prep_launches`` for bf16).
 launches = 0
 launches_bf16 = 0
 prep_launches = 0
+prep_launches_f32 = 0
 
 
-def smem_bytes(d: int, k: int, m: int, threads: int, tile: int) -> int:
-    """Shared memory of one block: the threads' query coordinates, the
-    candidate tile with its norms and ids, each thread's running list of
-    length k and, when the per-block fold can matter (m < k and
-    m < BLOCK), its block list of length m.  Must match
-    ``mxu_select_smem_bytes`` in the source."""
+def smem_bytes(d: int, k: int, m: int, rows: int, kc: int,
+               qres: bool) -> int:
+    """Shared memory of one f32 selection block: the query rows (all d
+    axes when resident, else two d-chunks of kc), two candidate chunks of
+    ``_COLS`` columns with their norms and ids, the score tile (row
+    stride rows + 4) and each row's lists of k and, when the fold can
+    matter (m < k and m < BLOCK), m.  Must match ``mxu_select_smem_bytes``
+    in the source."""
     mb = 0 if (m >= k or m >= BLOCK) else m
-    return 4 * (d * threads + tile * d + 2 * tile + 2 * (k + mb) * threads)
+    q = rows * d if qres else 2 * rows * kc
+    return 4 * (q + 2 * _COLS * kc + 4 * _COLS
+                + _COLS * (rows + 4) + 2 * (k + mb) * rows)
 
 
-def pick_launch(d: int, k: int, m: int) -> Tuple[int, int]:
-    """(threads per block, candidates per tile) of the widest block that
-    fits shared memory, with tiles of at most ``_TILE_BYTES`` of
-    coordinates where that fits.  Raises :class:`LaunchBudgetError` when
-    even 32 threads with one-candidate tiles do not fit."""
-    want = max(t for t in _TILES if t == 1 or t * d * 4 <= _TILE_BYTES)
-    for tile in [t for t in _TILES if t <= want]:
-        for threads in _THREADS:
-            if smem_bytes(d, k, m, threads, tile) <= SMEM_LIMIT:
-                return threads, tile
-    need = smem_bytes(d, k, m, _THREADS[-1], 1)
+def pick_launch(d: int, k: int, m: int) -> Tuple[int, int, bool]:
+    """(query rows per block, d-chunk, queries resident) of the f32
+    kernel: the widest block that fits shared memory, its queries resident
+    when they take at most ``_QRES_BYTES``, else streamed with the
+    candidates in d-chunks of ``_KC_F32_STREAM`` axes (narrower in a
+    16-row block, the last resort).
+
+    It accepts exactly the (d, k, m) that :func:`pick_launch_bf16`
+    accepts, so a shape the brute route answers at one precision it
+    answers at the other: every d, and k up to what the lists of a 16-row
+    bf16 block hold (an f32 block, with no bf16 staging, needs less).
+    Raises :class:`LaunchBudgetError` beyond."""
+    try:
+        pick_launch_bf16(d, k, m)
+    except LaunchBudgetError as e:
+        raise LaunchBudgetError(
+            f"mxu_select at d={d}, k={k}, m={m}: the brute route's lists "
+            f"do not fit one block ({e})", requested=e.requested,
+            budget=e.budget, site="mxu_select") from None
+    for rows in _ROWS:
+        plans = ([(True, min(d, _KC_F32_RESIDENT))]
+                 if rows * d * 4 <= _QRES_BYTES else [])
+        kcs = (_KC_F32_STREAM,) + ((8, 4, 2, 1) if rows == _ROWS[-1]
+                                   else ())
+        plans += [(False, min(d, kc)) for kc in kcs]
+        for qres, kc in plans:
+            if smem_bytes(d, k, m, rows, kc, qres) <= SMEM_LIMIT:
+                return rows, kc, qres
+    need = smem_bytes(d, k, m, _ROWS[-1], 1, False)
     raise LaunchBudgetError(
         f"mxu_select at d={d}, k={k}, m={m} needs {need} bytes of shared "
-        f"memory for one 32-query block, above the {SMEM_LIMIT}-byte limit "
+        f"memory for one 16-row block, above the {SMEM_LIMIT}-byte limit "
         f"of a Hopper block", requested=need, budget=SMEM_LIMIT,
         site="mxu_select")
 
@@ -94,13 +123,13 @@ def smem_bytes_bf16(d: int, k: int, m: int, rows: int, kc: int,
                     qres: bool) -> int:
     """Shared memory of one bf16 selection block: the query rows (all of
     d16 when resident, else two d-chunks of kc), two candidate chunks of
-    ``_COLS_BF16`` rows with their norms and ids, the score tile (row stride
+    ``_COLS`` rows with their norms and ids, the score tile (row stride
     rows + 4) and each row's lists of k and, when the fold can matter, m.
     Must match ``mxu_select_bf16_smem_bytes`` in the source."""
     mb = 0 if (m >= k or m >= BLOCK) else m
     q = rows * (pad16(d) + 8) if qres else 2 * rows * (kc + 8)
-    p = 2 * _COLS_BF16 * (kc + 8)
-    return (2 * (q + p) + 16 * _COLS_BF16 + 4 * _COLS_BF16 * (rows + 4)
+    p = 2 * _COLS * (kc + 8)
+    return (2 * (q + p) + 16 * _COLS + 4 * _COLS * (rows + 4)
             + 8 * (k + mb) * rows)
 
 
@@ -108,8 +137,8 @@ def pick_launch_bf16(d: int, k: int, m: int) -> Tuple[int, int, bool]:
     """(query rows per block, d-chunk, queries resident) of the bf16
     kernel: the widest block that fits shared memory, with its queries
     resident when they fit, else streamed in d-chunks of ``_KC_STREAM``.
-    Accepts every (d, k, m) that :func:`pick_launch` accepts; raises
-    :class:`LaunchBudgetError` beyond."""
+    Raises :class:`LaunchBudgetError` when even a 16-row block's lists do
+    not fit (from k = 1,715 at d=3 with m = min(k, 128))."""
     d16 = pad16(d)
     for rows in _ROWS_BF16:
         for qres, kc in ((True, min(d16, _KC_RESIDENT)),
@@ -129,8 +158,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mxu_select")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mxu_select_launch.argtypes = ([p] * 4 + [i] * 6
-                                          + [ctypes.c_float, i, i]
+        lib.mxu_select_prep_launch.argtypes = [p, p, i, i, i] + [p] * 4
+        lib.mxu_select_prep_launch.restype = i
+        lib.mxu_select_launch.argtypes = ([p, p, p, i] + [p] * 4 + [i] * 6
+                                          + [ctypes.c_float, i, i, i]
                                           + [p] * 4)
         lib.mxu_select_launch.restype = i
         lib.mxu_select_error_string.argtypes = [i]
@@ -203,6 +234,59 @@ def prep(x: torch.Tensor, ids: Optional[torch.Tensor] = None):
     return xb, ns, nf, pn_max
 
 
+def _ld(rows: int) -> int:
+    """Columns of an axis-major operand: ``rows`` rounded up to 128, so
+    every block streams whole 16-byte groups."""
+    return -(-int(rows) // 128) * 128
+
+
+def prep_f32_plain(x: torch.Tensor, ids: Optional[torch.Tensor] = None):
+    """The f32 prep pass in plain torch: (xT (d, ld) f32, the coordinates
+    axis-major with zero columns from rows to ld = rows rounded up to
+    128; nf, the f32 norms; pn_max (1,) f32, the largest nf of a real id
+    (>= 0), or None without ``ids``) -- the :func:`scorer.norms` that
+    ``select_plain`` uses."""
+    rows, d = x.shape
+    xT = torch.zeros((d, _ld(rows)), dtype=torch.float32, device=x.device)
+    xT[:, :rows] = x.T
+    nf = norms(x)
+    pn_max = None
+    if ids is not None:
+        pn_max = torch.clamp(torch.where(ids >= 0, nf, float("-inf"))
+                             .amax(), min=0.0).reshape(1)
+    return xT, nf, pn_max
+
+
+def prep_f32(x: torch.Tensor, ids: Optional[torch.Tensor] = None):
+    """The f32 prep pass of (rows, d) f32 ``x`` (and its int32 ``ids``,
+    for candidates): :func:`prep_f32_plain`'s outputs.  CPU tensors run
+    :func:`prep_f32_plain`; CUDA tensors launch the kernel or raise."""
+    global prep_launches_f32
+    if x.device.type == "cpu":
+        return prep_f32_plain(x, ids)
+    rows, d = x.shape
+    dev = x.device
+    ld = _ld(rows)
+    xT = torch.empty((d, ld), dtype=torch.float32, device=dev)
+    nf = torch.empty((rows,), dtype=torch.float32, device=dev)
+    pn_max = (torch.zeros((1,), dtype=torch.float32, device=dev)
+              if ids is not None else None)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mxu_select_prep_launch(
+            x.data_ptr(), None if ids is None else ids.data_ptr(), rows, d,
+            ld, xT.data_ptr(), nf.data_ptr(),
+            None if pn_max is None else pn_max.data_ptr(), stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"mxu_select prep launch failed: "
+            f"{lib.mxu_select_error_string(rc).decode()} (code {rc}; "
+            f"rows={rows} d={d})")
+    prep_launches_f32 += 1
+    return xT, nf, pn_max
+
+
 def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
            cid_il: torch.Tensor, k: int, m: int, d_real: int,
            exclude_self: bool, precision: str = "f32"):
@@ -218,10 +302,10 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback."""
-    global launches
-    n_q, n_c, d = check_select_args(queries, q_ids, pts_il, cid_il, k, m,
-                                    d_real, precision)
+    check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                      precision)
     k, m = int(k), int(m)
+    d = queries.shape[1]
     bf16 = precision == "bf16"
     plan = pick_launch_bf16(d, k, m) if bf16 else pick_launch(d, k, m)
     device = queries.device
@@ -233,24 +317,39 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
     if bf16:
         return _launch_bf16(queries, q_ids, pts_il, cid_il, k, m, d_real,
                             exclude_self, plan, None)
+    return _launch_f32(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                       exclude_self, plan)
+
+
+def _launch_f32(queries, q_ids, pts_il, cid_il, k: int, m: int,
+                d_real: int, exclude_self: bool, plan):
+    """The f32 tier on CUDA tensors: both prep passes, then the CUDA-core
+    selection with launch ``plan`` (pick_launch)."""
+    global launches
+    n_q, n_c = queries.shape[0], pts_il.shape[0]
+    d = queries.shape[1]
+    device = queries.device
     out_i, out_s, cert = _outputs(n_q, k, device)
     if n_q == 0:
         return out_i, out_s, cert
-    threads, tile = plan
-    coef = float(dot_error_bound(1.0, 0.0, int(d_real), precision))
+    rows, kc, qres = plan
+    coef = float(dot_error_bound(1.0, 0.0, int(d_real), "f32"))
     lib = _lib()
+    qT, qnf, _ = prep_f32(queries)
+    pT, pnf, pn_max = prep_f32(pts_il, cid_il)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mxu_select_launch(
-            queries.data_ptr(), q_ids.data_ptr(), pts_il.data_ptr(),
-            cid_il.data_ptr(), n_q, n_c, d, k, m, int(bool(exclude_self)),
-            coef, threads, tile, out_i.data_ptr(), out_s.data_ptr(),
+            qT.data_ptr(), qnf.data_ptr(), q_ids.data_ptr(), qT.shape[1],
+            pT.data_ptr(), pnf.data_ptr(), cid_il.data_ptr(),
+            pn_max.data_ptr(), n_q, n_c, d, k, m, int(bool(exclude_self)),
+            coef, rows, kc, int(qres), out_i.data_ptr(), out_s.data_ptr(),
             cert.data_ptr(), stream)
     if rc != 0:
         raise KernelLaunchError(
             f"mxu_select launch failed: "
             f"{lib.mxu_select_error_string(rc).decode()} (code {rc}; M={n_q} "
-            f"C={n_c} d={d} k={k} m={m} threads={threads} tile={tile})")
+            f"C={n_c} d={d} k={k} m={m} rows={rows} kc={kc} qres={qres})")
     launches += 1
     return out_i, out_s, cert
 

@@ -2,9 +2,9 @@
 
 Each ``csrc/*.cu`` source has a plain C interface.  At first use it is
 compiled with ``nvcc`` into ``build/`` at the root of the checkout, under a
-name keyed by a hash of the source and the flags, and loaded with
-``ctypes``; later processes reuse the library while the source is
-unchanged.  :func:`load_all` builds several sources at once, one ``nvcc``
+name keyed by a hash of the source, the ``csrc`` headers it includes and
+the flags, and loaded with ``ctypes``; later processes reuse the library
+while none of them changed.  :func:`load_all` builds several sources at once, one ``nvcc``
 process each.  Any build or load failure raises :class:`KernelBuildError`.
 Nothing here runs at import time.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,12 +53,27 @@ def _nvcc() -> str:
         "needed to build the package's kernels")
 
 
+def _sources(path: Path, seen: set) -> list:
+    """The bytes of ``path`` and, recursively, of every ``csrc`` header it
+    includes with quotes."""
+    if path in seen:
+        return []
+    seen.add(path)
+    src = path.read_bytes()
+    out = [src]
+    for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', src, re.M):
+        out += _sources(_CSRC / inc.decode(), seen)
+    return out
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built for its current
-    source."""
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    source and the headers it includes."""
+    h = hashlib.sha256()
+    for part in _sources(_CSRC / f"{name}.cu", set()):
+        h.update(hashlib.sha256(part).digest())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

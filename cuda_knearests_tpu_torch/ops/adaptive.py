@@ -17,19 +17,27 @@ time, on the host:
      per-point supercell map (``AdaptivePlan.inv_box``) for the
      certificate.
 
-A solve is then one kernel launch per class writing rows straight into the
-final (n, k) buffers, plus the box-margin certificate of every row.  On
-Hopper the kernels stream candidates through shared memory, so no class is
-too wide for them: every class takes a kernel -- the one-stage
-``supercell_topk``, or ``blocked_topk`` where ``config.resolve_kernel``
-gives 'blocked'.
+Each class takes one of two routes, chosen in the plan as the reference
+chooses it (``cuda_knearests_tpu/ops/adaptive.py:201-218``):
+
+  * 'kernel': one launch of the one-stage ``supercell_topk`` (or
+    ``blocked_topk`` where ``config.resolve_kernel`` gives 'blocked')
+    writing rows straight into the final (n, k) buffers -- where the
+    launch gate takes the class's k and its packs fit the memory budget;
+  * 'streamed': :func:`streamed_topk`, plain torch on either device,
+    folding candidate tiles into a running top-k with a bounded
+    temporary -- everywhere else (k too large for one block's lists, or a
+    pack over the budget).
+
+A class never falls back after a kernel fails: the route is fixed when the
+plan is built.  Every row then gets its box-margin certificate.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,14 +45,31 @@ import torch
 from ..config import (KnnConfig, blocked_topm, default_ring_radius,
                       resolve_kernel)
 from ..utils.memory import LaunchBudgetError
-from .cuda_solve import (ClassPack, blocked_topk, hbm_budget_bytes,
+from .cuda_solve import (_PAD_Q, ClassPack, blocked_topk, hbm_budget_bytes,
                          pack_bytes, pack_inputs, pick_q_tile,
                          supercell_topk)
 from .gridhash import GridHash
 from .rings import ring_occupancy
 from .solve import (KnnResult, _box_cell_ids, _boxes_grid, _margin_sq,
-                    _round_up)
-from .topk import INVALID_ID
+                    _round_up, pack_cells, sum_sq_diff)
+from .topk import INVALID_ID, init_topk, merge_topk, pack_key, unpack_key
+
+# Candidate slots per step of the streamed route (the reference's
+# KnnConfig.stream_tile default), and the bound on its (rows, qcap, tile)
+# f32 distance tile.
+STREAM_TILE = 2048
+_STREAM_TILE_BYTES = 64 << 20
+# Peak bytes of one streamed step per (query slot, tile + k slot) and per
+# candidate slot of its pack (:func:`stream_step_bytes`).  On an H100 a
+# step's torch.cuda.max_memory_allocated came to 28 bytes a slot at
+# k=1000 and 38 at k=10 (tests/test_torch_cuda.py
+# test_streamed_step_memory_within_its_model, which with chip_smoke.py
+# holds every step to this model).
+_STEP_SLOT_BYTES = 48
+_STEP_PACK_BYTES = 64
+# Per query slot of a streamed class at solve time: its coordinates,
+# validity and the gather's int32 and int64 indices.
+_SLOT_SOLVE_BYTES = 25
 
 
 def select_radii(points_cum: np.ndarray, cells_cum: np.ndarray, k: int,
@@ -73,6 +98,19 @@ class ClassSpec:
     radius: int
     qcap: int             # per-supercell query capacity (8-aligned)
     ccap: int             # per-supercell candidate capacity (128-aligned)
+    route: str = "kernel"  # 'kernel' | 'streamed'
+
+
+def class_route(cfg: KnnConfig, qcap: int, ccap: int) -> str:
+    """'kernel' when the class kernel's launch gate takes k (``pick_q_tile``
+    as a predicate), 'streamed' otherwise.  :func:`_preflight` then sends
+    kernel classes whose packs do not fit the memory budget to the
+    streamed route too."""
+    try:
+        pick_q_tile(cfg.k, qcap, class_blocked_m(cfg, ccap))
+    except LaunchBudgetError:
+        return "streamed"
+    return "kernel"
 
 
 def build_class_specs(own_n: np.ndarray, pts_cum: np.ndarray,
@@ -84,7 +122,7 @@ def build_class_specs(own_n: np.ndarray, pts_cum: np.ndarray,
     when the group maximum exceeds twice it, then the smallest groups merge
     (taking the larger radius) until the class budget holds.  Each class's
     ccap is measured at its final radius, so packing never truncates a
-    candidate list."""
+    candidate list.  Each class is routed by :func:`class_route`."""
     def cand_at(rows: np.ndarray, radius: int) -> np.ndarray:
         return pts_cum[rows, radius]
 
@@ -110,7 +148,8 @@ def build_class_specs(own_n: np.ndarray, pts_cum: np.ndarray,
     def mk(rows: np.ndarray, radius: int) -> ClassSpec:
         qcap = _round_up(int(own_n[rows].max()), 8)
         ccap = _round_up(max(int(cand_at(rows, radius).max()), cfg.k), 128)
-        return ClassSpec(rows=rows, radius=radius, qcap=qcap, ccap=ccap)
+        return ClassSpec(rows=rows, radius=radius, qcap=qcap, ccap=ccap,
+                         route=class_route(cfg, qcap, ccap))
 
     return tuple(mk(rows, r) for rows, r in groups)
 
@@ -120,20 +159,30 @@ class ClassPlan:
     """Device-side schedule of one class.
 
     ``lo``/``hi`` are the (Sc, 3) f32 dilated-box corners of the
-    certificate; ``pk`` the packed kernel inputs; ``tgt`` the (Sc*qcap,)
-    int32 forward row map (destination row per slot, ``n`` on pad slots)."""
+    certificate; ``qid`` the (Sc, qcap) int32 stored point of each query
+    slot (``_PAD_Q`` on pads); ``tgt`` the (Sc*qcap,) int32 forward row map
+    (destination row per slot, ``n`` on pad slots).  A 'kernel' class
+    carries its packed kernel inputs ``pk`` (whose ``qid`` is ``qid``); a
+    'streamed' class carries ``cand``, the (Sc, side^3) int32 cell ids of
+    each supercell's dilated box (-1 off the grid), which
+    :func:`streamed_topk` packs tile by tile, and ``step_rows``, its
+    supercells a step (from :func:`_preflight`)."""
 
     lo: torch.Tensor
     hi: torch.Tensor
     radius: int
     qcap: int
     ccap: int
-    pk: ClassPack
-    tgt: torch.Tensor
+    route: str
+    qid: torch.Tensor
+    pk: Optional[ClassPack]
+    cand: Optional[torch.Tensor]
+    step_rows: Optional[int]
+    tgt: Optional[torch.Tensor]
 
     @property
     def n_sc(self) -> int:
-        return int(self.pk.qid.shape[0])
+        return int(self.qid.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +198,8 @@ class AdaptivePlan:
 
 def plan_class_specs(counts: np.ndarray, dim: int, cfg: KnnConfig):
     """The host half of :func:`build_adaptive_plan`: (supercell
-    coordinates, class specs) from the per-cell counts."""
+    coordinates, class specs routed by the launch gate) from the per-cell
+    counts."""
     s, k = cfg.supercell, cfg.k
     counts3 = counts.reshape(dim, dim, dim)
     sc = _boxes_grid(-(-dim // s))
@@ -172,21 +222,101 @@ def class_blocked_m(cfg: KnnConfig, ccap: int) -> int:
     return 0
 
 
-def _preflight(specs, k: int, n: int, device: torch.device) -> None:
-    """Refuse a plan whose packs and outputs would not fit the device's
-    memory, before anything is allocated (demotion to a streamed route is
-    not ported: the plan is refused whole)."""
-    budget = hbm_budget_bytes(device)
+def stream_tile(ccap: int) -> int:
+    """Candidate slots per tile of a streamed class: ``STREAM_TILE``, or
+    ccap (a multiple of 128) when narrower."""
+    return min(STREAM_TILE, ccap)
+
+
+def streamed_rows_chunk(n_sc: int, qcap: int, tile: int) -> int:
+    """Supercells per step of :func:`streamed_topk`: the (rows, qcap, tile)
+    f32 distance tile stays within 64 MB, as in the reference."""
+    return max(1, min(n_sc, _STREAM_TILE_BYTES // (qcap * tile * 4)))
+
+
+def stream_step_bytes(rows: int, qcap: int, ccap: int, k: int) -> int:
+    """Device bytes one step of :func:`streamed_topk` over ``rows``
+    supercells allocates at its peak: ``_STEP_SLOT_BYTES`` per (query
+    slot, tile + k slot) for the distances, mask, keys and the merge, and
+    ``_STEP_PACK_BYTES`` per candidate slot of the step's pack."""
+    tile = stream_tile(ccap)
+    c_pad = -(-ccap // tile) * tile
+    return rows * (_STEP_SLOT_BYTES * qcap * (tile + k)
+                   + _STEP_PACK_BYTES * c_pad)
+
+
+def stream_table_bytes(n_sc: int, qcap: int, side: int) -> int:
+    """Device bytes a streamed class holds through a solve: its query-slot
+    ids and forward row map (Sc, qcap), its (Sc, side^3) cell table, and
+    ``_SLOT_SOLVE_BYTES`` per query slot at solve time."""
+    return n_sc * (8 * qcap + 4 * side ** 3 + _SLOT_SOLVE_BYTES * qcap)
+
+
+def kernel_extra_bytes(sp: ClassSpec, cfg: KnnConfig) -> int:
+    """What a class's kernel packs take beyond its streamed tables."""
+    return (pack_bytes(sp.rows.size, sp.qcap, sp.ccap)
+            - stream_table_bytes(sp.rows.size, sp.qcap,
+                                 cfg.supercell + 2 * sp.radius))
+
+
+def streamed_plan_bytes(specs, cfg: KnnConfig, n: int) -> int:
+    """Device bytes of the plan with every class streamed one supercell a
+    step: the (n + 1, k) outputs and the per-point supercell map, every
+    class's tables, and the largest class's one-supercell step."""
+    return ((n + 1) * cfg.k * 8 + n * 4
+            + sum(stream_table_bytes(sp.rows.size, sp.qcap,
+                                     cfg.supercell + 2 * sp.radius)
+                  for sp in specs)
+            + max(stream_step_bytes(1, sp.qcap, sp.ccap, cfg.k)
+                  for sp in specs))
+
+
+def _preflight(specs, cfg: KnnConfig, n: int, budget: int | None):
+    """Route the classes against the memory ``budget`` (None: unbounded)
+    before anything is allocated, and refuse only a plan that no route
+    can hold: one whose classes, all streamed one supercell a step, do not
+    fit (:func:`streamed_plan_bytes`).  From what that plan leaves, each
+    class the launch gate takes keeps the kernel route, in order, while
+    its packs still fit; the rest stream.  Returns (the routed specs, each
+    class's supercells a step: None on the kernel route, else what its
+    step may take of the budget left, at most
+    :func:`streamed_rows_chunk`'s)."""
+    k = cfg.k
+
+    def rows_chunk(sp, left):
+        rows = streamed_rows_chunk(sp.rows.size, sp.qcap,
+                                   stream_tile(sp.ccap))
+        if left is not None:
+            rows = min(rows, left // stream_step_bytes(1, sp.qcap, sp.ccap,
+                                                       k))
+        return rows
+
     if budget is None:
-        return
-    need = sum(pack_bytes(sp.rows.size, sp.qcap, sp.ccap) for sp in specs)
-    need += n * k * 8 + n * 4
+        return specs, [None if sp.route == "kernel" else rows_chunk(sp, None)
+                       for sp in specs]
+    need = streamed_plan_bytes(specs, cfg, n)
     if need > budget:
         raise LaunchBudgetError(
-            f"adaptive plan: packed inputs and outputs need {need} bytes, "
-            f"above the {budget}-byte budget of {device} (a fraction of its "
-            f"free memory); shard the problem or lower config.supercell",
+            f"adaptive plan: with every class streamed one supercell a "
+            f"step, the (n, k) outputs, the classes' tables and one step "
+            f"need {need} bytes, above the {budget}-byte budget (a fraction "
+            f"of the device's free memory): no route can hold the problem; "
+            f"shard it or lower k",
             requested=need, budget=budget, site="build_adaptive_plan")
+    left = budget - need
+    routed = []
+    for sp in specs:
+        extra = kernel_extra_bytes(sp, cfg)
+        if sp.route == "kernel" and extra <= left:
+            left -= max(extra, 0)
+        else:
+            sp = dataclasses.replace(sp, route="streamed")
+        routed.append(sp)
+    # classes run one after another: each step may take what is left and
+    # the one-supercell step reserved for the largest
+    step = max(stream_step_bytes(1, sp.qcap, sp.ccap, k) for sp in specs)
+    return routed, [None if sp.route == "kernel" else
+                    rows_chunk(sp, left + step) for sp in routed]
 
 
 def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
@@ -199,13 +329,12 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
     counts = (np.asarray(cell_counts_host) if cell_counts_host is not None
               else grid.cell_counts.cpu().numpy())
     sc, specs = plan_class_specs(counts, dim, cfg)
-    for spec in specs:  # refuses a k one block cannot hold
-        pick_q_tile(k, spec.qcap, class_blocked_m(cfg, spec.ccap))
-    _preflight(specs, k, grid.n_points, device)
+    specs, step_rows = _preflight(specs, cfg, grid.n_points,
+                                  hbm_budget_bytes(device))
 
     w = grid.domain / dim
     classes = []
-    for spec in specs:
+    for spec, rows in zip(specs, step_rows):
         sc_c = sc[spec.rows]
         own = torch.as_tensor(_box_cell_ids(sc_c, 0, 0, s, dim),
                               device=device)
@@ -214,12 +343,21 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
             device=device)
         lo = ((sc_c * s - spec.radius) * w).astype(np.float32)
         hi = ((sc_c * s + s + spec.radius) * w).astype(np.float32)
-        pk = pack_inputs(grid.points, grid.cell_starts, grid.cell_counts,
-                         own, cand, spec.qcap, spec.ccap)
+        pk = None
+        if spec.route == "kernel":
+            pk = pack_inputs(grid.points, grid.cell_starts,
+                             grid.cell_counts, own, cand, spec.qcap,
+                             spec.ccap)
+            qid, cand = pk.qid, None
+        else:
+            q_idx, q_ok = pack_cells(own, grid.cell_starts, grid.cell_counts,
+                                     spec.qcap)
+            qid = torch.where(q_ok, q_idx, _PAD_Q).to(torch.int32)
         classes.append(ClassPlan(
             lo=torch.as_tensor(lo, device=device),
             hi=torch.as_tensor(hi, device=device), radius=spec.radius,
-            qcap=spec.qcap, ccap=spec.ccap, pk=pk, tgt=None))
+            qcap=spec.qcap, ccap=spec.ccap, route=spec.route, qid=qid,
+            pk=pk, cand=cand, step_rows=rows, tgt=None))
 
     inv_box, tgts = _invert_partition(classes, grid.n_points, device)
     classes = [dataclasses.replace(cp, tgt=t)
@@ -235,7 +373,7 @@ def _class_inverse_update(inv_box: torch.Tensor, cp: ClassPlan,
     pad slots).  Both directions come from the packed query ids, so they
     cannot drift apart from the kernel's input.  ``inv_box`` has one spare
     slot at index ``sentinel`` that absorbs pad writes."""
-    qid = cp.pk.qid
+    qid = cp.qid
     safe = torch.where(qid >= 0, qid, sentinel).long()
     rows = torch.arange(cp.n_sc, dtype=torch.int32,
                         device=qid.device)[:, None].expand(qid.shape)
@@ -263,21 +401,98 @@ def _invert_partition(classes, n: int, device: torch.device):
     return inv_box[:n], tuple(tgts)
 
 
+def streamed_topk(points: torch.Tensor, starts: torch.Tensor,
+                  counts: torch.Tensor, cand_cells: torch.Tensor,
+                  q: torch.Tensor, q_ok: torch.Tensor, q_excl: torch.Tensor,
+                  k: int, ccap: int, tile: int = STREAM_TILE,
+                  rows_chunk: Optional[int] = None,
+                  tgt: Optional[torch.Tensor] = None,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Memory-bounded candidate streaming through ``merge_topk``: the
+    counterpart of the reference's ``_streamed_topk``
+    (``cuda_knearests_tpu/ops/adaptive.py:494-556``), in plain torch.
+
+    q: (Sc, qcap, 3) query coordinates; q_ok their validity; q_excl
+    (Sc, qcap) the stored index each slot excludes (-2: none).
+    ``cand_cells`` (Sc, M) are each supercell's candidate cells (-1 pad),
+    packed by ``pack_cells`` at ceil(ccap / tile) tiles.  Supercells run
+    ``rows_chunk`` a step (default :func:`streamed_rows_chunk`: the
+    (rows, qcap, tile) distance tile stays within 64 MB whatever ccap is).
+    d2 is summed x, y, z with every op rounded on its own
+    (``sum_sq_diff``), pads and the excluded index are masked, and each
+    tile folds into the running top-k on int64 (d2, id) keys.  Without
+    ``tgt``, returns new (Sc * qcap, k) d2 and ids, ascending, missing
+    entries (inf, -1).  With ``tgt`` ((Sc * qcap,) destination rows) and
+    ``out`` ((rows, k) f32 d2, int32 ids), each step's slots are copied
+    into ``out`` at their destinations instead; returns ``out``."""
+    n_sc, qcap = q.shape[0], q.shape[1]
+    c_pad = -(-int(ccap) // tile) * tile
+    if rows_chunk is None:
+        rows_chunk = streamed_rows_chunk(n_sc, qcap, tile)
+    if tgt is None:
+        out = (torch.empty((n_sc * qcap, k), dtype=torch.float32,
+                           device=q.device),
+               torch.empty((n_sc * qcap, k), dtype=torch.int32,
+                           device=q.device))
+        tgt = torch.arange(n_sc * qcap, device=q.device)
+    for r0 in range(0, n_sc, rows_chunk):
+        rs = slice(r0, r0 + rows_chunk)
+        c_idx, c_ok = pack_cells(cand_cells[rs], starts, counts, c_pad)
+        q_c, qo, qe = q[rs], q_ok[rs], q_excl[rs]
+        best = init_topk(qo.shape, k, device=q.device)
+        for t0 in range(0, c_pad, tile):
+            ci, co = c_idx[:, t0:t0 + tile], c_ok[:, t0:t0 + tile]
+            c = points[ci.long()]                       # (rows, tile, 3)
+            d2 = sum_sq_diff(q_c, c)                    # (rows, qcap, tile)
+            mask = (qo[:, :, None] & co[:, None, :]
+                    & (ci[:, None, :] != qe[:, :, None]))
+            best = merge_topk(best, pack_key(
+                d2, ci[:, None, :].expand(d2.shape), mask))
+        d, i = unpack_key(best)
+        dst = tgt[r0 * qcap:(r0 + q_c.shape[0]) * qcap].long()
+        out[0].index_copy_(0, dst, d.reshape(-1, k))
+        out[1].index_copy_(0, dst, i.reshape(-1, k))
+    return out
+
+
+def _streamed_class(grid: GridHash, cp: ClassPlan, k: int,
+                    exclude_self: bool, buf_d: torch.Tensor,
+                    buf_i: torch.Tensor) -> None:
+    """One streamed class, ``cp.step_rows`` supercells a step, its rows
+    scattered through the class's forward map into the (n + 1, k) buffers
+    (pad slots land in the spare row n)."""
+    q_ok = cp.qid >= 0
+    q = grid.points[torch.where(q_ok, cp.qid, 0).long()]
+    q_excl = cp.qid if exclude_self else torch.full_like(cp.qid, -2)
+    streamed_topk(grid.points, grid.cell_starts, grid.cell_counts, cp.cand,
+                  q, q_ok, q_excl, k, cp.ccap, stream_tile(cp.ccap),
+                  cp.step_rows, tgt=cp.tgt, out=(buf_d, buf_i))
+
+
 def solve_adaptive(grid: GridHash, cfg: KnnConfig,
                    plan: AdaptivePlan | None = None) -> KnnResult:
-    """All-points kNN over the class schedule: one kernel launch per class
-    (rows land in their final place), then the certificate of every row
-    from its raw k-th distance -- a blocked deficit row's NaN there fails
-    it (NaN <= margin is false).  Results stay on the device, in sorted
-    indexing; uncertified rows are left for the api's exact fallback."""
+    """All-points kNN over the class schedule: one kernel launch per
+    'kernel' class (rows land in their final place), :func:`streamed_topk`
+    per 'streamed' class (rows scattered through its forward map), then
+    the certificate of every row from its raw k-th distance -- a blocked
+    deficit row's NaN there fails it (NaN <= margin is false).  Results
+    stay on the device, in sorted indexing; uncertified rows are left for
+    the api's exact fallback."""
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
     n, k = plan.n_points, cfg.k
     device = grid.device
-    out_d = torch.full((n, k), float("inf"), dtype=torch.float32,
+    # one spare row past the n real ones absorbs the streamed classes' pad
+    # slots (their forward map sends them to row n)
+    buf_d = torch.full((n + 1, k), float("inf"), dtype=torch.float32,
                        device=device)
-    out_i = torch.full((n, k), INVALID_ID, dtype=torch.int32, device=device)
+    buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
+                       device=device)
+    out_d, out_i = buf_d[:n], buf_i[:n]
     for cp in plan.classes:
+        if cp.route == "streamed":
+            _streamed_class(grid, cp, k, cfg.exclude_self, buf_d, buf_i)
+            continue
         m = class_blocked_m(cfg, cp.ccap)
         if m:
             blocked_topk(*cp.pk.args(), k, m, cfg.exclude_self, tgt=cp.tgt,

@@ -105,12 +105,13 @@ def _margin_sq(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 
 def sum_sq_diff(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(m, t) squared distances of (m, d) queries to (t, d) points: the
-    subtract-square-accumulate over axes 0..d-1, every op rounded on its
-    own (the engine's 'diff' arithmetic)."""
+    """(..., m, t) squared distances of (..., m, d) queries to (..., t, d)
+    points (leading axes broadcast): the subtract-square-accumulate over
+    axes 0..d-1, every op rounded on its own (the engine's 'diff'
+    arithmetic)."""
     d2 = None
-    for ax in range(q.shape[1]):
-        diff = q[:, None, ax] - p[None, :, ax]
+    for ax in range(q.shape[-1]):
+        diff = q[..., :, None, ax] - p[..., None, :, ax]
         d2 = diff * diff if d2 is None else d2 + diff * diff
     return d2
 

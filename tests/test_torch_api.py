@@ -211,8 +211,33 @@ def test_plan_over_device_budget_is_refused(monkeypatch):
     from cuda_knearests_tpu_torch.ops import adaptive
     from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
 
-    monkeypatch.setattr(adaptive, "hbm_budget_bytes", lambda device: 10_000)
-    with pytest.raises(LaunchBudgetError) as e:
-        pt.KnnProblem.prepare(generate_blue_noise(2000, seed=1),
-                              pt.KnnConfig(k=10), device="cpu")
-    assert e.value.kind == "oom" and e.value.requested > e.value.budget
+    pts = generate_blue_noise(20_000, seed=1)
+    cfg = pt.KnnConfig(k=10, supercell=2)
+    free = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    (cp,) = free.aplan.classes
+    _, specs = adaptive.plan_class_specs(free.grid.cell_counts.numpy(),
+                                         free.grid.dim, cfg)
+    need = adaptive.streamed_plan_bytes(specs, cfg, free.grid.n_points)
+    pack = adaptive.pack_bytes(cp.n_sc, cp.qcap, cp.ccap)
+    extra = adaptive.kernel_extra_bytes(specs[0], cfg)
+    assert need < pack  # the streamed route holds budgets around the packs
+    want = free.solve().neighbors
+    # a plan whose packs and outputs exceed the budget streams its class
+    # and answers, on either side of the packs; with room for both it
+    # keeps the kernel
+    for budget, route in ((need, "streamed"), (pack - 1, "streamed"),
+                          (pack + 1, "streamed"), (need + extra, "kernel")):
+        monkeypatch.setattr(adaptive, "hbm_budget_bytes",
+                            lambda device: budget)
+        p = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+        assert [c.route for c in p.aplan.classes] == [route], budget
+        np.testing.assert_array_equal(p.solve().neighbors, want)
+    # only a plan that no route can hold is refused: below what the plan
+    # needs with its class streamed one supercell a step
+    for budget in (need - 1, 10_000):
+        monkeypatch.setattr(adaptive, "hbm_budget_bytes",
+                            lambda device: budget)
+        with pytest.raises(LaunchBudgetError,
+                           match="no route can hold") as e:
+            pt.KnnProblem.prepare(pts, cfg, device="cpu")
+        assert e.value.kind == "oom" and e.value.requested > e.value.budget

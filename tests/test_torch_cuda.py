@@ -126,6 +126,41 @@ def test_select_kernel_matches_plain_bit_for_bit(cuda_device, d):
                         assert torch.equal(g, w), (n, kind, k, m, excl)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,m,plan", [
+    (64, 10, 3, (128, 32, True)),       # resident queries, two d-chunks
+    (300, 10, 1, (128, 16, False)),     # queries streamed, ragged chunk
+    (300, 50, 3, (128, 16, False)),
+    (2048, 10, 10, (128, 16, False)),   # 128 chunks of 16 axes
+    (2048, 128, 1, (128, 16, False)),
+    (3, 900, 128, (16, 3, True)),       # lists past the old f32 limit
+    (3, 900, 1, (16, 3, True)),
+    (13, 1707, 3, (16, 8, False)),      # a 16-row block's narrower chunks
+])
+def test_select_kernel_wide_d_and_long_lists(cuda_device, d, k, m, plan):
+    """The f32 kernel's other launch shapes (d-chunks, streamed queries,
+    16-row blocks) against select_plain, bit for bit, and its prep pass
+    against the plain prep."""
+    assert mk.pick_launch(d, k, m) == plan
+    rng = np.random.default_rng(d + k + m)
+    for kind in ("lattice", "random"):
+        _, args = _select_inputs(rng, 1000, d, kind, cuda_device)
+        args = (args[0][:40].contiguous(), args[1][:40].contiguous(),
+                *args[2:])
+        for got, want in zip(mk.prep_f32(args[2], args[3]),
+                             mk.prep_f32_plain(args[2], args[3])):
+            assert torch.equal(got, want)
+        for excl in (True, False):
+            before = mk.launches, mk.prep_launches_f32
+            got = mk.select(*args, k, m, d, excl, "f32")
+            assert (mk.launches, mk.prep_launches_f32) == (
+                before[0] + 1, before[1] + 2)
+            want = ms.select_plain(*args, k, m, d, excl, "f32")
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (kind, excl)
+
+
 def _certified_exact(pts, q, ids, cert, k, excl):
     """Every certified row's ids are a true top-k set of the f32 points in
     f64 arithmetic (ties allowed): as many as there are candidates, up to
@@ -310,3 +345,100 @@ def test_gpu_blocked_solve_equals_cpu_solve(cuda_device):
     assert int(g.uncert_count) == int(c.uncert_count)
     np.testing.assert_array_equal(g.neighbors, c.neighbors)
     np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+
+
+def _solve_pair(pts, cfg, cuda_device):
+    gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    cs.launches = 0
+    g, c = gpu.solve(), cpu.solve()
+    assert int(g.uncert_count) == int(c.uncert_count)
+    np.testing.assert_array_equal(g.neighbors, c.neighbors)
+    np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+    return gpu, cpu
+
+
+@pytest.mark.cuda
+def test_gpu_k1000_solve_streams_and_equals_cpu_solve(cuda_device):
+    """k >= 893 does not fit the class kernel's lists: every class takes
+    the streamed route (plain torch on both devices), and the GPU solve
+    equals the CPU solve."""
+    pts = generate_blue_noise(6000, seed=13)
+    gpu, _ = _solve_pair(pts, pt.KnnConfig(k=1000), cuda_device)
+    assert {cp.route for cp in gpu.aplan.classes} == {"streamed"}
+    assert cs.launches == 0
+    assert gpu.get_knearests().shape == (6000, 1000)
+
+
+@pytest.mark.cuda
+def test_gpu_forced_budget_streams_one_class(cuda_device, monkeypatch):
+    """A budget of the all-streamed plan and one class's packs: that class
+    keeps the kernel (one launch), the other streams, and the GPU solve
+    equals the CPU solve under the same budget."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    pts = generate_clustered(20_000, seed=3)
+    cfg = pt.KnnConfig(k=10, ring_radius=1)
+    free = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    _, specs = adaptive.plan_class_specs(free.grid.cell_counts.numpy(),
+                                         free.grid.dim, cfg)
+    extra = [adaptive.kernel_extra_bytes(sp, cfg) for sp in specs]
+    budget = (adaptive.streamed_plan_bytes(specs, cfg, free.grid.n_points)
+              + min(extra))
+    monkeypatch.setattr(adaptive, "hbm_budget_bytes", lambda device: budget)
+    gpu, _ = _solve_pair(pts, cfg, cuda_device)
+    routes = [cp.route for cp in gpu.aplan.classes]
+    assert sorted(routes) == ["kernel", "streamed"]
+    assert routes[int(np.argmax(extra))] == "streamed"
+    assert cs.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud,n,k,ring,rows", [
+    ("blue", 6000, 1000, None, None), ("blue", 30_000, 10, None, None),
+    ("blue", 30_000, 10, None, 16), ("clustered", 20_000, 10, 1, 3)])
+def test_streamed_step_memory_within_its_model(cuda_device, cloud, n, k,
+                                               ring, rows):
+    """The widest class of a cloud, streamed on the card: the peak its
+    steps allocate (torch.cuda.max_memory_allocated above what was
+    allocated before) stays within ``stream_step_bytes``, the model the
+    plan routes by.  Prints the measured bytes per (query slot, tile + k
+    slot)."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+    from cuda_knearests_tpu_torch.ops.solve import _box_cell_ids, pack_cells
+
+    gen = generate_blue_noise if cloud == "blue" else generate_clustered
+    cfg = pt.KnnConfig(k=k, ring_radius=ring)
+    prob = pt.KnnProblem.prepare(gen(n, seed=19), cfg, device=cuda_device)
+    g = prob.grid
+    sc, specs = adaptive.plan_class_specs(g.cell_counts.cpu().numpy(),
+                                          g.dim, cfg)
+    sp = max(specs, key=lambda c: c.qcap * c.ccap)
+    s = cfg.supercell
+    own = torch.as_tensor(_box_cell_ids(sc[sp.rows], 0, 0, s, g.dim),
+                          device=cuda_device)
+    cand = torch.as_tensor(_box_cell_ids(sc[sp.rows], -sp.radius, sp.radius,
+                                         s, g.dim), device=cuda_device)
+    q_idx, q_ok = pack_cells(own, g.cell_starts, g.cell_counts, sp.qcap)
+    q = g.points[q_idx.long()]
+    tile = adaptive.stream_tile(sp.ccap)
+    rows = rows or adaptive.streamed_rows_chunk(sp.rows.size, sp.qcap, tile)
+    slots = q_idx.numel()
+    out = (torch.empty((slots, k), device=cuda_device),
+           torch.empty((slots, k), dtype=torch.int32, device=cuda_device))
+    tgt = torch.arange(slots, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    adaptive.streamed_topk(g.points, g.cell_starts, g.cell_counts, cand, q,
+                           q_ok, q_idx, k, sp.ccap, tile, rows, tgt=tgt,
+                           out=out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    model = adaptive.stream_step_bytes(rows, sp.qcap, sp.ccap, k)
+    per_slot = peak / (rows * sp.qcap * (tile + k))
+    print(f"streamed step {cloud} n={n} k={k}: rows {rows}, qcap {sp.qcap},"
+          f" ccap {sp.ccap}, tile {tile}: peak {peak} bytes, model {model} "
+          f"({peak / model:.3f}), {per_slot:.2f} bytes per (query, tile + k)"
+          f" slot")
+    assert peak <= model

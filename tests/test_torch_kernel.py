@@ -180,3 +180,21 @@ def test_plain_chunking_does_not_change_results(jax_pack, monkeypatch):
         chunked = cs.supercell_topk(*jax_pack["pargs"], 10, True)
         assert torch.equal(chunked[0], whole[0])
         assert torch.equal(chunked[1], whole[1])
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes the source and every ``csrc`` header it
+    includes, so an edited header rebuilds every library that uses it."""
+    import shutil
+
+    for f in _build._CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    names = ("mxu_select", "mxu_select_bf16", "supercell_topk")
+    before = {n: _build.library_path(n) for n in names}
+    header = tmp_path / "select_fold.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["mxu_select"] != before["mxu_select"]
+    assert after["mxu_select_bf16"] != before["mxu_select_bf16"]
+    assert after["supercell_topk"] == before["supercell_topk"]

@@ -237,11 +237,13 @@ def test_select_wrapper_rules(monkeypatch):
         pkernel.select(z, zi, c, ci.long(), 2, 2, 4, True)
     with pytest.raises(ValueError, match="precision"):
         pkernel.select(z, zi, c, ci, 2, 2, 4, True, "fp16")
-    assert pkernel.pick_launch(3, 10, 10) == (128, 128)
-    assert pkernel.pick_launch(128, 10, 10) == (128, 32)
-    assert pkernel.pick_launch(128, 128, 127) == (64, 32)
+    assert pkernel.pick_launch(3, 10, 10) == (128, 3, True)
+    assert pkernel.pick_launch(128, 10, 10) == (128, 16, False)
+    assert pkernel.pick_launch(128, 128, 127) == (64, 32, True)
+    # wide rows stream in d-chunks: no d is refused
+    assert pkernel.pick_launch(40_000, 10, 10) == (128, 16, False)
     with pytest.raises(pmem.LaunchBudgetError, match="232448-byte limit"):
-        pkernel.pick_launch(40_000, 10, 10)
+        pkernel.pick_launch(3, 2000, 128)
 
     def no_plain(*a, **k):
         raise AssertionError("plain version ran for a CUDA tensor")

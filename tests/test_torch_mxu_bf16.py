@@ -116,14 +116,39 @@ def test_pick_launch_bf16_accepts_everything_pick_launch_accepts():
     assert accepted > 10_000
 
 
+@pytest.mark.parametrize("accepting,other", [
+    ("pick_launch", "pick_launch_bf16"), ("pick_launch_bf16", "pick_launch")])
+def test_f32_and_bf16_gates_accept_the_same_shapes(accepting, other):
+    """Whatever one tier's gate accepts the other accepts too, over the
+    grid above and around the k limit (k = 1,715 at d=3)."""
+    accepted = refused = 0
+    ks = (list(range(1, 33)) + list(range(33, 513, 13)) + [512]
+          + list(range(1560, 1760, 7)) + [1714, 1715])
+    for d in list(range(1, 48)) + list(range(48, 1025, 11)) + [1024, 40_000]:
+        for k in ks:
+            for m in sorted({1, 3, min(k, 128)}):
+                try:
+                    getattr(pkernel, accepting)(d, k, m)
+                except pmem.LaunchBudgetError:
+                    refused += 1
+                    with pytest.raises(pmem.LaunchBudgetError):
+                        getattr(pkernel, other)(d, k, m)
+                    continue
+                accepted += 1
+                plan = getattr(pkernel, other)(d, k, m)
+                size = (pkernel.smem_bytes if other == "pick_launch"
+                        else pkernel.smem_bytes_bf16)
+                assert size(d, k, m, *plan) <= pkernel.SMEM_LIMIT
+    assert accepted > 10_000 and refused > 1_000
+
+
 def test_pick_launch_bf16_shapes_and_refusal():
     assert pkernel.pick_launch_bf16(3, 10, 1) == (128, 16, True)
     assert pkernel.pick_launch_bf16(128, 10, 1) == (128, 128, True)
     assert pkernel.pick_launch_bf16(2000, 10, 1) == (128, 64, False)
     assert pkernel.pick_launch_bf16(128, 128, 127)[0] == 64
-    # the f32 gate's longest lists still fit, in one warp of 16 rows
-    with pytest.raises(pmem.LaunchBudgetError):
-        pkernel.pick_launch(1, 907, 1)
+    # lists of the f32 gate's old limit fit, in one warp of 16 rows
+    assert pkernel.pick_launch(1, 907, 1) == (16, 1, True)
     assert pkernel.pick_launch_bf16(1, 900, 1)[0] == 16
     with pytest.raises(pmem.LaunchBudgetError, match="232448-byte limit"):
         pkernel.pick_launch_bf16(3, 2000, 1)
