@@ -8,7 +8,7 @@ H100: the kernels target sm_90a).  It imports only the port
 (``cuda_knearests_tpu_torch``), never JAX or the reference package.  It:
 
   1. prints the card (``nvidia-smi`` name and power limit) and builds the
-     four kernel sources of ``csrc/`` from the checkout, one ``nvcc`` each,
+     five kernel sources of ``csrc/`` from the checkout, one ``nvcc`` each,
      all at once, printing their ptxas lines;
   2. holds each kernel against its plain torch version on the card, equal
      bit for bit (``torch.equal``; NaN deficit flags in the same places),
@@ -17,7 +17,10 @@ H100: the kernels target sm_90a).  It imports only the port
        300k/k=50 and 300k clustered plans (whole, or a wide class's
        largest supercells) and on synthetic packs (k in {1, 10, 50, 128},
        exclude_self on and off, rows with fewer than k candidates, ragged
-       query tiles, coarse-lattice ties);
+       query tiles, coarse-lattice ties), then at every list width the
+       kernel instantiates and its edges (k in {1, 10, 31, 32, 33, 50, 64,
+       65, 128, 500, 892}) with qcap 45 and an all-pad supercell, and at
+       ccaps beyond the staged tile (candidates streamed in tiles);
      - ``blocked_topk`` in both modes on the class packs of 900k/k=10 and
        300k/k=50, as packed and with candidates crowded in stored-id order
        (deficit rows), and on synthetic packs at several m;
@@ -35,6 +38,10 @@ H100: the kernels target sm_90a).  It imports only the port
        ``F32_WIDE``: d=64 (resident queries, two d-chunks), d=300 and
        d=2,048 (queries streamed in d-chunks), and k=900 and 1,707 in
        16-row blocks;
+     - ``mxu_select_split`` bit for bit at both tiers at ``SPLIT_SHAPES``:
+       m < 128 (the fold's sort) and m = 128, n < k, the gate-refused
+       k=1,800 (d=3) and 1,590 (d=128), and k=8,200 (the sort in a
+       scratch row);
   3. runs the grid main path -- ``KnnProblem.prepare(points).solve()`` then
      ``get_knearests_original()`` -- on 900k blue noise at k=10, 300k blue
      noise at k=50 and a clustered 300k cloud (ring_radius=1, several
@@ -50,7 +57,11 @@ H100: the kernels target sm_90a).  It imports only the port
      unrefined): one selection launch and at most two host round trips per
      solve, refined answers exact on sampled rows (cKDTree at d=3, an f64
      brute force at d=128), every certified sampled row exact, and recall
-     on the sampled rows at least the fold's bound at the 2B band;
+     on the sampled rows at least the fold's bound at the 2B band; then
+     one solve at k=1,800 on 20k uniform 3-D points, which the one-block
+     kernels' gates refuse: it runs the split selection (backend
+     'cuda_split', no one-block launch), exact against cKDTree on 2,000
+     sampled rows;
   6. runs the grid main path with ``KnnConfig(kernel='blocked')`` on the
      900k/k=10 cloud: the blocked kernel launched, deficit rows counted,
      exact vs cKDTree, and the same distances as the one-stage path;
@@ -60,9 +71,10 @@ H100: the kernels target sm_90a).  It imports only the port
      streamed class's peak allocation within the plan's memory model, the
      route of each class and the streamed route's time printed;
   8. times each kernel at its main path's shapes against its plain version
-     (the selection's plain version on 1,024 of the queries), a PyTorch
-     library yardstick and its bound (at f32 also the --fmad=false
-     ceiling, twice the bound), and requires the timed outputs to equal
+     (the selections' plain version on 1,024 of the queries), a PyTorch
+     library yardstick and its bound (for supercell_topk and at f32 also
+     the --fmad=false ceiling, twice the operations bound, and the
+     one-stage kernel's launch geometry), and requires the timed outputs to equal
      the plain version's (bf16: to meet the contract above); the bf16
      selection also at m = k, where its fold takes the m >= 2 path.
 
@@ -94,12 +106,15 @@ PEAK_HBM_BYTES = 3.35e12
 SAMPLE_ROWS = 20_000
 DEV = "cuda"
 CSRC = "cuda_knearests_tpu_torch/csrc/"
-KERNELS = ("supercell_topk", "blocked_topk", "mxu_select", "mxu_select_bf16")
+KERNELS = ("supercell_topk", "blocked_topk", "mxu_select", "mxu_select_bf16",
+           "mxu_select_split")
 REPLACES = {
     "supercell_topk": "cuda_knearests_tpu/ops/pallas_solve.py:480",
     "blocked_topk": "cuda_knearests_tpu/ops/pallas_solve.py:168",
     "mxu_select": "cuda_knearests_tpu/mxu/kernel.py:59",
     "mxu_select_bf16": "cuda_knearests_tpu/mxu/kernel.py:59",
+    # the reference's arm for the shapes its selection kernel refuses
+    "mxu_select_split": "cuda_knearests_tpu/mxu/scorer.py:209",
 }
 
 
@@ -143,22 +158,25 @@ def quiet(fn):
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
     saved = (cs.launches, cs.blocked_launches, mk.launches,
-             mk.launches_bf16, mk.prep_launches, mk.prep_launches_f32)
+             mk.launches_bf16, mk.split_launches, mk.prep_launches,
+             mk.prep_launches_f32)
     try:
         return fn()
     finally:
         (cs.launches, cs.blocked_launches, mk.launches, mk.launches_bf16,
-         mk.prep_launches, mk.prep_launches_f32) = saved
+         mk.split_launches, mk.prep_launches, mk.prep_launches_f32) = saved
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
-def synthetic_pack(rng, n_sc: int, qcap: int, ccap: int, max_real_c: int):
+def synthetic_pack(rng, n_sc: int, qcap: int, ccap: int, max_real_c: int,
+                   pad_last: bool = False):
     """A random class pack on a coarse lattice (many exact distance ties):
     per supercell a random number of real candidates (some below k, some
-    none), its queries a subset of its candidates (so exclude_self bites),
-    pads with garbage coordinates and sentinel ids, and a forward row map
-    over the real query slots."""
+    none; none in the last with ``pad_last``, an all-pad supercell), its
+    queries a subset of its candidates (so exclude_self bites), pads with
+    garbage coordinates and sentinel ids, and a forward row map over the
+    real query slots."""
     import torch
 
     from cuda_knearests_tpu_torch.ops.cuda_solve import _PAD_C, _PAD_Q
@@ -174,6 +192,8 @@ def synthetic_pack(rng, n_sc: int, qcap: int, ccap: int, max_real_c: int):
     n_real_q = 0
     for s in range(n_sc):
         nc = int(rng.integers(0, max_real_c + 1))
+        if pad_last and s == n_sc - 1:
+            nc = 0
         slots = rng.permutation(ccap)[:nc]
         cid[s, slots] = rng.permutation(1 << 20)[:nc]
         nq = min(qcap, nc, int(rng.integers(0, qcap + 1)))
@@ -288,9 +308,22 @@ def crowded(args):
                              for a in args[4:]]
 
 
+# (k, supercells, qcap, ccap): every list width the
+# one-stage kernel instantiates and its edges (k = 32*E, one past it, and
+# k = 892, the gate's last), at a qcap that is not a multiple of 32 with
+# an all-pad supercell; then ccaps beyond the staged tile (_TOPK_TILE), so
+# the candidates stream in tiles.
+LIST_WIDTH_SHAPES = [(k, 8, 45, max(384, -(-(k + 100) // 128) * 128))
+                     for k in (1, 10, 31, 32, 33, 50, 64, 65, 128, 500, 892)]
+TILED_SHAPES = [(10, 4, 70, 6477), (50, 3, 70, 9300)]
+
+
 def kernel_checks(problems) -> float:
     """supercell_topk: every class of the prepared problems (whole, or
-    sliced when wide), then synthetic packs."""
+    sliced when wide), then synthetic packs: the earlier shapes, every
+    list width, and wide ccaps (tiled staging)."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
     rng = np.random.default_rng(2024)
     err = 0.0
     for name, prob, cfg in problems:
@@ -307,6 +340,14 @@ def kernel_checks(problems) -> float:
         for excl in (True, False):
             err = max(err, compare_modes("synthetic", args, tgt, n_rows,
                                          k, excl))
+    for k, n_sc, qcap, ccap in LIST_WIDTH_SHAPES + TILED_SHAPES:
+        args, tgt, n_rows = synthetic_pack(rng, n_sc, qcap, ccap, ccap,
+                                           pad_last=True)
+        plan = cs.topk_plan(k, qcap, ccap)
+        for excl in (True, False):
+            err = max(err, compare_modes(
+                f"synthetic {plan} {'tiled' if plan.tile < ccap else 'resident'}",
+                args, tgt, n_rows, k, excl))
     return err
 
 
@@ -416,9 +457,11 @@ def select_checks() -> tuple:
     coordinates (exact ties and exact partial sums), on random ones, with
     n not a multiple of 128, n < k, and query counts that are not
     multiples of 128, and on well-separated blobs where bf16 rows certify
-    (at m = k at least 90% of them must, each exact).  Returns the largest
-    |score difference| of each kernel, the largest 2*delta_max / B of the
-    bf16 one and its largest 2*delta_max / f32 term of B."""
+    (at m = k at least 90% of them must, each exact); then the f32 kernel
+    at ``F32_WIDE`` and the split selection at ``SPLIT_SHAPES``.  Returns
+    the largest |score difference| of each one-block kernel, the largest
+    2*delta_max / B of the bf16 one, its largest 2*delta_max / f32 term of
+    B, and the split selection's largest |score difference|."""
     import torch
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
@@ -485,7 +528,7 @@ def select_checks() -> tuple:
               f"/f32 term {ratio32:.3e}; largest bf16 |score difference| "
               f"{err16:.6g})", flush=True)
     err = max(err, select_checks_f32_wide(rng))
-    return err, err16, ratio, ratio32
+    return err, err16, ratio, ratio32, split_checks(rng)
 
 
 # f32 launch shapes beyond select_checks' grid: (d, k, m) with resident
@@ -532,6 +575,48 @@ def select_checks_f32_wide(rng) -> float:
     print(f"  mxu_select f32 at (d, k, m) {list(F32_WIDE)}: equal to "
           f"select_plain, prep equal to prep_f32_plain; launch plans "
           f"(rows, kc, queries resident) {sorted(plans)}", flush=True)
+    return err
+
+
+# The split selection's shapes (d, n, k, m): the fold's sort (m < 128) and
+# pass-through, fewer candidates than k, the k the one-block gates refuse
+# at d=3 and d=128 (a pool narrower than k + 1 at m=100), and a sort in a
+# device scratch row.
+SPLIT_SHAPES = ((3, 1000, 10, 3), (3, 1000, 50, 128), (17, 1000, 128, 7),
+                (3, 40, 50, 1), (3, 2000, 1800, 128), (3, 2000, 1800, 100),
+                (128, 1700, 1590, 128), (3, 9000, 8200, 128))
+
+
+def split_checks(rng) -> float:
+    """mxu_select_split against select_plain bit for bit at both tiers at
+    ``SPLIT_SHAPES``, on lattice and random points, 40 queries, exclude_self
+    on and off.  Returns the largest |score difference| (0 when equal)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    err = 0.0
+    for d, n, k, m in SPLIT_SHAPES:
+        for kind in ("lattice", "random"):
+            pts = (rng.integers(0, 6, (n, d)) * 2.5 if kind == "lattice"
+                   else rng.random((n, d)) * 100).astype(np.float32)
+            qid, pts_il, cid_il = select_inputs(pts, 40, True)
+            args = [torch.as_tensor(a, device=DEV)
+                    for a in (pts[:40], qid, pts_il, cid_il)]
+            for precision in ("f32", "bf16"):
+                for excl in (True, False):
+                    what = (f"split select d={d} n={n} {kind} {precision} "
+                            f"k={k} m={m} excl={excl}")
+                    want = ms.select_plain(*args, k, m, d, excl, precision)
+                    got = quiet(lambda: mk.select_split(
+                        *args, k, m, d, excl, precision))
+                    err = max(err, require_equal(
+                        what, (got[1], got[0], got[2]),
+                        (want[1], want[0], want[2])))
+    print(f"  mxu_select_split at (d, n, k, m) {list(SPLIT_SHAPES)}: equal "
+          f"to select_plain at f32 and bf16", flush=True)
     return err
 
 
@@ -775,10 +860,17 @@ def class_timing(name: str, prob, cfg) -> dict:
     flops = 8 * pairs  # 3 subtractions, 3 multiplications, 2 additions
     t_bytes = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
+    geometry = [cs.topk_plan(k, cp.qcap, cp.ccap) for cp, m in
+                zip(classes, ms_of) if not m]
+    # bit identity forbids fused multiply-adds: each operation is one
+    # instruction where the 67 TFLOP/s rate counts an FMA as two
     print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"cdist+topk {library_ms:.4f} ms; bytes {in_bytes + out_bytes} "
           f"-> {t_bytes:.4f} ms at 3.35 TB/s; pairs {pairs}, {flops} f32 "
-          f"ops -> {t_ops:.4f} ms at 67 TFLOP/s", flush=True)
+          f"ops -> {t_ops:.4f} ms at 67 TFLOP/s; --fmad=false ceiling "
+          f"{2 * t_ops:.4f} ms (one instruction per operation)"
+          f"{f'; one-stage launch geometry {geometry}' if geometry else ''}",
+          flush=True)
     raw_bytes = in_bytes - sum(cp.tgt.numel() * 4 for cp in classes) \
         + raw_out_bytes
     print(f"  {name} raw (S, k, Q) layout: kernel {raw_ms:.4f} ms; bytes "
@@ -881,11 +973,11 @@ def split_timers(split: dict):
 
     class Kernel:
         @staticmethod
-        def select(*a, **kw):
+        def select_routed(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = saved["kernel"].select(*a, **kw)
+            out = saved["kernel"].select_routed(*a, **kw)
             end.record()
             end.synchronize()
             split["select"] = start.elapsed_time(end)
@@ -1153,6 +1245,129 @@ def path_a():
     return launches, timing, err, ratio
 
 
+def brute_refused_run(points: np.ndarray, k: int) -> dict:
+    """One ``mxu.solve_general`` at a k whose lists no one-block selection
+    kernel holds (their gates refuse it): the solve runs the split
+    selection (backend 'cuda_split', its launches counted, no one-block
+    launch, two f32 prep passes), within two round trips, and answers
+    exactly against cKDTree on 2,000 sampled rows.  Prints the route, the
+    solve time and its split; returns the split selection's launches."""
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch import mxu
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    n, d = points.shape
+    one_block = (mk.launches, mk.launches_bf16, mk.prep_launches)
+    before, prep_before = mk.split_launches, mk.prep_launches_f32
+    split = {}
+    restore = split_timers(split)
+    dispatch.reset_stats()
+    t0 = time.perf_counter()
+    try:
+        res = mxu.solve_general(points, k=k, device=DEV)
+    finally:
+        restore()
+    dt = time.perf_counter() - t0
+    syncs = dispatch.stats().host_syncs
+    launches = mk.split_launches - before
+    require(syncs <= dispatch.SYNC_BUDGET,
+            f"brute k={k}: solve made {syncs} host round trips")
+    require(res.backend == "cuda_split",
+            f"brute k={k}: ran {res.backend}, not the split selection")
+    require(launches > 0 and mk.prep_launches_f32 == prep_before + 2,
+            f"brute k={k}: {launches} split launches, "
+            f"{mk.prep_launches_f32 - prep_before} f32 prep passes")
+    require((mk.launches, mk.launches_bf16, mk.prep_launches) == one_block,
+            f"brute k={k}: a one-block selection kernel was launched")
+    require(res.neighbors.shape == (n, k) and bool(res.certified.all()),
+            f"brute k={k}: result shape {res.neighbors.shape} or rows left "
+            f"uncertified")
+    rows = np.sort(np.random.default_rng(23).permutation(n)[:2000])
+    t0 = time.perf_counter()
+    check_exact(points, res.neighbors, rows, k,
+                cKDTree(points.astype(np.float64)))
+    print(f"  brute {n // 1000}k x {d} k={k}: the one-block gates refuse "
+          f"it, route '{res.backend}' ({launches} split launches, one a "
+          f"chunk of {mk.split_plan(n, -(-n // 128) * 128, k, res.m)[0]} "
+          f"queries); one solve {dt * 1e3:.3f} ms (cold): split selection "
+          f"{split['select']:.3f} ms (CUDA events, prep passes included), "
+          f"host rescore {split['rescore']:.3f} ms, fallback "
+          f"{split.get('fallback', 0.0):.3f} ms for {res.uncert_count} rows; "
+          f"host round trips {syncs}; exact vs cKDTree on {rows.size} rows, "
+          f"checked in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "m": res.m}
+
+
+def split_timing(points: np.ndarray, k: int, m: int) -> dict:
+    """The split selection over all queries at the brute phase's
+    gate-refused shape (f32), against its plain version and the kernel on
+    1,024 of the queries (which must agree exactly), a chunked matmul +
+    topk yardstick (no TF32) and the bound: the larger of 2*d operations
+    per (query, candidate) pair over the FP32 peak and the bytes of inputs
+    and outputs over the HBM rate.  The kernel time covers the wrapper's
+    launches (two prep passes, a fold and a selection a chunk)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    n, d = points.shape
+    qid, pts_il, cid_il = select_inputs(points, n, True)
+    q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
+                        for a in (points, qid, pts_il, cid_il)]
+    ms_full = quiet(lambda: cuda_ms(
+        lambda: mk.select_split(q, qid_t, p, cid, k, m, d, True), 3))
+    sub = torch.as_tensor(np.random.default_rng(5).permutation(n)[:1024],
+                          device=DEV).long()
+    qs, qids = q[sub].contiguous(), qid_t[sub].contiguous()
+    want = ms.select_plain(qs, qids, p, cid, k, m, d, True)
+    got = quiet(lambda: mk.select_split(qs, qids, p, cid, k, m, d, True))
+    err = require_equal(f"split select k={k} on {sub.numel()} queries",
+                        (got[1], got[0], got[2]), (want[1], want[0], want[2]))
+    sub_ms = quiet(lambda: cuda_ms(
+        lambda: mk.select_split(qs, qids, p, cid, k, m, d, True), 3))
+    plain_ms = cuda_ms(lambda: ms.select_plain(qs, qids, p, cid, k, m, d,
+                                               True), 1)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qn = (q * q).sum(1)
+    step = max(1, (1 << 30) // (4 * n))
+
+    def library():
+        for r0 in range(0, n, step):
+            s = (qn[r0:r0 + step, None] + qn[None, :]
+                 - 2.0 * (q[r0:r0 + step] @ q.T))
+            torch.topk(s, k + 1, dim=1, largest=False)
+
+    try:
+        library_ms = cuda_ms(library, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    flops = 2 * d * n * n
+    nbytes = (4 * n * d + 4 * pts_il.size + 4 * n + 4 * cid_il.size
+              + 8 * n * k + n)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    rows, p_len, n2, scratch = mk.split_plan(n, pts_il.shape[0], k, m)
+    print(f"  split select {n // 1000}k x {d} k={k} m={m}: kernel "
+          f"{ms_full:.3f} ms over {n} queries (chunks of {rows}, pool "
+          f"{p_len} keys a query, sort width {n2}"
+          f"{' in a scratch row' if scratch else ' in shared memory'}); on "
+          f"{sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms (equal outputs); matmul+topk "
+          f"{library_ms:.3f} ms; {flops} ops -> {t_ops:.4f} ms at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes} bytes -> "
+          f"{t_bytes:.4f} ms", flush=True)
+    return err, {"ms": ms_full, "plain_ms": plain_ms,
+                 "plain_queries": int(sub.numel()),
+                 "ms_on_plain_queries": sub_ms, "library_ms": library_ms,
+                 "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def fold_timing(label: str, points: np.ndarray, k: int, m: int) -> float:
     """The bf16 selection over all queries at m >= 2, where each row's
     fold runs select_fold.cuh's ``fold_step``: ms per call (CUDA events,
@@ -1359,8 +1574,8 @@ def main() -> int:
         [("300k/k=50", prob50, cfg50), ("300k clustered", prob_cl, cfg_cl)])}
     max_err["blocked_topk"] = blocked_checks(
         [("900k/k=10", prob10, cfg10), ("300k/k=50", prob50, cfg50)])
-    max_err["mxu_select"], max_err["mxu_select_bf16"], *band_ratio = \
-        select_checks()
+    (max_err["mxu_select"], max_err["mxu_select_bf16"], *band_ratio,
+     max_err["mxu_select_split"]) = select_checks()
 
     phase("grid main path")
     launches, _, _ = main_path("900k blue noise", pts900, cfg10, 3, prob10,
@@ -1392,6 +1607,13 @@ def main() -> int:
     print(f"  mxu_select_bf16: largest 2*delta_max over every check "
           f"{band_ratio[0]:.6e} of B, {band_ratio[1]:.6e} of its f32 term",
           flush=True)
+    pts_k1800 = (np.random.default_rng(1800).random((20_000, 3))
+                 * 1000).astype(np.float32)
+    mk.split_launches = 0
+    refused = brute_refused_run(pts_k1800, 1800)
+    err_split, split_timings = split_timing(pts_k1800, 1800, refused["m"])
+    max_err["mxu_select_split"] = max(max_err["mxu_select_split"], err_split)
+    del pts_k1800
 
     phase("grid main path with the blocked kernel")
     prob_b, cfg_b, blocked_launches = path_b(pts900, prob10)
@@ -1429,6 +1651,12 @@ def main() -> int:
              max_band_ratio=band_ratio[0],
              max_band_ratio_f32=band_ratio[1], shape="100k x 128 bf16",
              **select_timings["100k x 128 bf16"]),
+        dict(name="mxu_select_split", route="cuda",
+             source=CSRC + "mxu_select_split.cu",
+             replaces=REPLACES["mxu_select_split"],
+             launches=refused["launches"],
+             max_abs_err=max_err["mxu_select_split"],
+             shape="20k x 3 f32 k=1800", **split_timings),
     ]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -11,8 +11,9 @@ keeps its d=3 contract and refuses wider input with a pointer here
 * :mod:`scorer` -- dot-form scores, the fold, and ``select_plain``, the
   plain version of the selection kernel.
 * :mod:`kernel` -- ``select``: the CUDA selection kernels
-  (``csrc/mxu_select.cu`` at f32, ``csrc/mxu_select_bf16.cu`` at bf16) on
-  CUDA tensors, the plain version on CPU ones.
+  (``csrc/mxu_select.cu`` at f32, ``csrc/mxu_select_bf16.cu`` at bf16,
+  ``csrc/mxu_select_split.cu`` for the k they do not hold) on CUDA
+  tensors, the plain version on CPU ones.
 * :mod:`solve`  -- ``solve_general`` (any d, recall knob, at most two host
   round trips) and ``knn``.
 """

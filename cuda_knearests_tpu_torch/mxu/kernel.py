@@ -10,16 +10,23 @@ and returns every query's selection and certificate:
     tensor-core selection of ``csrc/mxu_select_bf16.cu`` (norms bit for
     bit, q.p within the certification band: see that source's contract),
     or raises;
+  * where those kernels' gate refuses the shape, it launches two prep
+    passes and the split selection of ``csrc/mxu_select_split.cu`` (the
+    fold and the pool's selection through device memory, bit for bit the
+    plain version at both tiers), or raises;
   * on CPU tensors it runs ``scorer.select_plain``, the same function in
     plain torch with the same per-op rounding.
 
 The TPU kernel kept the candidate set and a (G*m, 128) pool in VMEM and
-was gated on fitting it (``kernel_fits``); these kernels stream candidates,
-and queries too when d is large, and keep per-query lists, so their only
-gate is shared memory per block (:func:`pick_launch`,
-:func:`pick_launch_bf16`; both accept the same (d, k, m): every d, and k
-up to what a 16-row bf16 block's lists hold), refused with a typed
-:class:`LaunchBudgetError`.
+was gated on fitting it (``kernel_fits``); the reference sends the shapes
+it refuses to ``solve_blocks_xla``.  The one-block kernels here stream
+candidates, and queries too when d is large, and keep per-query lists in
+shared memory, so their only gate is shared memory per block
+(:func:`pick_launch`, :func:`pick_launch_bf16`; both accept the same (d,
+k, m): every d, and k up to what a 16-row bf16 block's lists hold),
+refused with a typed :class:`LaunchBudgetError`.  The split selection
+keeps its lists in device memory and takes the shapes they refuse
+(:func:`select_routed` names the route that ran).
 """
 
 from __future__ import annotations
@@ -54,11 +61,22 @@ _ROWS_BF16 = (128, 64, 32, 16)
 _KC_RESIDENT = 128
 _KC_STREAM = 64
 
+# Split selection: keys sorted in shared memory up to this many (a power
+# of two; kSmemSortKeys in the source), else in a device scratch row;
+# device bytes of the pool (and rem and scratch) one chunk of queries may
+# take; the most queries in a chunk (the fold's grid height times 8).
+_SPLIT_SMEM_KEYS = 8192
+_SPLIT_CHUNK_BYTES = 256 << 20
+_SPLIT_MAX_ROWS = 65535 * 8
+
 # Kernel launches (CUDA tensors only): the f32 selection kernel, the bf16
-# selection kernel, and the prep passes of each tier (two per selection:
-# ``prep_launches_f32`` for the f32 tier, ``prep_launches`` for bf16).
+# selection kernel, the split selection (one a chunk of queries), and the
+# prep passes of each tier (two per selection: ``prep_launches_f32`` for
+# the f32 tier, ``prep_launches`` for bf16; the split selection's count
+# with its tier's).
 launches = 0
 launches_bf16 = 0
+split_launches = 0
 prep_launches = 0
 prep_launches_f32 = 0
 
@@ -154,6 +172,19 @@ def pick_launch_bf16(d: int, k: int, m: int) -> Tuple[int, int, bool]:
         site="mxu_select_bf16")
 
 
+def launch_plan(d: int, k: int, m: int, precision: str):
+    """The tier's launch plan (:func:`pick_launch` at f32,
+    :func:`pick_launch_bf16` at bf16), or None where its gate refuses
+    (d, k, m) and the split selection runs instead: the route of a CUDA
+    selection, decided by shape alone, as the reference's ``_use_kernel``
+    decides by ``kernel_fits``."""
+    gate = pick_launch_bf16 if precision == "bf16" else pick_launch
+    try:
+        return gate(d, k, m)
+    except LaunchBudgetError:
+        return None
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mxu_select")
     if not getattr(lib, "_argtypes_set", False):
@@ -182,6 +213,20 @@ def _lib_bf16() -> ctypes.CDLL:
         lib.mxu_select_bf16_launch.restype = i
         lib.mxu_select_bf16_error_string.argtypes = [i]
         lib.mxu_select_bf16_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _lib_split() -> ctypes.CDLL:
+    lib = _build.load("mxu_select_split")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mxu_select_split_launch.argtypes = (
+            [i, p, i, p, p, p, p, i, p, p, p] + [i] * 7
+            + [ctypes.c_float, p, p, p, i, p, p, p, p])
+        lib.mxu_select_split_launch.restype = i
+        lib.mxu_select_split_error_string.argtypes = [i]
+        lib.mxu_select_split_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
@@ -298,27 +343,133 @@ def select(queries: torch.Tensor, q_ids: torch.Tensor, pts_il: torch.Tensor,
     block keeps its first ``m``, ``d_real`` sizes the error band and
     ``precision`` is 'f32' or 'bf16'.  Returns (ids (M, k) int32 by
     ascending (score, id), scores (M, k) f32, certified (M,) bool);
-    missing entries are (-1, inf).
+    missing entries are (-1, inf).  :func:`select_routed` without the
+    route's name."""
+    return select_routed(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                         exclude_self, precision)[1]
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel on
-    the current stream, or raise: there is no fallback."""
+
+def select_routed(queries: torch.Tensor, q_ids: torch.Tensor,
+                  pts_il: torch.Tensor, cid_il: torch.Tensor, k: int, m: int,
+                  d_real: int, exclude_self: bool, precision: str = "f32"):
+    """:func:`select`'s outputs with the route that computed them:
+    (route, (ids, scores, certified)).
+
+    CPU tensors run the plain version (route 'plain') and never consult
+    a gate.  CUDA tensors launch the tier's one-block kernel on the
+    current stream when its gate takes (d, k, m) (:func:`launch_plan`;
+    route 'cuda'), else the split selection (:func:`select_split`; route
+    'cuda_split'), as the reference sends the shapes its kernel cannot
+    hold to ``solve_blocks_xla``.  The route is chosen by shape before any
+    launch; a failed build or launch raises, with no fallback."""
     check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
                       precision)
     k, m = int(k), int(m)
     d = queries.shape[1]
-    bf16 = precision == "bf16"
-    plan = pick_launch_bf16(d, k, m) if bf16 else pick_launch(d, k, m)
     device = queries.device
     if device.type == "cpu":
-        return select_plain(queries, q_ids, pts_il, cid_il, k, m, d_real,
-                            exclude_self, precision)
+        return "plain", select_plain(queries, q_ids, pts_il, cid_il, k, m,
+                                     d_real, exclude_self, precision)
     if device.type != "cuda":
         raise ValueError(f"select runs on CPU or CUDA tensors, got {device}")
+    plan = launch_plan(d, k, m, precision)
+    if plan is None:
+        return "cuda_split", _launch_split(queries, q_ids, pts_il, cid_il,
+                                           k, m, d_real, exclude_self,
+                                           precision)
+    if precision == "bf16":
+        return "cuda", _launch_bf16(queries, q_ids, pts_il, cid_il, k, m,
+                                    d_real, exclude_self, plan, None)
+    return "cuda", _launch_f32(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                               exclude_self, plan)
+
+
+def select_split(queries: torch.Tensor, q_ids: torch.Tensor,
+                 pts_il: torch.Tensor, cid_il: torch.Tensor, k: int, m: int,
+                 d_real: int, exclude_self: bool, precision: str = "f32"):
+    """:func:`select` through the split selection at any (d, k, m), the
+    shapes the gate takes included: CPU tensors run the plain version,
+    CUDA tensors launch the kernel or raise."""
+    check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
+                      precision)
+    if queries.device.type == "cpu":
+        return select_plain(queries, q_ids, pts_il, cid_il, int(k), int(m),
+                            d_real, exclude_self, precision)
+    if queries.device.type != "cuda":
+        raise ValueError(f"select runs on CPU or CUDA tensors, got "
+                         f"{queries.device}")
+    return _launch_split(queries, q_ids, pts_il, cid_il, int(k), int(m),
+                         d_real, exclude_self, precision)
+
+
+def split_plan(n_q: int, n_c: int, k: int, m: int):
+    """(queries a chunk, pool keys a query, sort width n2, sorted in a
+    device scratch row) of the split selection: the pool holds each
+    128-slot block's first min(m, 128) keys, n2 is the power of two above
+    k, and a chunk's pool, rem and scratch take at most
+    ``_SPLIT_CHUNK_BYTES`` (one query at least)."""
+    g = n_c // BLOCK
+    me = min(int(m), BLOCK)
+    p_len = g * me
+    n2 = 1 << int(k).bit_length()
+    scratch = n2 > _SPLIT_SMEM_KEYS
+    row_bytes = (8 * p_len + (4 * g if me < BLOCK else 0)
+                 + (8 * n2 if scratch else 0))
+    rows = max(1, min(int(n_q), _SPLIT_MAX_ROWS,
+                      _SPLIT_CHUNK_BYTES // row_bytes))
+    return rows, p_len, n2, scratch
+
+
+def _launch_split(queries, q_ids, pts_il, cid_il, k: int, m: int,
+                  d_real: int, exclude_self: bool, precision: str):
+    """The split selection on CUDA tensors: the tier's two prep passes,
+    then the fold and the pool's selection for each chunk of queries
+    (``split_plan``), one ``split_launches`` a chunk."""
+    global split_launches
+    n_q, n_c = queries.shape[0], pts_il.shape[0]
+    d = queries.shape[1]
+    device = queries.device
+    out_i, out_s, cert = _outputs(n_q, k, device)
+    if n_q == 0:
+        return out_i, out_s, cert
+    lib = _lib_split()
+    bf16 = precision == "bf16"
+    coef = float(dot_error_bound(1.0, 0.0, int(d_real), precision))
     if bf16:
-        return _launch_bf16(queries, q_ids, pts_il, cid_il, k, m, d_real,
-                            exclude_self, plan, None)
-    return _launch_f32(queries, q_ids, pts_il, cid_il, k, m, d_real,
-                       exclude_self, plan)
+        qx, qns, qnf, _ = prep(queries)
+        px, pns, _, pn_max = prep(pts_il, cid_il)
+        ldq = ldp = pad16(d)
+    else:
+        qx, qnf, _ = prep_f32(queries)
+        px, pns, pn_max = prep_f32(pts_il, cid_il)
+        qns, ldq, ldp = qnf, qx.shape[1], px.shape[1]
+    rows, p_len, n2, in_scratch = split_plan(n_q, n_c, k, m)
+    g = n_c // BLOCK
+    pool = torch.empty((rows, p_len), dtype=torch.int64, device=device)
+    rem = (torch.empty((rows, g), dtype=torch.float32, device=device)
+           if m < BLOCK else None)
+    scratch = (torch.empty((rows, n2), dtype=torch.int64, device=device)
+               if in_scratch else None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for r0 in range(0, n_q, rows):
+            n_rows = min(rows, n_q - r0)
+            rc = lib.mxu_select_split_launch(
+                int(bf16), qx.data_ptr(), ldq, qns.data_ptr(),
+                qnf.data_ptr(), q_ids.data_ptr(), px.data_ptr(), ldp,
+                pns.data_ptr(), cid_il.data_ptr(), pn_max.data_ptr(), r0,
+                n_rows, n_c, d, k, m, int(bool(exclude_self)), coef,
+                pool.data_ptr(), None if rem is None else rem.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), n2,
+                out_i.data_ptr(), out_s.data_ptr(), cert.data_ptr(), stream)
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"mxu_select_split launch failed: "
+                    f"{lib.mxu_select_split_error_string(rc).decode()} "
+                    f"(code {rc}; M={n_q} C={n_c} d={d} k={k} m={m} "
+                    f"rows {r0}+{n_rows} n2={n2})")
+            split_launches += 1
+    return out_i, out_s, cert
 
 
 def _launch_f32(queries, q_ids, pts_il, cid_il, k: int, m: int,

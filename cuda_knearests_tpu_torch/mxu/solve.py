@@ -3,8 +3,10 @@ recall-bounded.
 
 Counterpart of ``cuda_knearests_tpu/mxu/solve.py``.  Every query is scored
 against every stored point by the selection kernel (``mxu/kernel.py``:
-``csrc/mxu_select.cu``, or ``csrc/mxu_select_bf16.cu`` at bf16) under the
-TPU-KNN per-block fold at ``recall_target``, with per-row certificates.  The solve then follows the
+``csrc/mxu_select.cu``, or ``csrc/mxu_select_bf16.cu`` at bf16, and
+``csrc/mxu_select_split.cu`` for the k their blocks do not hold) under
+the TPU-KNN per-block fold at ``recall_target``, with per-row
+certificates.  The solve then follows the
 one-sync discipline of ``api._finalize``: one batched fetch of the
 selection (ids and certificates), exact distances computed on the host
 (:func:`_host_rescore`), and one more fetch only when uncertified rows go
@@ -42,9 +44,11 @@ class MxuResult:
     ``certified`` marks rows whose selection was proven a true top-k set;
     after refinement every row is certified and ``uncert_count`` records
     how many needed the fallback.  ``bound`` is the expected-recall lower
-    bound of the (n_blocks, m) fold.  ``backend`` is 'cuda' (the kernel
-    selected), 'plain' (its plain version, on the CPU) or 'elementwise'
-    (the exact brute selection)."""
+    bound of the (n_blocks, m) fold.  ``backend`` names the selection's
+    route (``kernel.select_routed``): 'cuda' (the one-block kernel of the
+    tier), 'cuda_split' (the split selection, where that kernel's launch
+    gate refuses the shape), 'plain' (the plain version, on the CPU) or
+    'elementwise' (the exact brute selection)."""
 
     neighbors: np.ndarray
     dists_sq: np.ndarray
@@ -112,8 +116,11 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     (one more batched fetch); 'none' returns the approximation with its
     certificates.  ``precision`` is the scoring tier ('f32', 'bf16', or
     'auto' -> f32); certified rows are exact at every tier.  Runs on the
-    GPU unless ``device='cpu'``; on the GPU the selection always launches
-    the kernel."""
+    GPU unless ``device='cpu'``; on the GPU the selection launches the
+    tier's one-block kernel where its launch gate takes (d, k, m) and
+    otherwise the split selection (``backend='cuda_split'``), as the
+    reference sends the shapes its kernel does not hold to its XLA
+    twin."""
     if refine not in ("brute", "none"):
         raise InvalidConfigError(
             f"unknown refine {refine!r}: 'brute' or 'none'")
@@ -136,9 +143,9 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
                 f"points are (n, {d}) (input contract: one d per problem)")
         exclude_self = False
     device = resolve_device(device)
-    backend = "cuda" if device.type == "cuda" else "plain"
     m_q = queries_v.shape[0]
     if n == 0 or m_q == 0:
+        backend = "cuda" if device.type == "cuda" else "plain"
         return MxuResult(
             neighbors=np.full((m_q, k), -1, np.int32),
             dists_sq=np.full((m_q, k), np.inf, np.float32),
@@ -168,7 +175,7 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     m = per_block_m(recall_target, k, g)
     bound = recall_bound(k, g, m)
     qid, pts_il, cid_il = select_inputs(points, m_q, exclude_self)
-    sel_i, _sel_s, cert_d = kernel.select(
+    backend, (sel_i, _sel_s, cert_d) = kernel.select_routed(
         q_dev, dispatch.stage(qid, device), dispatch.stage(pts_il, device),
         dispatch.stage(cid_il, device), k, m, d, exclude_self, precision)
 

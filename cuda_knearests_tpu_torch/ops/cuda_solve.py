@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,10 +46,26 @@ _PAD_C = -3
 
 # Shared memory one block may use on Hopper (H100/H200: 227 KB).
 SMEM_LIMIT = 232_448
-# Candidates per shared-memory tile; must match kTile in the source.
+# The blocked kernel's layout, which also sets the routing gate
+# (pick_q_tile): candidates per shared-memory tile (kTile in
+# blocked_topk.cu) and query slots per block, widest first.
 _CAND_TILE = 256
-# Query slots per block, widest first.
 _Q_TILES = (128, 64, 32)
+# The one-stage kernel (supercell_topk.cu): warps per block (kMaxWarps in
+# the source), query slots per warp below which the block takes fewer
+# warps, query slots per warp of a block's chunk (at most kMaxChunk = 128
+# slots a block), the most candidates staged at once (kMaxTile: 48 KB of
+# 16-byte rows, so four 8-warp blocks -- 32 warps -- share an SM's
+# 228 KB), the list entries a lane may hold (its template
+# instantiations: at most 32 * 28 = 896 a query, above the routing gate's
+# 892), and its static shared memory as ptxas reports it on sm_90a (the
+# bucket scan, the chunk's queries and their targets).
+_TOPK_WARPS = 8
+_TOPK_MIN_SLOTS_PER_WARP = 8
+_TOPK_CHUNK_PER_WARP = 16
+_TOPK_TILE = 3072
+_LANE_ENTRIES = (1, 2, 4, 8, 16, 28)
+_TOPK_STATIC_SMEM = 3232
 # Fraction of the device's free memory one solve may commit to its packs
 # and outputs.
 _HBM_BUDGET_FRACTION = 0.8
@@ -67,17 +83,20 @@ class KernelLaunchError(RuntimeError):
 
 
 def smem_bytes(k: int, q_tile: int, m: int = 0) -> int:
-    """Shared memory of one block: the candidate tile plus each thread's
-    (d2, id) lists, of length k (and m for the blocked kernel's block
-    list)."""
+    """Shared memory of one block of the per-thread-list layout: the
+    candidate tile plus each thread's (d2, id) lists, of length k (and m
+    for the blocked kernel's block list)."""
     return 4 * _CAND_TILE * 4 + 2 * (k + m) * q_tile * 4
 
 
 def pick_q_tile(k: int, qcap: int, m: int = 0) -> int:
-    """Query slots per block: the widest tile (at most qcap rounded up to a
-    warp) whose per-thread lists fit shared memory (``m`` > 0: the blocked
-    kernel's).  Raises :class:`LaunchBudgetError` when even one warp's
-    lists do not fit."""
+    """Query slots per block of the per-thread-list layout: the widest
+    tile (at most qcap rounded up to a warp) whose per-thread lists fit
+    shared memory.  It is the blocked kernel's geometry (``m`` > 0) and,
+    as a predicate, the class kernels' routing gate (``adaptive.
+    class_route``): the one-stage kernel takes exactly the (k, qcap) it
+    accepts, k <= 892 (:func:`topk_plan`).  Raises
+    :class:`LaunchBudgetError` when even one warp's lists do not fit."""
     for qt in _Q_TILES:
         if smem_bytes(k, qt, m) <= SMEM_LIMIT:
             return min(qt, max(32, -(-qcap // 32) * 32))
@@ -90,6 +109,38 @@ def pick_q_tile(k: int, qcap: int, m: int = 0) -> int:
         f"{(SMEM_LIMIT - smem_bytes(0, 32, m)) // (8 * 32)})",
         requested=smem_bytes(k, _Q_TILES[-1], m), budget=SMEM_LIMIT,
         site=site)
+
+
+class TopkPlan(NamedTuple):
+    """Launch geometry of ``csrc/supercell_topk.cu``: warps per block (one
+    block per supercell and chunk of ``qchunk`` query slots, a warp owning
+    one slot at a time), list entries per lane (32 * lane_entries >= k)
+    and candidates staged in shared memory at once (a multiple of 32; a
+    wider ccap streams in tiles of this many)."""
+
+    warps: int
+    lane_entries: int
+    tile: int
+    qchunk: int
+
+
+def topk_plan(k: int, qcap: int, ccap: int) -> TopkPlan:
+    """The one-stage kernel's launch geometry for a class.  It takes
+    exactly the (k, qcap) that :func:`pick_q_tile` takes, and raises its
+    :class:`LaunchBudgetError` beyond; every ccap runs (staged whole up to
+    ``_TOPK_TILE`` candidates, streamed in tiles above)."""
+    pick_q_tile(k, qcap)
+    entries = next(e for e in _LANE_ENTRIES if 32 * e >= k)
+    warps = max(1, min(_TOPK_WARPS, -(-qcap // _TOPK_MIN_SLOTS_PER_WARP)))
+    tile = min(_TOPK_TILE, max(32, -(-ccap // 32) * 32))
+    return TopkPlan(warps, entries, tile, _TOPK_CHUNK_PER_WARP * warps)
+
+
+def topk_smem_bytes(plan: TopkPlan) -> int:
+    """Shared memory of one block of the one-stage kernel: the staged
+    tile of 16-byte (x, y, z, id) rows.  Must match
+    ``supercell_topk_smem_bytes`` in the source."""
+    return 16 * plan.tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,15 +345,17 @@ def blocked_topk_plain(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
     return _plain_out(rows_d, rows_i, k, tgt, out)
 
 
-def _lib(name: str, n_int: int) -> ctypes.CDLL:
+def _lib(name: str, n_int: int, n_geom: int) -> ctypes.CDLL:
     """The kernel library ``name`` with its launcher's argument types: 8
     input pointers, ``n_int`` int arguments (S, Q, C, k, ..., exclude_self),
-    tgt, n_rows, the two output pointers, q_tile and the stream."""
+    tgt, n_rows, the two output pointers, ``n_geom`` int launch-geometry
+    arguments and the stream."""
     lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = [p] * 8 + [i] * n_int + [p, i, p, p, i, p]
+        launch.argtypes = ([p] * 8 + [i] * n_int + [p, i, p, p]
+                           + [i] * n_geom + [p])
         launch.restype = i
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i]
@@ -312,10 +365,11 @@ def _lib(name: str, n_int: int) -> ctypes.CDLL:
 
 
 def _launch(name: str, args, s_total: int, qcap: int, ccap: int, k: int,
-            ints, exclude_self: bool, tgt, out, q_tile: int):
+            ints, exclude_self: bool, tgt, out, geometry):
     """The CUDA half of both wrappers: allocate mode (b)'s outputs or check
     mode (a)'s, launch on the current stream, raise on a refused launch.
-    ``ints`` are the kernel's extra int arguments after k."""
+    ``ints`` are the kernel's extra int arguments after k, ``geometry``
+    its launch-geometry ints."""
     device = args[0].device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {device}")
@@ -334,18 +388,18 @@ def _launch(name: str, args, s_total: int, qcap: int, ccap: int, k: int,
         n_rows = _check_rows(tgt, out, s_total, qcap, k, device)[2]
     if s_total == 0 or qcap == 0:
         return out, False
-    lib = _lib(name, 5 + len(ints))
+    lib = _lib(name, 5 + len(ints), len(geometry))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             *(a.data_ptr() for a in args), s_total, qcap, ccap, k, *ints,
             int(bool(exclude_self)), None if tgt is None else tgt.data_ptr(),
-            n_rows, out[0].data_ptr(), out[1].data_ptr(), q_tile, stream)
+            n_rows, out[0].data_ptr(), out[1].data_ptr(), *geometry, stream)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise KernelLaunchError(
             f"{name} launch failed: {msg} (code {rc}; S={s_total} Q={qcap} "
-            f"C={ccap} k={k} {ints} q_tile={q_tile})")
+            f"C={ccap} k={k} {ints} geometry={tuple(geometry)})")
     return out, True
 
 
@@ -368,11 +422,11 @@ def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
     args = (qx, qy, qz, qid, cx, cy, cz, cid)
     s_total, qcap, ccap = _check(*args, k)
     k = int(k)
-    q_tile = pick_q_tile(k, qcap)
+    plan = topk_plan(k, qcap, ccap)
     if qx.device.type == "cpu":
         return supercell_topk_plain(*args, k, exclude_self, tgt, out)
     out, launched = _launch("supercell_topk", args, s_total, qcap, ccap, k,
-                            (), exclude_self, tgt, out, q_tile)
+                            (), exclude_self, tgt, out, plan)
     launches += launched
     return out
 
@@ -397,6 +451,6 @@ def blocked_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
     if qx.device.type == "cpu":
         return blocked_topk_plain(*args, k, m, exclude_self, tgt, out)
     out, launched = _launch("blocked_topk", args, s_total, qcap, ccap, k,
-                            (m,), exclude_self, tgt, out, q_tile)
+                            (m,), exclude_self, tgt, out, (q_tile,))
     blocked_launches += launched
     return out

@@ -14,7 +14,9 @@ places).  The CPU solves run the plain versions with the same arithmetic,
 so GPU and CPU results must be equal too.  The one exception is the bf16
 selection (``csrc/mxu_select_bf16.cu``), whose q.p the tensor cores sum in
 their own order: it is held to the contract stated in its source (equal
-on exact inputs, within the certification band elsewhere).
+on exact inputs, within the certification band elsewhere).  The split
+selection (``csrc/mxu_select_split.cu``) sums q.p in order on CUDA cores,
+so it is equal to the plain version at both tiers.
 """
 
 import numpy as np
@@ -442,3 +444,137 @@ def test_streamed_step_memory_within_its_model(cuda_device, cloud, n, k,
           f"({peak / model:.3f}), {per_slot:.2f} bytes per (query, tile + k)"
           f" slot")
     assert peak <= model
+
+
+def _class_pack(rng, n_sc, qcap, ccap, max_real_c, device):
+    """A random class pack on a coarse lattice (many exact distance ties):
+    per supercell a random number of real candidates (some below k, some
+    none), its queries a subset of them (so exclude_self bites) in random
+    slots, pads with garbage coordinates and sentinel ids, the last
+    supercell all pads; and a forward row map over the real query slots
+    (pads carry the out-of-range row n)."""
+    from cuda_knearests_tpu_torch.ops.cuda_solve import _PAD_C, _PAD_Q
+
+    lattice = lambda: rng.integers(0, 24, (n_sc, ccap)).astype(  # noqa: E731
+        np.float32) * 7.5
+    cx, cy, cz = lattice(), lattice(), lattice()
+    cid = np.full((n_sc, ccap), _PAD_C, np.int32)
+    q = [rng.random((n_sc, qcap)).astype(np.float32) * 1000 for _ in "xyz"]
+    qid = np.full((n_sc, qcap), _PAD_Q, np.int32)
+    for s in range(n_sc - 1):
+        nc = int(rng.integers(0, max_real_c + 1))
+        slots = rng.permutation(ccap)[:nc]
+        cid[s, slots] = rng.permutation(1 << 20)[:nc]
+        nq = min(qcap, nc, int(rng.integers(0, qcap + 1)))
+        pick = slots[rng.permutation(nc)[:nq]]
+        at = rng.permutation(qcap)[:nq]
+        for a, c in zip(q, (cx, cy, cz)):
+            a[s, at] = c[s, pick]
+        qid[s, at] = cid[s, pick]
+    real = (qid >= 0).reshape(-1)
+    n_rows = int(real.sum())
+    tgt = np.full(n_sc * qcap, n_rows, np.int32)
+    tgt[real] = rng.permutation(n_rows)
+    dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return ([dev(a) for a in (*q, qid, cx, cy, cz, cid)], dev(tgt), n_rows)
+
+
+def _check_supercell_modes(args, tgt, n_rows, k, excl, device):
+    """The one-stage kernel against its plain version in both modes, one
+    launch each."""
+    before = cs.launches
+    kd, ki = cs.supercell_topk(*args, k, excl)
+    rows = [(torch.full((n_rows, k), float("inf"), device=device),
+             torch.full((n_rows, k), -1, dtype=torch.int32, device=device))
+            for _ in range(2)]
+    cs.supercell_topk(*args, k, excl, tgt=tgt, out=rows[0])
+    assert cs.launches == before + 2
+    pd, pi = cs.supercell_topk_plain(*args, k, excl)
+    cs.supercell_topk_plain(*args, k, excl, tgt=tgt, out=rows[1])
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    assert torch.equal(rows[0][0], rows[1][0])
+    assert torch.equal(rows[0][1], rows[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 31, 32, 33, 50, 64, 65, 128, 500, 892])
+def test_supercell_kernel_every_list_width(cuda_device, k):
+    """Every list width the launcher instantiates and its edges (k = 32*E
+    and one past it, k = 892 the gate's last), on packs whose qcap is not
+    a multiple of 32 and whose last supercell is all pads, with rows that
+    hold fewer than k candidates: equal to the plain version bit for bit
+    in both modes, both exclude_self values."""
+    rng = np.random.default_rng(k)
+    ccap = max(384, -(-(k + 100) // 128) * 128)
+    args, tgt, n_rows = _class_pack(rng, 7, 45, ccap, ccap, cuda_device)
+    plan = cs.topk_plan(k, 45, ccap)
+    assert 32 * plan.lane_entries >= k and plan.tile >= ccap
+    for excl in (True, False):
+        _check_supercell_modes(args, tgt, n_rows, k, excl, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 50, 128])
+def test_supercell_kernel_streams_wide_classes(cuda_device, k):
+    """A ccap beyond the staged tile: the block streams the candidates in
+    tiles, every warp in step, and still equals the plain version bit for
+    bit in both modes."""
+    rng = np.random.default_rng(100 + k)
+    ccap = 2 * cs._TOPK_TILE + 333
+    args, tgt, n_rows = _class_pack(rng, 4, 70, ccap, ccap, cuda_device)
+    assert cs.topk_plan(k, 70, ccap).tile < ccap
+    for excl in (True, False):
+        _check_supercell_modes(args, tgt, n_rows, k, excl, cuda_device)
+
+
+@pytest.mark.cuda
+def test_gpu_brute_gate_refused_k_equals_cpu(cuda_device):
+    """k = 1,800 at d=3: no selection block holds the lists, so the GPU
+    solve runs the split selection (backend 'cuda_split', its launches
+    counted, no one-block kernel launched) and equals the CPU solve."""
+    pts = (np.random.default_rng(6).random((6000, 3)) * 1000).astype(
+        np.float32)
+    before = (mk.launches, mk.launches_bf16, mk.split_launches)
+    g = mxu.solve_general(pts, k=1800, device=cuda_device)
+    assert g.backend == "cuda_split"
+    assert (mk.launches, mk.launches_bf16) == before[:2]
+    assert mk.split_launches > before[2]
+    c = mxu.solve_general(pts, k=1800, device="cpu")
+    assert c.backend == "plain"
+    np.testing.assert_array_equal(g.neighbors, c.neighbors)
+    np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+    np.testing.assert_array_equal(g.certified, c.certified)
+    assert g.uncert_count == c.uncert_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("d,n,k,m", [
+    (3, 1000, 1, 1), (3, 1000, 10, 3), (3, 1000, 50, 128),
+    (3, 40, 50, 1),                        # fewer candidates than k
+    (17, 1000, 128, 7), (128, 1000, 10, 128),
+    (3, 2000, 1800, 128), (3, 2000, 1800, 100),  # the gate refuses these
+    (128, 1700, 1590, 128),
+    (3, 9000, 8200, 128),                  # the sort in a scratch row
+])
+def test_split_select_matches_plain_bit_for_bit(cuda_device, precision, d,
+                                                n, k, m):
+    """The split selection against select_plain, bit for bit at both
+    tiers: the fold's kept-key sort (m < 128) and its pass-through
+    (m = 128), radix selection over ties (lattice) and spread scores, and
+    the sort in shared memory and in a device scratch row."""
+    rng = np.random.default_rng(d + n + k + m)
+    for kind in ("lattice", "random"):
+        _, args = _select_inputs(rng, n, d, kind, cuda_device)
+        if k > 1000:
+            args = (args[0][:40].contiguous(), args[1][:40].contiguous(),
+                    *args[2:])
+        for excl in (True, False):
+            before = mk.split_launches
+            got = mk.select_split(*args, k, m, d, excl, precision)
+            assert mk.split_launches > before
+            want = ms.select_plain(*args, k, m, d, excl, precision)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (kind, excl)

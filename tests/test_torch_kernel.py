@@ -198,3 +198,44 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     assert after["mxu_select"] != before["mxu_select"]
     assert after["mxu_select_bf16"] != before["mxu_select_bf16"]
     assert after["supercell_topk"] == before["supercell_topk"]
+
+
+def test_launch_plan_accepts_exactly_the_routing_gate():
+    """The one-stage kernel's launch plan takes exactly the (k, qcap) that
+    ``pick_q_tile`` -- the class routing gate -- takes, k <= 892 at every
+    qcap, so a class routed to the kernel always launches and a refused
+    one always streams; the kernel's own lists (32 * 28 = 896 entries a
+    query) hold every k the gate takes.  The gate's arithmetic turns over
+    only at warp multiples of qcap, so qcap runs over its edges in 1-512."""
+    assert 892 < 32 * cs._LANE_ENTRIES[-1] < 893 + 32
+    for qcap in (1, 31, 32, 33, 45, 104, 480, 511, 512):
+        for k in range(1, 1001):
+            for gate in (lambda: cs.pick_q_tile(k, qcap),
+                         lambda: cs.topk_plan(k, qcap, 1152)):
+                if k <= 892:
+                    gate()
+                else:
+                    with pytest.raises(LaunchBudgetError):
+                        gate()
+    assert cs.topk_plan(892, 512, 1152).lane_entries == 28
+
+
+@pytest.mark.parametrize("k", [1, 10, 31, 32, 33, 50, 64, 65, 128, 500, 892])
+def test_launch_plan_geometry(k):
+    for qcap in (1, 8, 45, 104, 14392):
+        for ccap in (0, 1, 256, 1152, 3072, 3073, 24704):
+            plan = cs.topk_plan(k, qcap, ccap)
+            # the narrowest instantiated list that holds k
+            assert plan.lane_entries == min(e for e in cs._LANE_ENTRIES
+                                            if 32 * e >= k)
+            assert 1 <= plan.warps <= cs._TOPK_WARPS
+            assert plan.warps == cs._TOPK_WARPS or 8 * plan.warps >= qcap
+            assert plan.qchunk == 16 * plan.warps
+            # the staged tile: a warp multiple, the whole ccap while it
+            # fits, and small enough for four blocks (32 warps) on a 228 KB
+            # SM, each with its static shared memory and the 1 KB the
+            # runtime reserves a block
+            assert plan.tile % 32 == 0 and 32 <= plan.tile <= cs._TOPK_TILE
+            assert plan.tile >= min(ccap, cs._TOPK_TILE)
+            assert 4 * (cs.topk_smem_bytes(plan) + cs._TOPK_STATIC_SMEM
+                        + 1024) <= 228 * 1024

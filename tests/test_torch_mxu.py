@@ -467,3 +467,181 @@ def test_front_door_dims_none_matches_jax(case):
         else:
             np.testing.assert_array_equal(
                 pio.validate_or_raise(raw, k=k, dims=None), want)
+
+
+# -- (g) shapes the selection kernels' gate refuses ----------------------------
+# From k = 1,715 at d=3 (1,589 at d=128) no block holds a query's lists, so
+# pick_launch / pick_launch_bf16 refuse; the JAX package answers such shapes
+# through solve_blocks_xla, the port through the split selection on the
+# card and select_plain on the CPU.
+
+LARGE_K = 1800
+
+
+@pytest.fixture(scope="module")
+def large_k_cloud():
+    return (np.random.default_rng(0).random((2000, 3)) * 1000).astype(
+        np.float32)
+
+
+def _swaps_within_band(pts, queries, got, want, precision):
+    """Rows whose selected id sets differ swap only ids whose exact
+    squared distances lie within 2B of each other: each package's scores
+    lie within B (``dot_error_bound``) of the exact ones, so neither can
+    prefer an id more than 2B farther than one it left out."""
+    p64 = pts.astype(np.float64)
+    pn_max = float((p64 * p64).sum(1).max())
+    q64 = queries.astype(np.float64)
+    band = 2.0 * np.asarray(jtopk.dot_error_bound(
+        (q64 * q64).sum(1), pn_max, pts.shape[1], precision), np.float64)
+    for r in np.nonzero((got != want).any(1))[0]:
+        a = np.setdiff1d(got[r], want[r])
+        b = np.setdiff1d(want[r], got[r])
+        assert a.size == b.size
+        if not a.size:
+            continue
+        ea = ((p64[a] - q64[r]) ** 2).sum(1)
+        eb = ((p64[b] - q64[r]) ** 2).sum(1)
+        assert np.abs(ea[:, None] - eb[None, :]).max() <= band[r], (
+            f"row {r}: swapped ids outside the {precision} band")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("rt", [1.0, 0.9])
+def test_solve_general_gate_refused_k_matches_jax(large_k_cloud, rt,
+                                                  precision):
+    pts = large_k_cloud
+    refine = "brute" if rt == 1.0 else "none"
+    m = ptopk.per_block_m(rt, LARGE_K, -(-pts.shape[0] // 128))
+    assert pkernel.launch_plan(3, LARGE_K, m, precision) is None
+    p = pmxu.solve_general(pts, k=LARGE_K, recall_target=rt, refine=refine,
+                           precision=precision, device=CPU)
+    j = jmxu.solve_general(pts, k=LARGE_K, recall_target=rt, refine=refine,
+                           precision=precision)
+    assert p.backend == "plain" and j.backend == "xla"
+    assert p.neighbors.shape == (pts.shape[0], LARGE_K)
+    assert (p.m, p.n_blocks, p.bound) == (j.m, j.n_blocks, j.bound)
+    np.testing.assert_array_equal(p.certified, j.certified)
+    assert p.uncert_count == j.uncert_count
+    if rt == 1.0:
+        _byte_equal(p, j)
+    elif precision == "f32":
+        # the unrefined f32 fold selects the same rows on this cloud
+        np.testing.assert_array_equal(p.neighbors, j.neighbors)
+        np.testing.assert_array_equal(p.dists_sq, j.dists_sq)
+    else:
+        # bf16 q.p rounds in another order under XLA: no row certifies at
+        # either package, and uncertified rows swap ids inside the band
+        assert not p.certified.any()
+        _swaps_within_band(pts, pts, p.neighbors, j.neighbors, precision)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_solve_general_gate_refused_k_general_d_matches_jax(precision):
+    rng = np.random.default_rng(1)
+    pts = (rng.random((1700, 128)) * 100).astype(np.float32)
+    q = (rng.random((48, 128)) * 100).astype(np.float32)
+    k = 1590  # one above the largest k a d=128 block holds
+    assert pkernel.launch_plan(128, k - 2, 128, precision) is not None
+    assert pkernel.launch_plan(128, k, 128, precision) is None
+    p = pmxu.solve_general(pts, k=k, queries=q, precision=precision,
+                           device=CPU)
+    assert p.backend == "plain"
+    _byte_equal(p, jmxu.solve_general(pts, k=k, queries=q,
+                                      precision=precision))
+
+
+def test_select_on_the_cpu_never_consults_the_gate(monkeypatch):
+    def no_gate(*a, **k):
+        raise AssertionError("the launch gate was consulted on the CPU")
+
+    for name in ("pick_launch", "pick_launch_bf16", "launch_plan"):
+        monkeypatch.setattr(pkernel, name, no_gate)
+    q, qid, p, cid = (torch.tensor(a) for a in _il_inputs_small())
+    for precision in ("f32", "bf16"):
+        got = pkernel.select(q, qid, p, cid, LARGE_K, 128, 3, True,
+                             precision)
+        want = pscorer.select_plain(q, qid, p, cid, LARGE_K, 128, 3, True,
+                                    precision)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _il_inputs_small():
+    pts = (np.random.default_rng(2).random((300, 3)) * 100).astype(
+        np.float32)
+    pts_il, cid_il, _, _ = _il_inputs(pts, 3)
+    return pts, np.arange(300, dtype=np.int32), pts_il, cid_il
+
+
+def test_gate_refused_cuda_select_launches_the_split_kernel(monkeypatch):
+    """On CUDA tensors the route is chosen by shape before any launch: a
+    shape the gate refuses goes to the split selection, one it takes to
+    the tier's one-block kernel, and neither gives way to the plain
+    version, so without a toolkit each raises its own build error."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from cuda_knearests_tpu_torch.ops import _build
+
+    loaded = []
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    def no_toolkit(name):
+        loaded.append(name)
+        raise _build.KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(pkernel, "select_plain", no_plain)
+    monkeypatch.setattr(_build, "load", no_toolkit)
+    counts = (pkernel.launches, pkernel.launches_bf16, pkernel.split_launches,
+              pkernel.prep_launches, pkernel.prep_launches_f32)
+    with FakeTensorMode():
+        dev = (torch.zeros((3, 3), device="cuda"),
+               torch.zeros((3,), dtype=torch.int32, device="cuda"),
+               torch.zeros((128, 3), device="cuda"),
+               torch.zeros((128,), dtype=torch.int32, device="cuda"))
+        for precision, lib in (("f32", "mxu_select"),
+                               ("bf16", "mxu_select_bf16")):
+            for k, m, want in ((LARGE_K, 128, "mxu_select_split"),
+                               (2, 2, lib)):
+                loaded.clear()
+                with pytest.raises(_build.KernelBuildError):
+                    pkernel.select_routed(*dev, k, m, 3, True, precision)
+                assert loaded == [want], (precision, k)
+            loaded.clear()
+            with pytest.raises(_build.KernelBuildError):
+                pkernel.select_split(*dev, 2, 2, 3, True, precision)
+            assert loaded == ["mxu_select_split"]
+    assert (pkernel.launches, pkernel.launches_bf16, pkernel.split_launches,
+            pkernel.prep_launches, pkernel.prep_launches_f32) == counts
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_select_routed_names_the_plain_route_on_the_cpu(precision):
+    q, qid, p, cid = (torch.tensor(a) for a in _il_inputs_small())
+    route, got = pkernel.select_routed(q, qid, p, cid, 7, 3, 3, True,
+                                       precision)
+    assert route == "plain"
+    want = pscorer.select_plain(q, qid, p, cid, 7, 3, 3, True, precision)
+    for a, b, c in zip(got, want, pkernel.select_split(q, qid, p, cid, 7, 3,
+                                                       3, True, precision)):
+        assert torch.equal(a, b) and torch.equal(c, b)
+
+
+@pytest.mark.parametrize("n_q,n_c,k,m", [
+    (2000, 2048, 1800, 128), (300_000, 300_032, 1800, 128),
+    (48, 1792, 1590, 128), (40, 9088, 8200, 128), (10, 128, 1, 1),
+    (1_000_000, 1_000_064, 2000, 3)])
+def test_split_plan_geometry(n_q, n_c, k, m):
+    rows, p_len, n2, scratch = pkernel.split_plan(n_q, n_c, k, m)
+    me = min(m, 128)
+    assert p_len == (n_c // 128) * me
+    # the sort's width: the power of two above k, in shared memory up to
+    # the source's limit
+    assert n2 > k and n2 & (n2 - 1) == 0 and n2 // 2 <= k
+    assert scratch == (n2 > pkernel._SPLIT_SMEM_KEYS)
+    assert 1 <= rows <= min(n_q, pkernel._SPLIT_MAX_ROWS)
+    row_bytes = 8 * p_len + (4 * (n_c // 128) if me < 128 else 0) \
+        + (8 * n2 if scratch else 0)
+    assert rows == 1 or rows * row_bytes <= pkernel._SPLIT_CHUNK_BYTES
