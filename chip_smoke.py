@@ -21,9 +21,14 @@ H100: the kernels target sm_90a).  It imports only the port
        kernel instantiates and its edges (k in {1, 10, 31, 32, 33, 50, 64,
        65, 128, 500, 892}) with qcap 45 and an all-pad supercell, and at
        ccaps beyond the staged tile (candidates streamed in tiles);
-     - ``blocked_topk`` in both modes on the class packs of 900k/k=10 and
-       300k/k=50, as packed and with candidates crowded in stored-id order
-       (deficit rows), and on synthetic packs at several m;
+     - ``blocked_topk`` in both modes on the class packs of 900k/k=10,
+       300k/k=50 and the 300k clustered plan (its wide class sliced), as
+       packed and with candidates crowded in stored-id order, on synthetic
+       packs at several m, and at ``BLOCKED_SHAPES``: every list width up
+       to the gate's edge (k + m = 892), m = 128, and ccaps beyond the
+       staged tile, as made and crowded by x; each check prints the rows
+       the kernel answers block by block (counted from the plain version)
+       and the deficit rows;
      - ``mxu_select`` (f32) and ``mxu_select_bf16`` at d in {1, 3, 17,
        128}, k in {1, 10, 50, 128}, m in {1, 3, min(k, 128)}, exclude_self
        on and off, n = 1000 and n = 40 < k candidates, 300 and 40
@@ -63,8 +68,9 @@ H100: the kernels target sm_90a).  It imports only the port
      'cuda_split', no one-block launch), exact against cKDTree on 2,000
      sampled rows;
   6. runs the grid main path with ``KnnConfig(kernel='blocked')`` on the
-     900k/k=10 cloud: the blocked kernel launched, deficit rows counted,
-     exact vs cKDTree, and the same distances as the one-stage path;
+     900k/k=10 cloud: the blocked kernel launched, per-block and deficit
+     rows counted, exact vs cKDTree, and the same distances as the
+     one-stage path;
   7. runs the grid main path at k=1000 on 100k blue noise, where no class
      kernel holds the lists and every class takes the streamed route: no
      class-kernel launch, exact vs cKDTree on 2,000 sampled rows, each
@@ -76,7 +82,9 @@ H100: the kernels target sm_90a).  It imports only the port
      the --fmad=false ceiling, twice the operations bound, and the
      one-stage kernel's launch geometry), and requires the timed outputs to equal
      the plain version's (bf16: to meet the contract above); the bf16
-     selection also at m = k, where its fold takes the m >= 2 path.
+     selection also at m = k, where its fold takes the m >= 2 path; the
+     blocked kernel at 900k/k=10, 300k/k=50 and on the 900k packs crowded
+     in stored-id order.
 
 Any failed check exits non-zero without printing a result.  The last three
 lines are the card, one JSON object of kernel measurements, and
@@ -263,12 +271,41 @@ def compare_modes(name, args, tgt, n_rows, k, exclude_self, m=0) -> float:
         quiet(lambda: kern(*args, k, exclude_self, tgt=tgt,
                            out=row_buffers(n_rows, k))),
         plain(*args, k, exclude_self, tgt=tgt, out=row_buffers(n_rows, k))))
-    deficit = (torch.isnan(raw[0][:, k - 1, :]) & (args[3] >= 0)).sum()
+    blocked = ""
+    if m:
+        deficit = (torch.isnan(raw[0][:, k - 1, :]) & (args[3] >= 0)).sum()
+        blocked = (f"; per-block rows {per_block_rows(args, k, m, exclude_self)}"
+                   f", deficit rows {int(deficit)}")
     print(f"  {name}: k={k}{f' m={m}' if m else ''} exclude_self="
           f"{exclude_self} S={args[0].shape[0]} Q={args[0].shape[1]} "
-          f"C={args[4].shape[1]}: equal in both modes"
-          f"{f'; deficit rows {int(deficit)}' if m else ''}", flush=True)
+          f"C={args[4].shape[1]}: equal in both modes{blocked}", flush=True)
     return err
+
+
+def per_block_rows(args, k: int, m: int, exclude_self: bool) -> int:
+    """Real query slots whose exact top-k (``supercell_topk_plain``) holds
+    more than m entries of one 128-slot candidate block: the rows the
+    blocked kernel answers block by block, counted from the plain
+    version."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    if m >= k:
+        return 0
+    ids = cs.supercell_topk_plain(*args, k, exclude_self)[1].transpose(1, 2)
+    cid = args[7]
+    srt, order = torch.sort(cid, dim=1)
+    flat = ids.reshape(ids.shape[0], -1).contiguous()
+    slot = order.gather(1, torch.searchsorted(srt, flat).clamp(
+        max=cid.shape[1] - 1))
+    # missing entries get distinct negative blocks; sorted, a row has more
+    # than m entries in one block where entry j equals entry j + m
+    col = torch.arange(flat.shape[1], device=flat.device)
+    blk = torch.where(flat >= 0, slot // 128, -1 - col).view(ids.shape)
+    blk = torch.sort(blk, dim=-1).values
+    over = (blk[..., m:] == blk[..., :-m]).any(-1) & (args[3] >= 0)
+    return int(over.sum())
 
 
 # A class whose padded (query, candidate) pairs exceed this is checked on a
@@ -296,14 +333,16 @@ def class_slices(cp):
     return f"{pick.numel()} supercells", args, tgt
 
 
-def crowded(args):
-    """A pack with each supercell's candidates in stored-id order instead
-    of interleaved: spatial neighbours crowd into one 128-slot block, so
-    the blocked kernel meets deficit rows."""
+def crowded(args, by_x: bool = False):
+    """A pack with each supercell's candidates in stored-id order (grid
+    order) instead of interleaved, or with ``by_x`` in ascending x (for
+    synthetic packs, whose ids are random): spatial neighbours crowd into
+    one 128-slot block, so the blocked kernel meets rows where a block
+    holds more than m of the exact top-k, and deficit rows."""
     import torch
 
-    order = torch.sort(torch.where(args[7] >= 0, args[7], 2**30),
-                       dim=1).indices
+    key = args[4] if by_x else torch.where(args[7] >= 0, args[7], 2**30)
+    order = torch.sort(key, dim=1, stable=True).indices
     return list(args[:4]) + [torch.gather(a, 1, order).contiguous()
                              for a in args[4:]]
 
@@ -351,11 +390,37 @@ def kernel_checks(problems) -> float:
     return err
 
 
+def blocked_ccap(k: int) -> int:
+    """The narrowest ccap, a multiple of 128 of at least 384 and k + 100,
+    at which ``blocked_topm`` finds k eligible."""
+    from cuda_knearests_tpu_torch.config import blocked_topm
+
+    ccap = max(384, -(-(k + 100) // 128) * 128)
+    while not blocked_topm(k, ccap):
+        ccap += 128
+    return ccap
+
+
+# (k, supercells, qcap, ccap, m; m=0: blocked_topm's) of the blocked
+# kernel: every list width and its edges up to the gate's (k + m = 892 at
+# k = 876), each at the narrowest ccap blocked_topm takes (k = 128, 500 and
+# 876 stream theirs in tiles), qcap 45 with an all-pad supercell; m = 128
+# (blocks keep all they hold); and ccaps beyond the staged tile.
+BLOCKED_SHAPES = (
+    [(k, 8, 45, None, 0) for k in (1, 10, 31, 32, 33, 50, 64, 65, 128, 500,
+                                   876)]
+    + [(10, 6, 45, 1152, 128), (764, 6, 45, 896, 128)]
+    + [(10, 4, 70, 6272, 0), (50, 3, 70, 9344, 0)])
+
+
 def blocked_checks(problems) -> float:
     """blocked_topk: the class packs of the given problems at the m their
-    k and ccap give (as packed and crowded), then synthetic packs at that
-    m, at m=1 and at m=16."""
+    k and ccap give (whole, or a wide class's largest supercells; as
+    packed and crowded), synthetic packs at that m, at m=1 and at m=16,
+    then ``BLOCKED_SHAPES`` as made and crowded by x.  Each check prints
+    its per-block and deficit rows."""
     from cuda_knearests_tpu_torch.config import blocked_topm
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
     rng = np.random.default_rng(2025)
     err = 0.0
@@ -377,6 +442,19 @@ def blocked_checks(problems) -> float:
             for excl in (True, False):
                 err = max(err, compare_modes("synthetic", args, tgt, n_rows,
                                              k, excl, m))
+    for k, n_sc, qcap, ccap, m in BLOCKED_SHAPES:
+        ccap = ccap or blocked_ccap(k)
+        m = m or blocked_topm(k, ccap)
+        args, tgt, n_rows = synthetic_pack(rng, n_sc, qcap, ccap, ccap,
+                                           pad_last=True)
+        plan = cs.topk_plan(k, qcap, ccap, m)
+        for layout, pack in (("made", args), ("crowded",
+                                              crowded(args, by_x=True))):
+            for excl in (True, False):
+                err = max(err, compare_modes(
+                    f"synthetic {layout} {plan} "
+                    f"{'tiled' if plan.tile < ccap else 'resident'}",
+                    pack, tgt, n_rows, k, excl, m))
     return err
 
 
@@ -880,6 +958,36 @@ def class_timing(name: str, prob, cfg) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}, err
+
+
+def crowded_timing(name: str, prob, cfg) -> dict:
+    """The blocked kernel (mode (a), every class) on the packs of a
+    prepared problem with each supercell's candidates crowded in stored-id
+    order, against its plain version, by CUDA events; its outputs must
+    equal the plain version's.  Returns the timings and the rows answered
+    block by block."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import class_blocked_m
+
+    k, excl, n = cfg.k, cfg.exclude_self, prob.grid.n_points
+    packs = [(crowded(list(cp.pk.args())), cp.tgt,
+              class_blocked_m(cfg, cp.ccap)) for cp in prob.aplan.classes]
+    out, plain_out = row_buffers(n, k), row_buffers(n, k)
+
+    def run(fn, buf):
+        for args, tgt, m in packs:
+            fn(*args, k, m, excl, tgt=tgt, out=buf)
+
+    ms = quiet(lambda: cuda_ms(lambda: run(cs.blocked_topk, out), 20))
+    plain_ms = cuda_ms(lambda: run(cs.blocked_topk_plain, plain_out), 3)
+    err = require_equal(f"{name} crowded rows (timed)", out, plain_out)
+    rows = sum(per_block_rows(args, k, m, excl) for args, _, m in packs)
+    deficit = int(out[0][:, k - 1].isnan().sum())
+    print(f"  {name} crowded in stored-id order: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; per-block rows {rows} of {n}, deficit rows "
+          f"{deficit}; outputs equal the plain version's", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "per_block_rows": rows,
+            "deficit_rows": deficit}, err
 
 
 def solve_breakdown(name: str, prob) -> None:
@@ -1420,8 +1528,13 @@ def path_b(points: np.ndarray, kpass_prob) -> tuple:
         require(int((a_d[r] == a_d[r, c]).sum()) > 1,
                 f"900k blocked: row {r} column {c} differs from the "
                 f"one-stage path outside a distance tie")
+    per_block = sum(per_block_rows(cp.pk.args(), cfg.k,
+                                   class_blocked_m(cfg, cp.ccap),
+                                   cfg.exclude_self)
+                    for cp in prob.aplan.classes)
     print(f"  900k blocked: m={[class_blocked_m(cfg, cp.ccap) for cp in prob.aplan.classes]}"
-          f"; deficit rows {deficit}; uncertified rows {int((~cert).sum())}; "
+          f"; per-block rows {per_block}; deficit rows {deficit}; "
+          f"uncertified rows {int((~cert).sum())}; "
           f"distances equal to the one-stage path's, ids equal but "
           f"{int((a_i != b_i).sum())} entries inside distance ties",
           flush=True)
@@ -1573,7 +1686,8 @@ def main() -> int:
     max_err = {"supercell_topk": kernel_checks(
         [("300k/k=50", prob50, cfg50), ("300k clustered", prob_cl, cfg_cl)])}
     max_err["blocked_topk"] = blocked_checks(
-        [("900k/k=10", prob10, cfg10), ("300k/k=50", prob50, cfg50)])
+        [("900k/k=10", prob10, cfg10), ("300k/k=50", prob50, cfg50),
+         ("300k clustered", prob_cl, cfg_cl)])
     (max_err["mxu_select"], max_err["mxu_select_bf16"], *band_ratio,
      max_err["mxu_select_split"]) = select_checks()
 
@@ -1626,6 +1740,10 @@ def main() -> int:
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
     blocked_timing, err_b = class_timing("900k/k=10 blocked", prob_b, cfg_b)
+    blocked50, err_b50 = class_timing("300k/k=50 blocked", prob50,
+                                      pt.KnnConfig(k=50, kernel="blocked"))
+    blocked_crowded, err_bc = crowded_timing("900k/k=10 blocked", prob_b,
+                                             cfg_b)
 
     kernels = [
         dict(name="supercell_topk", route="cuda",
@@ -1636,8 +1754,12 @@ def main() -> int:
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
-             max_abs_err=max(max_err["blocked_topk"], err_b),
-             **blocked_timing),
+             max_abs_err=max(max_err["blocked_topk"], err_b, err_b50,
+                             err_bc),
+             **blocked_timing, ms_300k_k50=blocked50["ms"],
+             bound_ms_300k_k50=blocked50["bound_ms"],
+             ms_crowded=blocked_crowded["ms"],
+             per_block_rows_crowded=blocked_crowded["per_block_rows"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],

@@ -46,24 +46,27 @@ _PAD_C = -3
 
 # Shared memory one block may use on Hopper (H100/H200: 227 KB).
 SMEM_LIMIT = 232_448
-# The blocked kernel's layout, which also sets the routing gate
-# (pick_q_tile): candidates per shared-memory tile (kTile in
-# blocked_topk.cu) and query slots per block, widest first.
+# The routing gate (pick_q_tile) keeps the arithmetic of the first class
+# kernels' layout, a thread per query slot with its lists in shared
+# memory: a 256-candidate tile and query slots per block, widest first.
 _CAND_TILE = 256
 _Q_TILES = (128, 64, 32)
-# The one-stage kernel (supercell_topk.cu): warps per block (kMaxWarps in
-# the source), query slots per warp below which the block takes fewer
-# warps, query slots per warp of a block's chunk (at most kMaxChunk = 128
-# slots a block), the most candidates staged at once (kMaxTile: 48 KB of
-# 16-byte rows, so four 8-warp blocks -- 32 warps -- share an SM's
-# 228 KB), the list entries a lane may hold (its template
+# The class kernels (supercell_topk.cu, blocked_topk.cu, warp_topk.cuh):
+# warps per block (kMaxWarps in the source), query slots per warp below
+# which the block takes fewer warps, query slots per warp of a block's
+# chunk (at most kMaxChunk = 128 slots a block), the most candidates staged
+# at once (kMaxTile: 48 KB of 16-byte rows, so four 8-warp blocks -- 32
+# warps -- share an SM's 228 KB; the blocked kernel stages a u16 slot
+# beside each row, 18 bytes, and takes at most _BLOCKED_TILE so that four
+# still fit), the list entries a lane may hold (their template
 # instantiations: at most 32 * 28 = 896 a query, above the routing gate's
-# 892), and its static shared memory as ptxas reports it on sm_90a (the
+# 892), and their static shared memory as ptxas reports it on sm_90a (the
 # bucket scan, the chunk's queries and their targets).
 _TOPK_WARPS = 8
 _TOPK_MIN_SLOTS_PER_WARP = 8
 _TOPK_CHUNK_PER_WARP = 16
 _TOPK_TILE = 3072
+_BLOCKED_TILE = 2944
 _LANE_ENTRIES = (1, 2, 4, 8, 16, 28)
 _TOPK_STATIC_SMEM = 3232
 # Fraction of the device's free memory one solve may commit to its packs
@@ -85,18 +88,18 @@ class KernelLaunchError(RuntimeError):
 def smem_bytes(k: int, q_tile: int, m: int = 0) -> int:
     """Shared memory of one block of the per-thread-list layout: the
     candidate tile plus each thread's (d2, id) lists, of length k (and m
-    for the blocked kernel's block list)."""
+    for a per-block list)."""
     return 4 * _CAND_TILE * 4 + 2 * (k + m) * q_tile * 4
 
 
 def pick_q_tile(k: int, qcap: int, m: int = 0) -> int:
     """Query slots per block of the per-thread-list layout: the widest
     tile (at most qcap rounded up to a warp) whose per-thread lists fit
-    shared memory.  It is the blocked kernel's geometry (``m`` > 0) and,
-    as a predicate, the class kernels' routing gate (``adaptive.
-    class_route``): the one-stage kernel takes exactly the (k, qcap) it
-    accepts, k <= 892 (:func:`topk_plan`).  Raises
-    :class:`LaunchBudgetError` when even one warp's lists do not fit."""
+    shared memory.  As a predicate it is the class kernels' routing gate
+    (``adaptive.class_route``): :func:`topk_plan` takes exactly the (k,
+    qcap, m) it accepts, k <= 892 for the one-stage kernel and k + m <=
+    892 for the blocked kernel.  Raises :class:`LaunchBudgetError` when
+    even one warp's lists do not fit."""
     for qt in _Q_TILES:
         if smem_bytes(k, qt, m) <= SMEM_LIMIT:
             return min(qt, max(32, -(-qcap // 32) * 32))
@@ -112,11 +115,12 @@ def pick_q_tile(k: int, qcap: int, m: int = 0) -> int:
 
 
 class TopkPlan(NamedTuple):
-    """Launch geometry of ``csrc/supercell_topk.cu``: warps per block (one
-    block per supercell and chunk of ``qchunk`` query slots, a warp owning
-    one slot at a time), list entries per lane (32 * lane_entries >= k)
-    and candidates staged in shared memory at once (a multiple of 32; a
-    wider ccap streams in tiles of this many)."""
+    """Launch geometry of a class kernel (``csrc/supercell_topk.cu``,
+    ``csrc/blocked_topk.cu``): warps per block (one block per supercell
+    and chunk of ``qchunk`` query slots, a warp owning one slot at a
+    time), list entries per lane (32 * lane_entries >= k) and candidates
+    staged in shared memory at once (a multiple of 32; a wider ccap
+    streams in tiles of this many)."""
 
     warps: int
     lane_entries: int
@@ -124,23 +128,28 @@ class TopkPlan(NamedTuple):
     qchunk: int
 
 
-def topk_plan(k: int, qcap: int, ccap: int) -> TopkPlan:
-    """The one-stage kernel's launch geometry for a class.  It takes
-    exactly the (k, qcap) that :func:`pick_q_tile` takes, and raises its
+def topk_plan(k: int, qcap: int, ccap: int, m: int = 0) -> TopkPlan:
+    """The launch geometry of a class kernel: the one-stage kernel's, or
+    with ``m`` > 0 the blocked kernel's at kept count m (the same warps,
+    list width and query chunk; a tile of at most ``_BLOCKED_TILE``).  It
+    takes exactly the (k, qcap, m) that :func:`pick_q_tile` takes (k <=
+    892, and k + m <= 892 for the blocked kernel), and raises its
     :class:`LaunchBudgetError` beyond; every ccap runs (staged whole up to
-    ``_TOPK_TILE`` candidates, streamed in tiles above)."""
-    pick_q_tile(k, qcap)
+    the tile, streamed in tiles above)."""
+    pick_q_tile(k, qcap, m)
     entries = next(e for e in _LANE_ENTRIES if 32 * e >= k)
     warps = max(1, min(_TOPK_WARPS, -(-qcap // _TOPK_MIN_SLOTS_PER_WARP)))
-    tile = min(_TOPK_TILE, max(32, -(-ccap // 32) * 32))
+    tile = min(_BLOCKED_TILE if m else _TOPK_TILE,
+               max(32, -(-ccap // 32) * 32))
     return TopkPlan(warps, entries, tile, _TOPK_CHUNK_PER_WARP * warps)
 
 
-def topk_smem_bytes(plan: TopkPlan) -> int:
-    """Shared memory of one block of the one-stage kernel: the staged
-    tile of 16-byte (x, y, z, id) rows.  Must match
-    ``supercell_topk_smem_bytes`` in the source."""
-    return 16 * plan.tile
+def topk_smem_bytes(plan: TopkPlan, blocked: bool = False) -> int:
+    """Shared memory of one block of a class kernel: the staged tile of
+    16-byte (x, y, z, id) rows, and for the blocked kernel a u16 slot
+    each.  Must match ``supercell_topk_smem_bytes`` and
+    ``blocked_topk_smem_bytes`` in the sources."""
+    return (18 if blocked else 16) * plan.tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,10 +456,10 @@ def blocked_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
     s_total, qcap, ccap = _check(*args, k)
     _check_blocked(ccap, m)
     k, m = int(k), int(m)
-    q_tile = pick_q_tile(k, qcap, m)
+    plan = topk_plan(k, qcap, ccap, m)
     if qx.device.type == "cpu":
         return blocked_topk_plain(*args, k, m, exclude_self, tgt, out)
     out, launched = _launch("blocked_topk", args, s_total, qcap, ccap, k,
-                            (m,), exclude_self, tgt, out, (q_tile,))
+                            (m,), exclude_self, tgt, out, plan)
     blocked_launches += launched
     return out

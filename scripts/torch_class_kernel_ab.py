@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's class kernels of one or more checkouts on one
+CUDA GPU, in turns, by CUDA events.
+
+    python3 scripts/torch_class_kernel_ab.py ROOT [ROOT ...]
+
+Each ROOT is the root of a checkout of the repository (the working tree,
+or an unpacked ``git archive`` of another commit).  Each runs in a process
+of its own, in the order given, so list them as parent, change, change,
+parent to compare two commits on one card.  A process builds its
+checkout's kernels, prepares 900k blue noise at k=10 and 300k blue noise
+at k=50 (``chip_smoke.py``'s seeds) and times, over every class in mode
+(a), 20 launches after a warm-up: ``blocked_topk`` at the m that
+``kernel='blocked'`` gives, on the packs as packed and (900k) crowded in
+stored-id order, and ``supercell_topk`` on the packs as packed.  It prints
+one JSON line of milliseconds per call: by CUDA events around the 20
+launches, and ("(profiler)") the kernels' device time under torch.profiler,
+which leaves out host gaps between launches.  Only the port is imported,
+never JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+CLOUDS = (("900k/k=10", 900_000, 900, 10), ("300k/k=50", 300_000, 301, 50))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds per call of ``fn`` spent in kernels whose
+    name holds ``kernel`` (torch.profiler: host gaps between launches are
+    not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps
+
+
+def crowded(args):
+    """Each supercell's candidates in stored-id order (grid order)."""
+    import torch
+
+    order = torch.sort(torch.where(args[7] >= 0, args[7], 2**30),
+                       dim=1).indices
+    return list(args[:4]) + [torch.gather(a, 1, order).contiguous()
+                             for a in args[4:]]
+
+
+def time_root(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import generate_blue_noise
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import class_blocked_m
+
+    if not pt.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {pt.__file__}, not the port in {root}")
+    res = {"root": root}
+    for name, n, seed, k in CLOUDS:
+        cfg = pt.KnnConfig(k=k, kernel="blocked")
+        prob = pt.KnnProblem.prepare(generate_blue_noise(n, seed=seed), cfg,
+                                     device="cuda")
+        classes = prob.aplan.classes
+        ms = [class_blocked_m(cfg, cp.ccap) for cp in classes]
+        out = (torch.full((n, k), float("inf"), device="cuda"),
+               torch.full((n, k), -1, dtype=torch.int32, device="cuda"))
+        packed = [list(cp.pk.args()) for cp in classes]
+        layouts = [("packed", packed)]
+        if n == 900_000:
+            layouts.append(("crowded", [crowded(a) for a in packed]))
+        runs = [(f"blocked {name} {layout}", "blocked_topk", lambda p=packs: [
+            cs.blocked_topk(*a, k, m, True, tgt=cp.tgt, out=out)
+            for cp, a, m in zip(classes, p, ms)]) for layout, packs in layouts]
+        runs.append((f"one-stage {name} packed", "supercell_topk", lambda: [
+            cs.supercell_topk(*a, k, True, tgt=cp.tgt, out=out)
+            for cp, a in zip(classes, packed)]))
+        for label, kernel, fn in runs:
+            res[label] = cuda_ms(fn, 20)
+            res[label + " (profiler)"] = device_ms(fn, 20, kernel)
+        del prob, packed, layouts, runs
+        torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--root":
+        print(json.dumps(time_root(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    for root in sys.argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--root",
+                        root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

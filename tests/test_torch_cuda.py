@@ -528,6 +528,96 @@ def test_supercell_kernel_streams_wide_classes(cuda_device, k):
         _check_supercell_modes(args, tgt, n_rows, k, excl, cuda_device)
 
 
+def _crowd(args):
+    """The pack with each supercell's candidates in ascending x: spatial
+    neighbours crowd into one 128-slot block, so the blocked kernel meets
+    rows where a block holds more than m of the exact top-k."""
+    order = torch.sort(args[4], dim=1, stable=True).indices
+    return list(args[:4]) + [torch.gather(a, 1, order).contiguous()
+                             for a in args[4:]]
+
+
+def _check_blocked_modes(args, tgt, n_rows, k, m, excl, device):
+    """The blocked kernel against its plain version in both modes, one
+    launch each: ids equal, d2 equal with NaN in the same places."""
+    before = cs.blocked_launches
+    kd, ki = cs.blocked_topk(*args, k, m, excl)
+    rows = [(torch.full((n_rows, k), float("inf"), device=device),
+             torch.full((n_rows, k), -1, dtype=torch.int32, device=device))
+            for _ in range(2)]
+    cs.blocked_topk(*args, k, m, excl, tgt=tgt, out=rows[0])
+    assert cs.blocked_launches == before + 2
+    pd, pi = cs.blocked_topk_plain(*args, k, m, excl)
+    cs.blocked_topk_plain(*args, k, m, excl, tgt=tgt, out=rows[1])
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and _equal_nan(kd, pd)
+    assert torch.equal(rows[0][1], rows[1][1])
+    assert _equal_nan(rows[0][0], rows[1][0])
+
+
+def _blocked_ccap(k):
+    """The narrowest ccap, a multiple of 128 of at least 384 and k + 100,
+    at which ``blocked_topm`` finds k eligible."""
+    ccap = max(384, -(-(k + 100) // 128) * 128)
+    while not pt.config.blocked_topm(k, ccap):
+        ccap += 128
+    return ccap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 31, 32, 33, 50, 64, 65, 128, 500, 876])
+def test_blocked_kernel_every_list_width(cuda_device, k):
+    """Every list width the blocked kernel instantiates and its edges, up to
+    the gate's (k + m = 892 at k = 876), each at the narrowest ccap where
+    ``blocked_topm`` takes k (k=500 and 876 stream theirs in tiles), on
+    lattice packs (exact ties; qcap 45, an all-pad supercell, rows with
+    fewer than k candidates) as packed and crowded: equal to the plain
+    version bit for bit in both modes, both exclude_self values."""
+    rng = np.random.default_rng(1000 + k)
+    ccap = _blocked_ccap(k)
+    m = pt.config.blocked_topm(k, ccap)
+    assert k + m <= 892 and (k != 876 or k + m == 892)
+    plan = cs.topk_plan(k, 45, ccap, m)
+    assert 32 * plan.lane_entries >= k
+    args, tgt, n_rows = _class_pack(rng, 7, 45, ccap, ccap, cuda_device)
+    for pack in (args, _crowd(args)):
+        for excl in (True, False):
+            _check_blocked_modes(pack, tgt, n_rows, k, m, excl, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 500, 764])
+def test_blocked_kernel_keeps_whole_blocks(cuda_device, k):
+    """m = 128: every block keeps all it has, rem stays inf and no row
+    carries NaN; the kernel still equals the plain version (k = 764 is the
+    gate's last k at this m)."""
+    rng = np.random.default_rng(2000 + k)
+    ccap = max(384, -(-(k + 100) // 128) * 128)
+    args, tgt, n_rows = _class_pack(rng, 5, 45, ccap, ccap, cuda_device)
+    for pack in (args, _crowd(args)):
+        for excl in (True, False):
+            _check_blocked_modes(pack, tgt, n_rows, k, 128, excl,
+                                 cuda_device)
+    assert not bool(torch.isnan(cs.blocked_topk(*args, k, 128, True)[0])
+                    .any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 50, 128])
+def test_blocked_kernel_streams_wide_classes(cuda_device, k):
+    """A ccap beyond the blocked kernel's staged tile: lists wait in their
+    output rows between tiles as (d2, pack slot), and the kernel still
+    equals the plain version bit for bit, as packed and crowded."""
+    rng = np.random.default_rng(3000 + k)
+    ccap = -(-(2 * cs._BLOCKED_TILE + 333) // 128) * 128
+    m = pt.config.blocked_topm(k, ccap)
+    assert m and cs.topk_plan(k, 70, ccap, m).tile < ccap
+    args, tgt, n_rows = _class_pack(rng, 4, 70, ccap, ccap, cuda_device)
+    for pack in (args, _crowd(args)):
+        for excl in (True, False):
+            _check_blocked_modes(pack, tgt, n_rows, k, m, excl, cuda_device)
+
+
 @pytest.mark.cuda
 def test_gpu_brute_gate_refused_k_equals_cpu(cuda_device):
     """k = 1,800 at d=3: no selection block holds the lists, so the GPU
