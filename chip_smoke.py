@@ -43,10 +43,12 @@ H100: the kernels target sm_90a).  It imports only the port
        ``F32_WIDE``: d=64 (resident queries, two d-chunks), d=300 and
        d=2,048 (queries streamed in d-chunks), and k=900 and 1,707 in
        16-row blocks;
-     - ``mxu_select_split`` bit for bit at both tiers at ``SPLIT_SHAPES``:
-       m < 128 (the fold's sort) and m = 128, n < k, the gate-refused
-       k=1,800 (d=3) and 1,590 (d=128), and k=8,200 (the sort in a
-       scratch row);
+     - ``mxu_select_split`` bit for bit at both tiers at ``SPLIT_SHAPES``,
+       both arms at m = 128: m < 128 (the fold's sort) and m = 128, n < k
+       and n = k + 1, the gate-refused k=1,800 (d=3; 3,000 queries, and
+       lattice ties that overflow the row) and 1,590 (d=128), d on either
+       side of the arms' threshold, and k=2,100 and 8,200 (sort rows in
+       scratch);
   3. runs the grid main path -- ``KnnProblem.prepare(points).solve()`` then
      ``get_knearests_original()`` -- on 900k blue noise at k=10, 300k blue
      noise at k=50 and a clustered 300k cloud (ring_radius=1, several
@@ -84,7 +86,9 @@ H100: the kernels target sm_90a).  It imports only the port
      the plain version's (bf16: to meet the contract above); the bf16
      selection also at m = k, where its fold takes the m >= 2 path; the
      blocked kernel at 900k/k=10, 300k/k=50 and on the 900k packs crowded
-     in stored-id order.
+     in stored-id order; the split selection's arm, launches and passes
+     at m = 128 and m = 100, and both arms at d=3 and d=128 (the
+     measurement behind ``_SPLIT_DIRECT_MAX_D``), which must agree.
 
 Any failed check exits non-zero without printing a result.  The last three
 lines are the card, one JSON object of kernel measurements, and
@@ -658,43 +662,62 @@ def select_checks_f32_wide(rng) -> float:
 
 # The split selection's shapes (d, n, k, m): the fold's sort (m < 128) and
 # pass-through, fewer candidates than k, the k the one-block gates refuse
-# at d=3 and d=128 (a pool narrower than k + 1 at m=100), and a sort in a
-# device scratch row.
+# at d=3 and d=128 (a pool narrower than k + 1 at m=100), a sort in a
+# device scratch row, the direct arm over many blocks (all 3,000 queries),
+# lattice buckets that overflow the row, n < k + 1 and n = k + 1, d on
+# either side of the arms' threshold, and direct rows in scratch.  At m =
+# 128 both arms run.
 SPLIT_SHAPES = ((3, 1000, 10, 3), (3, 1000, 50, 128), (17, 1000, 128, 7),
                 (3, 40, 50, 1), (3, 2000, 1800, 128), (3, 2000, 1800, 100),
-                (128, 1700, 1590, 128), (3, 9000, 8200, 128))
+                (128, 1700, 1590, 128), (3, 9000, 8200, 128),
+                (3, 3000, 1800, 128), (3, 4000, 1800, 128),
+                (3, 1500, 1800, 128), (3, 1801, 1800, 128),
+                ("max_d", 2000, 1800, 128), ("max_d + 1", 2000, 1800, 128),
+                (3, 4000, 2100, 128))
+SPLIT_ALL_QUERIES = {(3, 3000, 1800, 128)}
 
 
 def split_checks(rng) -> float:
     """mxu_select_split against select_plain bit for bit at both tiers at
-    ``SPLIT_SHAPES``, on lattice and random points, 40 queries, exclude_self
-    on and off.  Returns the largest |score difference| (0 when equal)."""
+    ``SPLIT_SHAPES``, through the arm split_plan picks and (m = 128) both
+    arms, on lattice and random points, 40 queries (all of them in
+    ``SPLIT_ALL_QUERIES``), exclude_self on and off.  Returns the largest
+    |score difference| (0 when equal)."""
     import torch
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.mxu import scorer as ms
     from cuda_knearests_tpu_torch.mxu.solve import select_inputs
 
-    err = 0.0
-    for d, n, k, m in SPLIT_SHAPES:
+    err, shapes = 0.0, []
+    for shape in SPLIT_SHAPES:
+        d, n, k, m = shape
+        if isinstance(d, str):
+            d = mk._SPLIT_DIRECT_MAX_D + (d == "max_d + 1")
+        shapes.append((d, n, k, m))
+        nq = n if shape in SPLIT_ALL_QUERIES else 40
+        arms = (None, "direct", "pool") if m >= 128 else (None,)
         for kind in ("lattice", "random"):
             pts = (rng.integers(0, 6, (n, d)) * 2.5 if kind == "lattice"
                    else rng.random((n, d)) * 100).astype(np.float32)
-            qid, pts_il, cid_il = select_inputs(pts, 40, True)
+            qid, pts_il, cid_il = select_inputs(pts, nq, True)
             args = [torch.as_tensor(a, device=DEV)
-                    for a in (pts[:40], qid, pts_il, cid_il)]
+                    for a in (pts[:nq], qid, pts_il, cid_il)]
             for precision in ("f32", "bf16"):
                 for excl in (True, False):
-                    what = (f"split select d={d} n={n} {kind} {precision} "
-                            f"k={k} m={m} excl={excl}")
                     want = ms.select_plain(*args, k, m, d, excl, precision)
-                    got = quiet(lambda: mk.select_split(
-                        *args, k, m, d, excl, precision))
-                    err = max(err, require_equal(
-                        what, (got[1], got[0], got[2]),
-                        (want[1], want[0], want[2])))
-    print(f"  mxu_select_split at (d, n, k, m) {list(SPLIT_SHAPES)}: equal "
-          f"to select_plain at f32 and bf16", flush=True)
+                    for arm in arms:
+                        what = (f"split select d={d} n={n} {kind} "
+                                f"{precision} k={k} m={m} excl={excl} "
+                                f"arm={arm or mk.split_arm(d, k, m)}")
+                        got = quiet(lambda: mk.select_split(
+                            *args, k, m, d, excl, precision, arm=arm))
+                        err = max(err, require_equal(
+                            what, (got[1], got[0], got[2]),
+                            (want[1], want[0], want[2])))
+    print(f"  mxu_select_split at (d, n, k, m) {shapes}: equal to "
+          f"select_plain at f32 and bf16, both arms at m = 128 (direct up "
+          f"to d = {mk._SPLIT_DIRECT_MAX_D})", flush=True)
     return err
 
 
@@ -1396,16 +1419,44 @@ def brute_refused_run(points: np.ndarray, k: int) -> dict:
     t0 = time.perf_counter()
     check_exact(points, res.neighbors, rows, k,
                 cKDTree(points.astype(np.float64)))
+    plan = mk.split_plan(n, -(-n // 128) * 128, d, k, res.m)
     print(f"  brute {n // 1000}k x {d} k={k}: the one-block gates refuse "
-          f"it, route '{res.backend}' ({launches} split launches, one a "
-          f"chunk of {mk.split_plan(n, -(-n // 128) * 128, k, res.m)[0]} "
-          f"queries); one solve {dt * 1e3:.3f} ms (cold): split selection "
+          f"it, route '{res.backend}' ({launches} split launches of the "
+          f"{plan.arm} arm, {plan.rows} queries a launch); one solve "
+          f"{dt * 1e3:.3f} ms (cold): split selection "
           f"{split['select']:.3f} ms (CUDA events, prep passes included), "
           f"host rescore {split['rescore']:.3f} ms, fallback "
           f"{split.get('fallback', 0.0):.3f} ms for {res.uncert_count} rows; "
           f"host round trips {syncs}; exact vs cKDTree on {rows.size} rows, "
           f"checked in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"launches": launches, "m": res.m}
+    return {"launches": launches, "m": res.m, "arm": plan.arm}
+
+
+def split_run(q, qid, p, cid, k: int, m: int, d: int, arm=None,
+              precision: str = "f32") -> dict:
+    """One split selection over all queries (exclude_self): its arm,
+    launches and the blocks' pass counts ({passes: blocks}), then its time
+    (CUDA events, 3 calls after a warm-up; the wrapper's prep passes
+    included).  Launch counts are restored (``quiet``)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+
+    passes = torch.zeros(mk.SPLIT_MAX_PASSES, dtype=torch.int32, device=DEV)
+
+    def once():
+        before = mk.split_launches
+        out = mk.select_split(q, qid, p, cid, k, m, d, True, precision,
+                              arm=arm, passes=passes)
+        return out, mk.split_launches - before
+
+    out, launches = quiet(once)
+    counts = passes.cpu().numpy()
+    ms = quiet(lambda: cuda_ms(lambda: mk.select_split(
+        q, qid, p, cid, k, m, d, True, precision, arm=arm), 3))
+    return {"arm": arm or mk.split_arm(d, k, m), "launches": launches,
+            "passes": {int(i): int(c) for i, c in enumerate(counts) if c},
+            "ms": ms, "out": out}
 
 
 def split_timing(points: np.ndarray, k: int, m: int) -> dict:
@@ -1415,7 +1466,11 @@ def split_timing(points: np.ndarray, k: int, m: int) -> dict:
     topk yardstick (no TF32) and the bound: the larger of 2*d operations
     per (query, candidate) pair over the FP32 peak and the bytes of inputs
     and outputs over the HBM rate.  The kernel time covers the wrapper's
-    launches (two prep passes, a fold and a selection a chunk)."""
+    launches (two prep passes and one launch a chunk of queries).  Prints
+    the arm, launches and passes at m, at m = 100 (the pool arm) and at
+    bf16, and the one measurement that sets ``_SPLIT_DIRECT_MAX_D``: both
+    arms at d=3 (these points, k) and at d=128 (20k x 128, k=1,600), whose
+    outputs must agree."""
     import torch
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
@@ -1426,8 +1481,8 @@ def split_timing(points: np.ndarray, k: int, m: int) -> dict:
     qid, pts_il, cid_il = select_inputs(points, n, True)
     q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
                         for a in (points, qid, pts_il, cid_il)]
-    ms_full = quiet(lambda: cuda_ms(
-        lambda: mk.select_split(q, qid_t, p, cid, k, m, d, True), 3))
+    main = split_run(q, qid_t, p, cid, k, m, d)
+    ms_full = main["ms"]
     sub = torch.as_tensor(np.random.default_rng(5).permutation(n)[:1024],
                           device=DEV).long()
     qs, qids = q[sub].contiguous(), qid_t[sub].contiguous()
@@ -1459,21 +1514,60 @@ def split_timing(points: np.ndarray, k: int, m: int) -> dict:
               + 8 * n * k + n)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    rows, p_len, n2, scratch = mk.split_plan(n, pts_il.shape[0], k, m)
-    print(f"  split select {n // 1000}k x {d} k={k} m={m}: kernel "
-          f"{ms_full:.3f} ms over {n} queries (chunks of {rows}, pool "
-          f"{p_len} keys a query, sort width {n2}"
-          f"{' in a scratch row' if scratch else ' in shared memory'}); on "
-          f"{sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
+    plan = mk.split_plan(n, pts_il.shape[0], d, k, m)
+    print(f"  split select {n // 1000}k x {d} k={k} m={m}: {plan.arm} arm, "
+          f"{main['launches']} launch(es) a call, passes {{passes: blocks}} "
+          f"{main['passes']}; kernel {ms_full:.3f} ms over {n} queries "
+          f"({plan.rows} a launch, pool {plan.p_len} keys a query, sort "
+          f"width {plan.n2}"
+          f"{' in a scratch row' if plan.scratch else ' in shared memory'});"
+          f" on {sub.numel()} of them kernel {sub_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms (equal outputs); matmul+topk "
           f"{library_ms:.3f} ms; {flops} ops -> {t_ops:.4f} ms at "
           f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes} bytes -> "
           f"{t_bytes:.4f} ms", flush=True)
+    m100 = split_run(q, qid_t, p, cid, k, 100, d)
+    print(f"  split select {n // 1000}k x {d} k={k} m=100: {m100['arm']} "
+          f"arm, {m100['launches']} launches, passes {m100['passes']}; "
+          f"kernel {m100['ms']:.3f} ms", flush=True)
+    bf16 = split_run(q, qid_t, p, cid, k, m, d, precision="bf16")
+    print(f"  split select {n // 1000}k x {d} k={k} m={m} bf16: "
+          f"{bf16['arm']} arm, {bf16['launches']} launch(es), passes "
+          f"{bf16['passes']}; kernel {bf16['ms']:.3f} ms", flush=True)
+    arms = {}
+    pts128 = (np.random.default_rng(1600).random((n, 128)) * 100).astype(
+        np.float32)
+    for label, pts_a, k_a in (("d=3", None, k), ("d=128", pts128, 1600)):
+        if pts_a is None:
+            args = (q, qid_t, p, cid)
+        else:
+            qid_a, il_a, cid_a = select_inputs(pts_a, n, True)
+            args = tuple(torch.as_tensor(a, device=DEV)
+                         for a in (pts_a, qid_a, il_a, cid_a))
+        d_a = args[0].shape[1]
+        runs = {arm: split_run(*args, k_a, 128, d_a, arm)
+                for arm in ("direct", "pool")}
+        o, w = runs["direct"]["out"], runs["pool"]["out"]
+        err = max(err, require_equal(
+            f"split select {label} k={k_a}: direct arm against pool arm",
+            (o[1], o[0], o[2]), (w[1], w[0], w[2])))
+        for arm, r in runs.items():
+            arms[f"{label} {arm}"] = r["ms"]
+            print(f"  split arms at {n // 1000}k, {label}, k={k_a}, m=128: "
+                  f"{arm} {r['ms']:.3f} ms ({r['launches']} launches, "
+                  f"passes {r['passes']})", flush=True)
+        del runs, args
+    print(f"  split arms: routed by split_plan to direct up to d = "
+          f"{mk._SPLIT_DIRECT_MAX_D}", flush=True)
     return err, {"ms": ms_full, "plain_ms": plain_ms,
                  "plain_queries": int(sub.numel()),
                  "ms_on_plain_queries": sub_ms, "library_ms": library_ms,
                  "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "arm": main["arm"], "launches_per_call": main["launches"],
+                 "passes": main["passes"], "ms_m100": m100["ms"],
+                 "ms_bf16": bf16["ms"],
+                 "ms_arms": arms}
 
 
 def fold_timing(label: str, points: np.ndarray, k: int, m: int) -> float:

@@ -11,9 +11,10 @@ and returns every query's selection and certificate:
     bit, q.p within the certification band: see that source's contract),
     or raises;
   * where those kernels' gate refuses the shape, it launches two prep
-    passes and the split selection of ``csrc/mxu_select_split.cu`` (the
-    fold and the pool's selection through device memory, bit for bit the
-    plain version at both tiers), or raises;
+    passes and the split selection of ``csrc/mxu_select_split.cu`` (a
+    two-pass radix selection over candidates rescored on each pass, or,
+    at m < 128 or wide d, over a pool the fold writes to device memory;
+    bit for bit the plain version at both tiers), or raises;
   * on CPU tensors it runs ``scorer.select_plain``, the same function in
     plain torch with the same per-op rounding.
 
@@ -32,7 +33,7 @@ keeps its lists in device memory and takes the shapes they refuse
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,19 +62,37 @@ _ROWS_BF16 = (128, 64, 32, 16)
 _KC_RESIDENT = 128
 _KC_STREAM = 64
 
-# Split selection: keys sorted in shared memory up to this many (a power
-# of two; kSmemSortKeys in the source), else in a device scratch row;
-# device bytes of the pool (and rem and scratch) one chunk of queries may
-# take; the most queries in a chunk (the fold's grid height times 8).
+# Split selection.  Its direct arm (m >= BLOCK, the fold keeps every key,
+# d up to _SPLIT_DIRECT_MAX_D and rows up to _SPLIT_DIRECT_MAX_KEYS, its
+# 16-bit row counts) rescores the candidates on each pass of its two-pass
+# selection and writes no pool: _SPLIT_DIRECT_QUERIES queries a block,
+# rows of up to _SPLIT_DIRECT_SMEM_KEYS keys sorted in shared memory,
+# wider ones in device scratch rows.  Its pool arm (m < BLOCK, or wider d,
+# where rescoring costs more than reading 8 bytes a key) folds to a device
+# pool and selects from it, rows of up to _SPLIT_SMEM_KEYS keys in shared
+# memory.  _SPLIT_DIRECT_MAX_D is where the two arms' device times cross,
+# linear in d between one measurement of both at d=3 (20k points, k=1,800)
+# and d=128 (k=1,600) on an H100 (PERF.md, "PR 9").  A launch's pool, rem
+# and scratch take at most _SPLIT_CHUNK_BYTES (the direct arm chunks only
+# for scratch) and, in the pool arm, at most _SPLIT_MAX_ROWS queries (the
+# fold's grid height times 8).  The constants mirror the source's
+# kSmemSortKeys, kDirectQ, kDirectSmemKeys and kDirectMaxKeys.
+_SPLIT_DIRECT_MAX_D = 14
+_SPLIT_DIRECT_QUERIES = 4
+_SPLIT_DIRECT_SMEM_KEYS = 2048
+_SPLIT_DIRECT_MAX_KEYS = 32768
 _SPLIT_SMEM_KEYS = 8192
 _SPLIT_CHUNK_BYTES = 256 << 20
 _SPLIT_MAX_ROWS = 65535 * 8
+# Bins of the split selection's pass counts (kMaxPasses in the source).
+SPLIT_MAX_PASSES = 16
 
 # Kernel launches (CUDA tensors only): the f32 selection kernel, the bf16
-# selection kernel, the split selection (one a chunk of queries), and the
-# prep passes of each tier (two per selection: ``prep_launches_f32`` for
-# the f32 tier, ``prep_launches`` for bf16; the split selection's count
-# with its tier's).
+# selection kernel, the split selection (one a call of its direct arm,
+# one a chunk of queries of its pool arm), and the prep passes of each
+# tier (two per selection: ``prep_launches_f32`` for the f32 tier,
+# ``prep_launches`` for bf16; the split selection's count with its
+# tier's).
 launches = 0
 launches_bf16 = 0
 split_launches = 0
@@ -222,8 +241,8 @@ def _lib_split() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mxu_select_split_launch.argtypes = (
-            [i, p, i, p, p, p, p, i, p, p, p] + [i] * 7
-            + [ctypes.c_float, p, p, p, i, p, p, p, p])
+            [i, i, p, i, p, p, p, p, i, p, p, p] + [i] * 7
+            + [ctypes.c_float, p, p, p, i] + [p] * 5)
         lib.mxu_select_split_launch.restype = i
         lib.mxu_select_split_error_string.argtypes = [i]
         lib.mxu_select_split_error_string.restype = ctypes.c_char_p
@@ -386,10 +405,15 @@ def select_routed(queries: torch.Tensor, q_ids: torch.Tensor,
 
 def select_split(queries: torch.Tensor, q_ids: torch.Tensor,
                  pts_il: torch.Tensor, cid_il: torch.Tensor, k: int, m: int,
-                 d_real: int, exclude_self: bool, precision: str = "f32"):
+                 d_real: int, exclude_self: bool, precision: str = "f32", *,
+                 arm: Optional[str] = None,
+                 passes: Optional[torch.Tensor] = None):
     """:func:`select` through the split selection at any (d, k, m), the
     shapes the gate takes included: CPU tensors run the plain version,
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise.  For measurements: ``arm``
+    ('direct' or 'pool') overrides :func:`split_arm`, and ``passes``, a
+    (SPLIT_MAX_PASSES,) int32 CUDA tensor, gains at [p] the number of
+    selection blocks that made p passes over their keys."""
     check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
                       precision)
     if queries.device.type == "cpu":
@@ -399,32 +423,73 @@ def select_split(queries: torch.Tensor, q_ids: torch.Tensor,
         raise ValueError(f"select runs on CPU or CUDA tensors, got "
                          f"{queries.device}")
     return _launch_split(queries, q_ids, pts_il, cid_il, int(k), int(m),
-                         d_real, exclude_self, precision)
+                         d_real, exclude_self, precision, arm, passes)
 
 
-def split_plan(n_q: int, n_c: int, k: int, m: int):
-    """(queries a chunk, pool keys a query, sort width n2, sorted in a
-    device scratch row) of the split selection: the pool holds each
-    128-slot block's first min(m, 128) keys, n2 is the power of two above
-    k, and a chunk's pool, rem and scratch take at most
-    ``_SPLIT_CHUNK_BYTES`` (one query at least)."""
+class SplitPlan(NamedTuple):
+    """The split selection's geometry: its arm ('direct' or 'pool'), the
+    queries of one launch, the pool keys a query (0 in the direct arm),
+    the sort width n2 and whether the rows are sorted in device scratch."""
+    arm: str
+    rows: int
+    p_len: int
+    n2: int
+    scratch: bool
+
+
+def split_arm(d: int, k: int, m: int) -> str:
+    """'direct' where the fold keeps every key (m >= BLOCK), rescoring a
+    pair costs less than reading its pool key (d <= ``_SPLIT_DIRECT_MAX_D``)
+    and the sort width fits its 16-bit row counts (at most
+    ``_SPLIT_DIRECT_MAX_KEYS``), else 'pool'."""
+    n2 = 1 << int(k).bit_length()
+    return ("direct" if int(m) >= BLOCK and int(d) <= _SPLIT_DIRECT_MAX_D
+            and n2 <= _SPLIT_DIRECT_MAX_KEYS else "pool")
+
+
+def split_plan(n_q: int, n_c: int, d: int, k: int, m: int,
+               arm: Optional[str] = None) -> SplitPlan:
+    """The split selection's :class:`SplitPlan` (``arm`` defaults to
+    :func:`split_arm`).  n2 is the power of two above k.  Direct arm: no
+    pool, rows of n2 keys in shared memory up to
+    ``_SPLIT_DIRECT_SMEM_KEYS``, one launch for all queries unless the rows
+    go to scratch.  Pool arm: each 128-slot block's first min(m, 128)
+    keys, rows in shared memory up to ``_SPLIT_SMEM_KEYS``.  Scratch rows
+    (and the pool and rem) of a launch take at most ``_SPLIT_CHUNK_BYTES``
+    (one query at least)."""
+    arm = split_arm(d, k, m) if arm is None else arm
+    if arm not in ("direct", "pool"):
+        raise ValueError(f"split arm must be 'direct' or 'pool', got {arm!r}")
+    n2 = 1 << int(k).bit_length()
+    if arm == "direct" and (int(m) < BLOCK or n2 > _SPLIT_DIRECT_MAX_KEYS):
+        raise ValueError(f"the direct arm keeps every key in rows of at "
+                         f"most {_SPLIT_DIRECT_MAX_KEYS}: it needs m >= "
+                         f"{BLOCK} and k < {_SPLIT_DIRECT_MAX_KEYS}, got "
+                         f"m={m}, k={k}")
+    if arm == "direct":
+        scratch = n2 > _SPLIT_DIRECT_SMEM_KEYS
+        rows = (max(1, min(int(n_q), _SPLIT_CHUNK_BYTES // (8 * n2)))
+                if scratch else max(1, int(n_q)))
+        return SplitPlan(arm, rows, 0, n2, scratch)
     g = n_c // BLOCK
     me = min(int(m), BLOCK)
     p_len = g * me
-    n2 = 1 << int(k).bit_length()
     scratch = n2 > _SPLIT_SMEM_KEYS
     row_bytes = (8 * p_len + (4 * g if me < BLOCK else 0)
                  + (8 * n2 if scratch else 0))
     rows = max(1, min(int(n_q), _SPLIT_MAX_ROWS,
                       _SPLIT_CHUNK_BYTES // row_bytes))
-    return rows, p_len, n2, scratch
+    return SplitPlan(arm, rows, p_len, n2, scratch)
 
 
 def _launch_split(queries, q_ids, pts_il, cid_il, k: int, m: int,
-                  d_real: int, exclude_self: bool, precision: str):
+                  d_real: int, exclude_self: bool, precision: str,
+                  arm: Optional[str] = None,
+                  passes: Optional[torch.Tensor] = None):
     """The split selection on CUDA tensors: the tier's two prep passes,
-    then the fold and the pool's selection for each chunk of queries
-    (``split_plan``), one ``split_launches`` a chunk."""
+    then one launch for each chunk of queries (``split_plan``; the direct
+    arm's one chunk, or the pool arm's fold and selection), one
+    ``split_launches`` a launch."""
     global split_launches
     n_q, n_c = queries.shape[0], pts_il.shape[0]
     d = queries.shape[1]
@@ -432,6 +497,12 @@ def _launch_split(queries, q_ids, pts_il, cid_il, k: int, m: int,
     out_i, out_s, cert = _outputs(n_q, k, device)
     if n_q == 0:
         return out_i, out_s, cert
+    if passes is not None and (passes.device != device
+                               or passes.dtype != torch.int32
+                               or tuple(passes.shape) != (SPLIT_MAX_PASSES,)):
+        raise ValueError(f"passes must be a ({SPLIT_MAX_PASSES},) int32 "
+                         f"tensor on {device}")
+    plan = split_plan(n_q, n_c, d, k, m, arm)
     lib = _lib_split()
     bf16 = precision == "bf16"
     coef = float(dot_error_bound(1.0, 0.0, int(d_real), precision))
@@ -443,31 +514,34 @@ def _launch_split(queries, q_ids, pts_il, cid_il, k: int, m: int,
         qx, qnf, _ = prep_f32(queries)
         px, pns, pn_max = prep_f32(pts_il, cid_il)
         qns, ldq, ldp = qnf, qx.shape[1], px.shape[1]
-    rows, p_len, n2, in_scratch = split_plan(n_q, n_c, k, m)
+    rows, direct = plan.rows, plan.arm == "direct"
     g = n_c // BLOCK
-    pool = torch.empty((rows, p_len), dtype=torch.int64, device=device)
+    pool = (None if direct else
+            torch.empty((rows, plan.p_len), dtype=torch.int64, device=device))
     rem = (torch.empty((rows, g), dtype=torch.float32, device=device)
-           if m < BLOCK else None)
-    scratch = (torch.empty((rows, n2), dtype=torch.int64, device=device)
-               if in_scratch else None)
+           if not direct and m < BLOCK else None)
+    scratch = (torch.empty((rows, plan.n2), dtype=torch.int64, device=device)
+               if plan.scratch else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for r0 in range(0, n_q, rows):
             n_rows = min(rows, n_q - r0)
             rc = lib.mxu_select_split_launch(
-                int(bf16), qx.data_ptr(), ldq, qns.data_ptr(),
+                int(direct), int(bf16), qx.data_ptr(), ldq, qns.data_ptr(),
                 qnf.data_ptr(), q_ids.data_ptr(), px.data_ptr(), ldp,
                 pns.data_ptr(), cid_il.data_ptr(), pn_max.data_ptr(), r0,
                 n_rows, n_c, d, k, m, int(bool(exclude_self)), coef,
-                pool.data_ptr(), None if rem is None else rem.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), n2,
-                out_i.data_ptr(), out_s.data_ptr(), cert.data_ptr(), stream)
+                None if pool is None else pool.data_ptr(),
+                None if rem is None else rem.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), plan.n2,
+                out_i.data_ptr(), out_s.data_ptr(), cert.data_ptr(),
+                None if passes is None else passes.data_ptr(), stream)
             if rc != 0:
                 raise KernelLaunchError(
                     f"mxu_select_split launch failed: "
                     f"{lib.mxu_select_split_error_string(rc).decode()} "
-                    f"(code {rc}; M={n_q} C={n_c} d={d} k={k} m={m} "
-                    f"rows {r0}+{n_rows} n2={n2})")
+                    f"(code {rc}; {plan.arm} arm, M={n_q} C={n_c} d={d} "
+                    f"k={k} m={m} rows {r0}+{n_rows} n2={plan.n2})")
             split_launches += 1
     return out_i, out_s, cert
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's class kernels of one or more checkouts on one
-CUDA GPU, in turns, by CUDA events.
+"""Time the PyTorch port's class kernels and its split selection of one
+or more checkouts on one CUDA GPU, in turns, by CUDA events and device
+time.
 
     python3 scripts/torch_class_kernel_ab.py ROOT [ROOT ...]
 
@@ -15,8 +16,13 @@ at k=50 (``chip_smoke.py``'s seeds) and times, over every class in mode
 stored-id order, and ``supercell_topk`` on the packs as packed.  It prints
 one JSON line of milliseconds per call: by CUDA events around the 20
 launches, and ("(profiler)") the kernels' device time under torch.profiler,
-which leaves out host gaps between launches.  Only the port is imported,
-never JAX.
+which leaves out host gaps between launches.  Then it times the split
+selection (``mxu.kernel.select_split``, f32, its two prep passes
+included) over all 20,000 queries of ``chip_smoke.py``'s gate-refused
+cloud (20k uniform 3-D points, k=1,800) at m=128 and m=100, 3 calls after
+a warm-up; where the checkout's ``select_split`` takes ``arm``, also each
+arm at d=3 and at d=128 (20k x 128, k=1,600, m=128).  Only the port is
+imported, never JAX.
 """
 
 from __future__ import annotations
@@ -44,10 +50,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel) -> float:
     """Mean device milliseconds per call of ``fn`` spent in kernels whose
-    name holds ``kernel`` (torch.profiler: host gaps between launches are
-    not counted)."""
+    name holds ``kernel`` (a string, or a tuple of them) (torch.profiler:
+    host gaps between launches are not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,9 +63,11 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = sum(getattr(e, "device_time_total", None)
              or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if kernel in e.key)
+             for e in prof.key_averages()
+             if any(name in e.key for name in names))
     return us / 1e3 / reps
 
 
@@ -108,6 +116,51 @@ def time_root(root: str) -> dict:
             res[label] = cuda_ms(fn, 20)
             res[label + " (profiler)"] = device_ms(fn, 20, kernel)
         del prob, packed, layouts, runs
+        torch.cuda.empty_cache()
+    res.update(time_split())
+    return res
+
+
+# The split selection's kernels: the f32 prep pass, the pool arm's fold
+# and selection, the direct arm.
+SPLIT_KERNELS = ("prep_kernel", "fold_kernel", "select_kernel",
+                 "direct_kernel")
+
+
+def time_split() -> dict:
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    def inputs(pts):
+        qid, il, cid = select_inputs(pts, pts.shape[0], True)
+        return tuple(torch.as_tensor(a, device="cuda")
+                     for a in (pts, qid, il, cid))
+
+    res = {}
+    pts3 = (np.random.default_rng(1800).random((20_000, 3)) * 1000).astype(
+        np.float32)
+    runs = [(f"split 20k x 3 k=1800 m={m}", pts3, 1800, m, {})
+            for m in (128, 100)]
+    if "arm" in inspect.signature(mk.select_split).parameters:
+        pts128 = (np.random.default_rng(1600).random((20_000, 128))
+                  * 100).astype(np.float32)
+        runs += [(f"split 20k x {d} k={k} m=128 {arm}", pts, k, 128,
+                  {"arm": arm}) for d, pts, k in ((3, pts3, 1800),
+                                                  (128, pts128, 1600))
+                 for arm in ("direct", "pool")]
+    for label, pts, k, m, kw in runs:
+        args = inputs(pts)
+        d = pts.shape[1]
+        fn = (lambda a=args, k=k, m=m, d=d, kw=kw:
+              mk.select_split(*a, k, m, d, True, **kw))
+        res[label] = cuda_ms(fn, 3)
+        res[label + " (profiler)"] = device_ms(fn, 3, SPLIT_KERNELS)
+        del args
         torch.cuda.empty_cache()
     return res
 

@@ -638,6 +638,10 @@ def test_gpu_brute_gate_refused_k_equals_cpu(cuda_device):
     assert g.uncert_count == c.uncert_count
 
 
+# Split-selection cases that select for every query, not 40 of them.
+_SPLIT_ALL_QUERIES = {(3, 3000, 1800, 128)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("d,n,k,m", [
@@ -647,24 +651,61 @@ def test_gpu_brute_gate_refused_k_equals_cpu(cuda_device):
     (3, 2000, 1800, 128), (3, 2000, 1800, 100),  # the gate refuses these
     (128, 1700, 1590, 128),
     (3, 9000, 8200, 128),                  # the sort in a scratch row
+    (3, 3000, 1800, 128),                  # direct arm, 750 blocks
+    (3, 4000, 1800, 128),                  # lattice buckets overflow n2
+    (3, 1500, 1800, 128), (3, 1801, 1800, 128),  # n < k + 1, n = k + 1
+    (mk._SPLIT_DIRECT_MAX_D, 2000, 1800, 128),   # either side of the
+    (mk._SPLIT_DIRECT_MAX_D + 1, 2000, 1800, 128),  # arms' threshold
+    (3, 4000, 2100, 128),                  # direct rows of 4,096 in scratch
 ])
 def test_split_select_matches_plain_bit_for_bit(cuda_device, precision, d,
                                                 n, k, m):
     """The split selection against select_plain, bit for bit at both
-    tiers: the fold's kept-key sort (m < 128) and its pass-through
-    (m = 128), radix selection over ties (lattice) and spread scores, and
-    the sort in shared memory and in a device scratch row."""
+    tiers, through the arm split_plan picks and the other one (at m =
+    128): the fold's kept-key sort (m < 128) and its pass-through (m =
+    128), the two-pass selection over ties (lattice: buckets refined past
+    the row's width) and spread scores, missing keys at rank k, and the
+    sort in shared memory and in a device scratch row."""
     rng = np.random.default_rng(d + n + k + m)
+    arms = ("direct", "pool") if m >= 128 else ("pool",)
     for kind in ("lattice", "random"):
-        _, args = _select_inputs(rng, n, d, kind, cuda_device)
-        if k > 1000:
+        pts, args = _select_inputs(rng, n, d, kind, cuda_device)
+        if (d, n, k, m) in _SPLIT_ALL_QUERIES:
+            args = (torch.as_tensor(pts, device=cuda_device),
+                    torch.arange(n, dtype=torch.int32, device=cuda_device),
+                    *args[2:])
+        elif k > 1000:
             args = (args[0][:40].contiguous(), args[1][:40].contiguous(),
                     *args[2:])
         for excl in (True, False):
-            before = mk.split_launches
-            got = mk.select_split(*args, k, m, d, excl, precision)
-            assert mk.split_launches > before
             want = ms.select_plain(*args, k, m, d, excl, precision)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), (kind, excl)
+            for arm in (None,) + arms:
+                before = mk.split_launches
+                got = mk.select_split(*args, k, m, d, excl, precision,
+                                      arm=arm)
+                assert mk.split_launches > before
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (kind, excl, arm)
+
+
+@pytest.mark.cuda
+def test_split_direct_arm_launches_once_and_counts_passes(cuda_device):
+    """The direct arm answers all queries in one launch with its rows in
+    shared memory, and reports its passes: two (histogram, gather) or
+    more (a bucket refined) for every block."""
+    rng = np.random.default_rng(9)
+    n, k = 3000, 1800
+    pts, args = _select_inputs(rng, n, 3, "random", cuda_device)
+    args = (torch.as_tensor(pts, device=cuda_device),
+            torch.arange(n, dtype=torch.int32, device=cuda_device),
+            *args[2:])
+    assert mk.split_plan(n, args[2].shape[0], 3, k, 128).arm == "direct"
+    passes = torch.zeros(mk.SPLIT_MAX_PASSES, dtype=torch.int32,
+                         device=cuda_device)
+    before = mk.split_launches
+    mk.select_split(*args, k, 128, 3, True, passes=passes)
+    assert mk.split_launches == before + 1
+    counts = passes.cpu().numpy()
+    assert counts.sum() == -(-n // mk._SPLIT_DIRECT_QUERIES)
+    assert counts[:2].sum() == 0 and counts[2] > 0

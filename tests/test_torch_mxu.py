@@ -632,16 +632,58 @@ def test_select_routed_names_the_plain_route_on_the_cpu(precision):
 @pytest.mark.parametrize("n_q,n_c,k,m", [
     (2000, 2048, 1800, 128), (300_000, 300_032, 1800, 128),
     (48, 1792, 1590, 128), (40, 9088, 8200, 128), (10, 128, 1, 1),
-    (1_000_000, 1_000_064, 2000, 3)])
+    (1_000_000, 1_000_064, 2000, 3),
+    # the direct arm over many blocks, its rows in scratch, the pool arm
+    # at m < 128 on the same shape
+    (3000, 3072, 1800, 128), (300_000, 300_032, 4000, 128),
+    (20_000, 20_096, 1800, 100),
+    # rows wider than the direct arm's 16-bit counts take the pool arm
+    (100, 40_064, 40_000, 128)])
 def test_split_plan_geometry(n_q, n_c, k, m):
-    rows, p_len, n2, scratch = pkernel.split_plan(n_q, n_c, k, m)
-    me = min(m, 128)
-    assert p_len == (n_c // 128) * me
-    # the sort's width: the power of two above k, in shared memory up to
-    # the source's limit
-    assert n2 > k and n2 & (n2 - 1) == 0 and n2 // 2 <= k
-    assert scratch == (n2 > pkernel._SPLIT_SMEM_KEYS)
-    assert 1 <= rows <= min(n_q, pkernel._SPLIT_MAX_ROWS)
-    row_bytes = 8 * p_len + (4 * (n_c // 128) if me < 128 else 0) \
-        + (8 * n2 if scratch else 0)
-    assert rows == 1 or rows * row_bytes <= pkernel._SPLIT_CHUNK_BYTES
+    """The arm split_plan picks (direct where the fold keeps every key, d
+    is at most the threshold and the row at most _SPLIT_DIRECT_MAX_KEYS,
+    else pool) and each arm's geometry: the
+    direct arm writes no pool and launches once unless its rows go to
+    scratch; the pool arm's chunks bound pool, rem and scratch."""
+    max_d = pkernel._SPLIT_DIRECT_MAX_D
+    for d in (1, 3, max_d, max_d + 1, 128):
+        plan = pkernel.split_plan(n_q, n_c, d, k, m)
+        direct = (m >= 128 and d <= max_d
+                  and 1 << k.bit_length() <= pkernel._SPLIT_DIRECT_MAX_KEYS)
+        assert plan.arm == pkernel.split_arm(d, k, m) == \
+            ("direct" if direct else "pool")
+        assert plan == pkernel.split_plan(n_q, n_c, d, k, m, plan.arm)
+    for arm in ("direct", "pool") if pkernel.split_arm(3, k, m) == "direct" \
+            else ("pool",):
+        arm_, rows, p_len, n2, scratch = pkernel.split_plan(n_q, n_c, 3, k,
+                                                            m, arm)
+        assert arm_ == arm
+        # the sort's width: the power of two above k, in shared memory up
+        # to the source's limit for the arm
+        assert n2 > k and n2 & (n2 - 1) == 0 and n2 // 2 <= k
+        if arm == "direct":
+            assert p_len == 0
+            assert scratch == (n2 > pkernel._SPLIT_DIRECT_SMEM_KEYS)
+            if scratch:
+                assert 1 <= rows <= n_q
+                assert rows == 1 or 8 * n2 * rows <= \
+                    pkernel._SPLIT_CHUNK_BYTES
+            else:
+                assert rows == n_q
+            continue
+        me = min(m, 128)
+        assert p_len == (n_c // 128) * me
+        assert scratch == (n2 > pkernel._SPLIT_SMEM_KEYS)
+        assert 1 <= rows <= min(n_q, pkernel._SPLIT_MAX_ROWS)
+        row_bytes = 8 * p_len + (4 * (n_c // 128) if me < 128 else 0) \
+            + (8 * n2 if scratch else 0)
+        assert rows == 1 or rows * row_bytes <= pkernel._SPLIT_CHUNK_BYTES
+
+
+def test_split_plan_refuses_an_unknown_or_unfit_arm():
+    with pytest.raises(ValueError):
+        pkernel.split_plan(10, 128, 3, 5, 128, "both")
+    with pytest.raises(ValueError):  # m < 128: the fold drops keys
+        pkernel.split_plan(10, 128, 3, 5, 100, "direct")
+    with pytest.raises(ValueError):  # rows beyond 16-bit counts
+        pkernel.split_plan(10, 40_064, 3, 40_000, 128, "direct")
