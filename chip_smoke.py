@@ -78,7 +78,20 @@ H100: the kernels target sm_90a).  It imports only the port
      class-kernel launch, exact vs cKDTree on 2,000 sampled rows, each
      streamed class's peak allocation within the plan's memory model, the
      route of each class and the streamed route's time printed;
-  8. times each kernel at its main path's shapes against its plain version
+  8. answers external queries (``KnnProblem.query``) against the 900k/k=10
+     problem: (i) 1,000,000 uniform queries (20,000 sampled rows exact
+     against cKDTree, ``query_radius`` on 2,000 of them against
+     ``cKDTree.query_ball_point``), (ii) 200,000 clustered queries (whose
+     fullest supercell inflates the padded query capacity q2cap), (iii)
+     (i) under ``kernel='blocked'``, equal to (i), and (iv) 20,000 uniform
+     queries against a 300k cloud confined to x < 500, whose queries in
+     empty supercells the exact fallback answers (all rows exact); each
+     call launches the class kernel once per kernel-route class and makes
+     at most two host round trips; (i) and (ii) print their route, q2cap,
+     query-pack bytes, queries/s, the kernel's time on the query packs
+     (held to its plain version) and one profiled call's device busy
+     share and device-to-host copies;
+  9. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
      the --fmad=false ceiling, twice the operations bound, and the
@@ -277,8 +290,12 @@ def compare_modes(name, args, tgt, n_rows, k, exclude_self, m=0) -> float:
         plain(*args, k, exclude_self, tgt=tgt, out=row_buffers(n_rows, k))))
     blocked = ""
     if m:
-        deficit = (torch.isnan(raw[0][:, k - 1, :]) & (args[3] >= 0)).sum()
-        blocked = (f"; per-block rows {per_block_rows(args, k, m, exclude_self)}"
+        # real slots are those with a destination row; on a query pack
+        # every qid is a pad
+        real = ((tgt >= 0) & (tgt < n_rows)).view(args[3].shape)
+        deficit = (torch.isnan(raw[0][:, k - 1, :]) & real).sum()
+        blocked = (f"; per-block rows "
+                   f"{per_block_rows(args, k, m, exclude_self, real)}"
                    f", deficit rows {int(deficit)}")
     print(f"  {name}: k={k}{f' m={m}' if m else ''} exclude_self="
           f"{exclude_self} S={args[0].shape[0]} Q={args[0].shape[1]} "
@@ -286,11 +303,12 @@ def compare_modes(name, args, tgt, n_rows, k, exclude_self, m=0) -> float:
     return err
 
 
-def per_block_rows(args, k: int, m: int, exclude_self: bool) -> int:
-    """Real query slots whose exact top-k (``supercell_topk_plain``) holds
-    more than m entries of one 128-slot candidate block: the rows the
-    blocked kernel answers block by block, counted from the plain
-    version."""
+def per_block_rows(args, k: int, m: int, exclude_self: bool,
+                   real=None) -> int:
+    """Real query slots (``real``, (S, Q) bool; default: those with a
+    stored id) whose exact top-k (``supercell_topk_plain``) holds more
+    than m entries of one 128-slot candidate block: the rows the blocked
+    kernel answers block by block, counted from the plain version."""
     import torch
 
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
@@ -308,7 +326,9 @@ def per_block_rows(args, k: int, m: int, exclude_self: bool) -> int:
     col = torch.arange(flat.shape[1], device=flat.device)
     blk = torch.where(flat >= 0, slot // 128, -1 - col).view(ids.shape)
     blk = torch.sort(blk, dim=-1).values
-    over = (blk[..., m:] == blk[..., :-m]).any(-1) & (args[3] >= 0)
+    if real is None:
+        real = args[3] >= 0
+    over = (blk[..., m:] == blk[..., :-m]).any(-1) & real
     return int(over.sum())
 
 
@@ -752,16 +772,19 @@ def brute_reference(points: np.ndarray, rows: np.ndarray, k: int):
 
 
 def check_rows_exact(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
-                     dk: np.ndarray, ik: np.ndarray) -> None:
+                     dk: np.ndarray, ik: np.ndarray,
+                     queries: np.ndarray | None = None) -> None:
     """Rows of the original-order neighbour table against the exact
     reference (dk squared, ik ids), tie-aware: valid unique ids, not the
     query itself, distances realized and equal to the reference's as
     multisets, and every reference neighbour strictly inside the k-th
-    distance's tolerance band present."""
-    q = points[rows].astype(np.float64)
+    distance's tolerance band present.  With ``queries``, the rows answer
+    those external query coordinates (no self-exclusion)."""
+    q = (points if queries is None else queries)[rows].astype(np.float64)
     ids = nbrs[rows]
     require(bool((ids >= 0).all()), "a sampled row has missing neighbours")
-    require(bool((ids != rows[:, None]).all()), "a row lists its own point")
+    require(queries is not None or bool((ids != rows[:, None]).all()),
+            "a row lists its own point")
     srt = np.sort(ids, axis=1)
     require(not bool((np.diff(srt, axis=1) == 0).any()),
             "a row repeats a neighbour")
@@ -894,7 +917,7 @@ def solve_certificates(prob, cfg):
                  .certified.cpu().numpy())
 
 
-# -- phase 8: timing at the main path's class shape -----------------------------
+# -- phase 9: timing at the main path's class shape -----------------------------
 
 def class_timing(name: str, prob, cfg) -> dict:
     """The class kernel ``cfg`` selects over every class of a prepared
@@ -1013,24 +1036,29 @@ def crowded_timing(name: str, prob, cfg) -> dict:
             "deficit_rows": deficit}, err
 
 
-def solve_breakdown(name: str, prob) -> None:
-    """Device time by kernel of one warm solve under torch.profiler, and
-    the device's busy share of the solve's (profiled) wall time."""
+def device_breakdown(name: str, what: str, run, launches: int,
+                     counter: str = "launches") -> dict:
+    """Device time by kernel of one warm call of ``run`` under
+    torch.profiler (which must launch the class kernel ``counter`` names
+    ``launches`` times), the device's busy share of its (profiled) wall
+    time and its device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
 
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
-    prob.solve()
+    run()
 
     def profiled():
-        cs.launches = 0
+        before = getattr(cs, counter)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            prob.solve()
+            run()
             wall = (time.perf_counter() - t0) * 1e3
-        require(cs.launches == len(prob.aplan.classes),
-                f"{name}: profiled solve launched {cs.launches} kernels")
+        done = getattr(cs, counter) - before
+        require(done == launches,
+                f"{name}: profiled {what} made {done} {counter}, expected "
+                f"{launches}")
         return prof, wall
 
     prof, wall_ms = quiet(profiled)
@@ -1042,13 +1070,20 @@ def solve_breakdown(name: str, prob) -> None:
                 us = getattr(e, "cuda_time_total", 0)
             rows.append((us / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
-    print(f"  {name}: one solve {wall_ms:.3f} ms wall under the profiler; "
-          f"device busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall)",
-          flush=True)
+    dtoh = sum(r[0] for r in rows if "DtoH" in r[2])
+    print(f"  {name}: one {what} {wall_ms:.3f} ms wall under the profiler; "
+          f"device busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall), DtoH "
+          f"{dtoh:.4f} ms", flush=True)
     if not rows:
         print("    the profiler recorded no device time", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {ms:9.4f} ms  x{count:<3d} {key[:80]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "dtoh_ms": dtoh}
+
+
+def solve_breakdown(name: str, prob) -> None:
+    """Device time by kernel of one warm solve (:func:`device_breakdown`)."""
+    device_breakdown(name, "solve", prob.solve, len(prob.aplan.classes))
 
 
 # -- phase 5: the brute route at full width ------------------------------------
@@ -1732,6 +1767,319 @@ def streamed_path(points: np.ndarray, k: int, runs: int) -> dict:
             "fallback_rows": int(res.uncert_count)}
 
 
+# -- phase 8: external queries through the class kernels ----------------------
+
+# A query pack whose padded (query, candidate) pairs exceed this is held
+# to the plain version on its fullest supercells only.
+WHOLE_QUERY_PAIRS = 1 << 33
+
+
+def query_plan(prob, queries: np.ndarray):
+    """(class of each query, per-class host plans) of one query call, as
+    ``query_adaptive`` makes them."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    qcls, qrow = adaptive.bucket_queries(prob.grid, prob.config, prob.aplan,
+                                         queries)
+    return qcls, adaptive.plan_queries(
+        prob.config, prob.aplan, qcls, qrow, prob.config.k,
+        adaptive.hbm_budget_bytes(prob.device))
+
+
+def query_calls(name: str, prob, queries: np.ndarray, runs: int,
+                counter: str = "launches"):
+    """``prob.query(queries)`` 1 + ``runs`` times: each call must launch
+    the class kernel ``counter`` names once per kernel-route class with
+    queries, make at most two host round trips and answer every row; the
+    rows the exact fallback resolves are counted.  Both class kernels'
+    counts are set to 0 just before the calls and read just after (facts
+    ``launches``, ``blocked_launches``).  Prints each class's route, q2cap
+    and query-pack bytes, and the median and spread of the warm calls'
+    throughput.  Returns (ids, d2, facts)."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    m, k = queries.shape[0], prob.config.k
+    qcls, buckets = query_plan(prob, queries)
+    n_kernel = sum(b.route == "kernel" for b in buckets)
+    resolved = []
+    brute = adaptive.brute_force_by_coords
+
+    def counted(points, q, *a, **kw):
+        resolved.append(int(q.shape[0]))
+        return brute(points, q, *a, **kw)
+
+    times, max_syncs = [], 0
+    adaptive.brute_force_by_coords = counted
+    cs.launches = cs.blocked_launches = 0
+    try:
+        for i in range(1 + runs):
+            before = getattr(cs, counter)
+            dispatch.reset_stats()
+            t0 = time.perf_counter()
+            ids, d2 = prob.query(queries)
+            dt = time.perf_counter() - t0
+            syncs = dispatch.stats().host_syncs
+            done = getattr(cs, counter) - before
+            require(done == n_kernel,
+                    f"{name}: query made {done} {counter} for {n_kernel} "
+                    f"kernel-route classes")
+            require(syncs <= dispatch.SYNC_BUDGET,
+                    f"{name}: query made {syncs} host round trips")
+            max_syncs = max(max_syncs, syncs)
+            if i:
+                times.append(dt)
+    finally:
+        adaptive.brute_force_by_coords = brute
+    launched = {"launches": cs.launches,
+                "blocked_launches": cs.blocked_launches}
+    require(ids.shape == (m, k) and d2.shape == (m, k),
+            f"{name}: result shapes {ids.shape} {d2.shape}")
+    require(bool((ids >= 0).all()) and bool(np.isfinite(d2).all()),
+            f"{name}: rows with missing neighbours")
+    fallback = resolved[-1] if resolved else 0
+    classless = int((qcls < 0).sum())
+    med = float(np.median(times))
+    print(f"  {name}: m={m} k={k}; classes (class, route, q2cap, query-pack "
+          f"bytes, supercells a step, queries) "
+          f"{[(b.cls, b.route, b.q2cap, b.pack_bytes if b.route == 'kernel' else 0, b.step_rows, b.src.size) for b in buckets]}"
+          f"\n    query median of {runs} {med * 1e3:.3f} ms = "
+          f"{m / med:,.0f} queries/s, range {m / max(times):,.0f}-"
+          f"{m / min(times):,.0f} (runs ms "
+          f"{[round(t * 1e3, 3) for t in times]}); {counter} per call "
+          f"{n_kernel}; fallback rows {fallback} ({classless} classless); "
+          f"host round trips {max_syncs} (max over calls, budget "
+          f"{dispatch.SYNC_BUDGET})", flush=True)
+    return ids, d2, {"median_s": med, "queries_per_s": m / med,
+                     "queries_per_s_range": (m / max(times), m / min(times)),
+                     "launches_per_call": n_kernel, "syncs": max_syncs,
+                     **launched,
+                     "fallback_rows": fallback, "classless": classless,
+                     "buckets": buckets}
+
+
+def check_queries_exact(name: str, points: np.ndarray, queries: np.ndarray,
+                        ids: np.ndarray, rows: np.ndarray, k: int,
+                        tree) -> None:
+    """Sampled query rows against the kd-tree, tie-aware."""
+    t0 = time.perf_counter()
+    dk, ik = tree.query(queries[rows].astype(np.float64), k=k)
+    check_rows_exact(points, ids, rows, dk ** 2, ik, queries=queries)
+    print(f"  {name}: exact vs cKDTree on {rows.size} rows, checked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_radius(name: str, prob, points: np.ndarray, queries: np.ndarray,
+                 radius: float, tree) -> None:
+    """``query_radius`` at the prepared k against
+    ``cKDTree.query_ball_point``: in-range ids, counts and ``truncated``,
+    with points within a relative 1e-5 of the radius allowed either way
+    (float32 d2 against the tree's float64 distances)."""
+    k = prob.config.k
+    ids, d2, counts, trunc = prob.query_radius(queries, radius)
+    inner = tree.query_ball_point(queries.astype(np.float64),
+                                  radius * (1 - 1e-5))
+    outer = tree.query_ball_point(queries.astype(np.float64),
+                                  radius * (1 + 1e-5))
+    for r in range(queries.shape[0]):
+        got = set(ids[r][ids[r] >= 0].tolist())
+        lo, hi = set(inner[r]), set(outer[r])
+        require(len(got) == counts[r] and bool(trunc[r]) == (counts[r] >= k),
+                f"{name}: row {r} count {counts[r]} / truncated {trunc[r]} "
+                f"disagree with its ids")
+        if counts[r] < k:
+            require(lo <= got <= hi, f"{name}: row {r} in-range ids {got} "
+                                     f"differ from cKDTree's {lo}")
+        else:
+            require(len(hi) >= k and got <= hi,
+                    f"{name}: truncated row {r} has ids out of range")
+    print(f"  {name}: query_radius({radius}) on {queries.shape[0]} rows "
+          f"equal to cKDTree.query_ball_point (counts {int(counts.sum())}, "
+          f"truncated {int(trunc.sum())})", flush=True)
+
+
+def host_profile(name: str, what: str, run, top: int = 8) -> None:
+    """The host functions that take the most time in one warm call of
+    ``run`` (cProfile, own time; numpy and torch calls count whole)."""
+    import cProfile
+    import pstats
+
+    run()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    run()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, f"{os.path.basename(f)}:{line} {fn}")
+                   for (f, line, fn), (_, nc, tt, _, _) in stats.items()),
+                  reverse=True)[:top]
+    print(f"  {name}: one {what} {wall:.3f} ms wall under cProfile; host "
+          f"time by function (own time):", flush=True)
+    for tt, nc, where in rows:
+        print(f"    {tt * 1e3:9.3f} ms  x{nc:<5d} {where[:80]}", flush=True)
+
+
+def query_kernel(name: str, prob, queries: np.ndarray, buckets,
+                 reps: int) -> dict:
+    """The class kernel over one query call's packs (mode (a), as
+    ``query()`` launches it) by CUDA events, with the bound of the work the
+    packs hold: 20 bytes a real query slot and 4 a pad (mode (a) reads
+    only a pad's target), the candidates of the supercells that hold a
+    query once, the (m, k) outputs, and 8 f32 operations a real pair; then
+    held to its plain version in both modes on the whole pack, or on its
+    fullest supercells and its first when wider than
+    ``WHOLE_QUERY_PAIRS``."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    cfg, m = prob.config, queries.shape[0]
+    k = cfg.k
+    q_dev = torch.as_tensor(queries, device=DEV)
+    packs = []
+    for b in buckets:
+        if b.route == "kernel":
+            cp = prob.aplan.classes[b.cls]
+            pk, tgt = adaptive.query_pack(q_dev, cp, b, m)
+            packs.append((b, cp, pk, tgt,
+                          adaptive.class_blocked_m(cfg, cp.ccap, k)))
+    require(bool(packs), f"{name}: no kernel-route class")
+    out = row_buffers(m, k)
+
+    def kernel(tgts):
+        for (_, cp, pk, _, _), tgt in zip(packs, tgts):
+            adaptive.launch_kernel_class(cfg, cp.ccap, pk, tgt, k, False,
+                                         out)
+
+    ms = quiet(lambda: cuda_ms(lambda: kernel([p[3] for p in packs]), reps))
+    # the same launches with every slot a pad (target row m): what the
+    # padding alone costs
+    pads = [torch.full_like(p[3], m) for p in packs]
+    pads_ms = quiet(lambda: cuda_ms(lambda: kernel(pads), reps))
+    del pads
+    in_bytes, pairs = 0, 0
+    for b, cp, pk, tgt, _ in packs:
+        slots, real = b.n_sc * b.q2cap, b.src.size
+        nq = b.starts[1:] - b.starts[:-1]
+        # cx, cy, cz, cid of each candidate slot of a supercell with queries
+        in_bytes += (20 * real + 4 * (slots - real)
+                     + 16 * cp.ccap * int((nq > 0).sum()))
+        pairs += int((torch.as_tensor(nq, device=DEV)
+                      * (pk.cid >= 0).sum(1)).sum())
+    out_bytes = m * k * 8
+    t_bytes = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
+    t_ops = 8 * pairs / PEAK_F32_FLOPS * 1e3
+    err = 0.0
+    for b, cp, pk, tgt, blk in packs:
+        args, what = list(pk.args()), "whole"
+        if b.n_sc * b.q2cap * cp.ccap > WHOLE_QUERY_PAIRS:
+            nq = b.starts[1:] - b.starts[:-1]
+            pick = np.unique(np.concatenate([np.argsort(nq)[-4:], [0]]))
+            sel = torch.as_tensor(pick, device=DEV)
+            args = [a[sel].contiguous() for a in args]
+            tgt = tgt.view(b.n_sc, b.q2cap)[sel].reshape(-1).contiguous()
+            what = f"{pick.size} supercells"
+        err = max(err, compare_modes(
+            f"{name} query pack, class {b.cls} ({what})", args, tgt, m, k,
+            False, blk))
+    q2cap = max(b.q2cap for b, *_ in packs)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  {name}: class kernel on the query packs {ms:.4f} ms (CUDA "
+          f"events, {reps} launches), on the same packs all pads "
+          f"{pads_ms:.4f} ms; q2cap {q2cap}; bytes {in_bytes + out_bytes} "
+          f"-> {t_bytes:.4f} ms at 3.35 TB/s; real pairs {pairs} -> "
+          f"{t_ops:.4f} ms at 67 TFLOP/s; bound {max(t_bytes, t_ops):.4f} "
+          f"ms by {bound_by}, kernel {ms / max(t_bytes, t_ops):.1f}x over it",
+          flush=True)
+    return {"ms": ms, "pads_ms": pads_ms, "q2cap": q2cap,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "max_abs_err": err}
+
+
+def query_phase(points: np.ndarray, prob, prob_b) -> dict:
+    """External queries against the 900k/k=10 problem (``prob``, and
+    ``prob_b`` with kernel='blocked'): (i) 1,000,000 uniform queries,
+    20,000 sampled rows exact against cKDTree and ``query_radius`` on
+    2,000 of them against ``query_ball_point``; (ii) 200,000 clustered
+    queries, whose fullest supercell inflates q2cap; (iii) (i) with the
+    blocked kernel, whose answers must equal (i)'s; (iv) 20,000 uniform
+    queries against a 300k cloud confined to x < 500, whose queries in
+    empty supercells (no class) the exact fallback answers.  (i) and (ii)
+    are timed end to end, by kernel and under the profiler.  Returns the
+    launches and measurements for the kernels line."""
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import (generate_clustered,
+                                             generate_uniform)
+
+    k = prob.config.k
+    tree = cKDTree(points.astype(np.float64))
+    rng = np.random.default_rng(905)
+    q_uni = generate_uniform(1_000_000, seed=901)
+    ids, d2, uni = query_calls("(i) 1M uniform", prob, q_uni, 3)
+    check_queries_exact("(i) 1M uniform", points, q_uni, ids,
+                        np.sort(rng.permutation(q_uni.shape[0])[:SAMPLE_ROWS]),
+                        k, tree)
+    check_radius("(i) 1M uniform", prob, points, q_uni[:2000], 12.0, tree)
+    uni.update(kernel=query_kernel("(i) 1M uniform", prob, q_uni,
+                                   uni["buckets"], 20),
+               profile=device_breakdown("(i) 1M uniform", "query",
+                                        lambda: prob.query(q_uni),
+                                        uni["launches_per_call"]))
+    quiet(lambda: host_profile("(i) 1M uniform", "query",
+                               lambda: prob.query(q_uni)))
+    q_cl = generate_clustered(200_000, seed=902)
+    ids_cl, _, clu = query_calls("(ii) 200k clustered", prob, q_cl, 3)
+    check_queries_exact("(ii) 200k clustered", points, q_cl, ids_cl,
+                        np.sort(rng.permutation(q_cl.shape[0])[:2000]), k,
+                        tree)
+    clu.update(kernel=query_kernel("(ii) 200k clustered", prob, q_cl,
+                                   clu["buckets"], 5),
+               profile=device_breakdown("(ii) 200k clustered", "query",
+                                        lambda: prob.query(q_cl),
+                                        clu["launches_per_call"]))
+    quiet(lambda: host_profile("(ii) 200k clustered", "query",
+                               lambda: prob.query(q_cl)))
+    del q_cl, ids_cl
+
+    half = np.random.default_rng(903)
+    pts_half = (half.random((300_000, 3)) * [500.0, 1000.0, 1000.0]).astype(
+        np.float32)
+    q_half = (half.random((20_000, 3)) * 1000.0).astype(np.float32)
+    prob_half, _ = prepared(pts_half, pt.KnnConfig(k=k))
+    ids_h, _, hal = query_calls("(iv) 20k vs 300k at x < 500", prob_half,
+                                q_half, 1)
+    require(hal["classless"] > 0 and hal["fallback_rows"]
+            >= hal["classless"], "(iv): no classless queries resolved")
+    check_queries_exact("(iv) 20k vs 300k at x < 500", pts_half, q_half,
+                        ids_h, np.arange(q_half.shape[0]), k,
+                        cKDTree(pts_half.astype(np.float64)))
+    del prob_half, pts_half
+
+    ids_b, d2_b, blk = query_calls("(iii) 1M uniform, blocked", prob_b,
+                                   q_uni, 1, counter="blocked_launches")
+    runs = (uni, clu, hal, blk)
+    launches = sum(r["launches"] for r in runs)
+    blocked_launches = sum(r["blocked_launches"] for r in runs)
+    require(np.array_equal(d2_b, d2),
+            "(iii): blocked distances differ from the one-stage path's")
+    for r, c in zip(*np.nonzero(ids_b != ids)):
+        require(int((d2[r] == d2[r, c]).sum()) > 1,
+                f"(iii): row {r} column {c} differs from the one-stage "
+                f"path outside a distance tie")
+    blk.update(kernel=query_kernel("(iii) 1M uniform, blocked", prob_b,
+                                   q_uni, blk["buckets"], 20))
+    print(f"  (iii): distances equal to the one-stage path's, ids equal but "
+          f"{int((ids_b != ids).sum())} entries inside distance ties",
+          flush=True)
+    return {"launches": launches, "blocked_launches": blocked_launches,
+            "uniform": uni, "clustered": clu, "blocked": blk}
+
+
 _T0 = time.perf_counter()
 
 
@@ -1830,6 +2178,11 @@ def main() -> int:
     phase("grid main path at k=1000 (streamed route)")
     streamed_path(generate_blue_noise(100_000, seed=1000), 1000, 5)
 
+    phase("external queries through the class kernels")
+    query = query_phase(pts900, prob10, prob_b)
+    require(query["launches"] > 0 and query["blocked_launches"] > 0,
+            "the query path launched no class kernel")
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -1843,17 +2196,33 @@ def main() -> int:
         dict(name="supercell_topk", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces=REPLACES["supercell_topk"], launches=launches,
-             max_abs_err=max(max_err["supercell_topk"], err10, err50),
-             **timing),
+             max_abs_err=max(max_err["supercell_topk"], err10, err50,
+                             query["uniform"]["kernel"]["max_abs_err"],
+                             query["clustered"]["kernel"]["max_abs_err"]),
+             **timing, query_launches=query["launches"],
+             query_ms=query["uniform"]["kernel"]["ms"],
+             query_q2cap=query["uniform"]["kernel"]["q2cap"],
+             query_bound_ms=query["uniform"]["kernel"]["bound_ms"],
+             query_bound_by=query["uniform"]["kernel"]["bound_by"],
+             query_ms_clustered=query["clustered"]["kernel"]["ms"],
+             query_q2cap_clustered=query["clustered"]["kernel"]["q2cap"],
+             query_pads_ms_clustered=query["clustered"]["kernel"]["pads_ms"],
+             query_bound_ms_clustered=query["clustered"]["kernel"][
+                 "bound_ms"],
+             query_bound_by_clustered=query["clustered"]["kernel"][
+                 "bound_by"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
              max_abs_err=max(max_err["blocked_topk"], err_b, err_b50,
-                             err_bc),
+                             err_bc, query["blocked"]["kernel"]["max_abs_err"]),
              **blocked_timing, ms_300k_k50=blocked50["ms"],
              bound_ms_300k_k50=blocked50["bound_ms"],
              ms_crowded=blocked_crowded["ms"],
-             per_block_rows_crowded=blocked_crowded["per_block_rows"]),
+             per_block_rows_crowded=blocked_crowded["per_block_rows"],
+             query_launches=query["blocked_launches"],
+             query_ms=query["blocked"]["kernel"]["ms"],
+             query_bound_ms=query["blocked"]["kernel"]["bound_ms"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],

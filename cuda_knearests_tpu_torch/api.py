@@ -1,4 +1,5 @@
-"""Engine API: prepare a point cloud once, solve its all-points kNN.
+"""Engine API: prepare a point cloud once, solve its all-points kNN and
+answer arbitrary queries against it.
 
 Counterpart of ``cuda_knearests_tpu/api.py``.  ``KnnProblem.prepare``
 validates the points, builds the grid on the device and plans the capacity
@@ -6,7 +7,10 @@ classes (packing each class's kernel inputs); ``solve`` launches the kernel
 once per class, certifies every row, reads the result back in one batched
 fetch, and resolves uncertified rows exactly with one more.  Results are in
 sorted point indexing (``get_knearests``) or original indexing
-(``get_knearests_original``).
+(``get_knearests_original``, ``get_edges``).  ``query`` and
+``query_radius`` answer (m, 3) query coordinates through the same classes
+(``ops.adaptive.query_adaptive``), in original indexing; ``save_problem``
+and ``load_problem`` checkpoint the prepared grid.
 
 Everything runs on the GPU unless ``device='cpu'`` is passed.
 """
@@ -22,11 +26,12 @@ import torch
 
 from .config import KnnConfig
 from .io import validate_or_raise
-from .ops.adaptive import AdaptivePlan, build_adaptive_plan, solve_adaptive
+from .ops.adaptive import (AdaptivePlan, build_adaptive_plan, query_adaptive,
+                           solve_adaptive)
 from .ops.gridhash import GridHash, build_grid
 from .ops.solve import KnnResult, brute_force_by_index
 from .runtime import dispatch
-from .utils.memory import InvalidConfigError
+from .utils.memory import InvalidConfigError, InvalidKError
 from .utils.platform import resolve_device
 
 # Fields of the reference package's KnnConfig that tune how it runs on its
@@ -35,6 +40,35 @@ from .utils.platform import resolve_device
 _REFERENCE_RUNTIME_KNOBS = frozenset({
     "sc_batch", "interpret", "stream_tile", "epilogue", "query_chunk",
     "hbm_budget_bytes"})
+
+
+def radius_mask_from_knn(ids: np.ndarray, d2: np.ndarray, radius: float,
+                         cap: int):
+    """Shared tail of the query_radius surfaces (single-chip and sharded):
+    mask exact k-NN rows beyond ``radius``.  The k-NN rows are globally exact,
+    so the mask is exact for any radius; the only possible incompleteness is
+    the cap itself, flagged per query via ``truncated``.  Returns (ids with
+    -1 beyond count, d2 with inf beyond, counts, truncated)."""
+    in_range = d2 <= np.float32(radius) ** 2
+    counts = in_range.sum(axis=1).astype(np.int32)
+    truncated = counts >= cap
+    return (np.where(in_range, ids, -1), np.where(in_range, d2, np.inf),
+            counts, truncated)
+
+
+def edges_from_neighbors(nbrs: np.ndarray, symmetric: bool = False
+                         ) -> np.ndarray:
+    """(n, k) neighbor table (original ids, -1 = none) -> COO edge list
+    (E, 2).  ``symmetric`` adds reverse edges and deduplicates."""
+    n, k = nbrs.shape
+    src = np.repeat(np.arange(n, dtype=np.int32), k)
+    dst = nbrs.reshape(-1)
+    keep = dst >= 0
+    edges = np.stack([src[keep], dst[keep]], axis=1)
+    if symmetric:
+        und = np.concatenate([edges, edges[:, ::-1]])
+        edges = np.unique(und, axis=0)
+    return edges
 
 
 @dataclasses.dataclass
@@ -62,6 +96,11 @@ class KnnProblem:
         grid = build_grid(torch.as_tensor(points, device=device), dim=dim,
                           density=config.density)
         return cls._planned(grid, config)
+
+    def with_points(self, points) -> "KnnProblem":
+        """A fresh problem over ``points`` under this problem's config, on
+        its device: the rebuild-from-scratch primitive of serving."""
+        return KnnProblem.prepare(points, self.config, device=self.device)
 
     @classmethod
     def _planned(cls, grid: GridHash, config: KnnConfig,
@@ -108,6 +147,57 @@ class KnnProblem:
         return KnnResult(neighbors=nbr, dists_sq=d2, certified=cert,
                          uncert_count=np.int32(n_unc))
 
+    # -- external queries ---------------------------------------------------
+
+    def query(self, queries, k: int | None = None, planes: bool = False):
+        """Exact kNN of arbitrary (m, 3) query coordinates inside the
+        domain against the stored points; the query set is independent of
+        the stored one (no self-exclusion).  ``k`` defaults to, and may not
+        exceed, the prepared k, which sized the candidate dilation the
+        certificate relies on.  Returns ((m, k) neighbour ids in original
+        indexing, ascending by distance, -1 = none; (m, k) squared
+        distances, inf = none).  At most two host round trips.
+
+        ``planes=True`` (the Voronoi plane feed) is refused: it is not
+        ported yet."""
+        if planes:
+            raise InvalidConfigError(
+                "query(planes=True) is not supported by the PyTorch/CUDA "
+                "port: the Voronoi plane feed is not ported yet")
+        k = self.config.k if k is None else k
+        queries = validate_or_raise(queries, k=k, what="queries")
+        k = int(k)
+        if k > self.config.k:
+            raise InvalidKError(
+                f"k={k} exceeds the prepared k={self.config.k}; re-prepare "
+                f"with a larger config.k (it sizes the candidate dilation)")
+        return self._query_ids(queries, k)
+
+    def _query_ids(self, queries: np.ndarray, k: int):
+        """query()'s route (validated inputs): ((m, k) ids in original
+        indexing, (m, k) d2)."""
+        if self.grid.n_points == 0:
+            # no stored points: every row is all -1/inf
+            return (np.full((queries.shape[0], k), -1, np.int32),
+                    np.full((queries.shape[0], k), np.inf, np.float32))
+        return query_adaptive(self.grid, self.config, self.aplan, queries, k,
+                              self.config.fallback)
+
+    def query_radius(self, queries, radius: float,
+                     max_neighbors: int | None = None):
+        """All stored points within ``radius`` of each query, at most
+        ``max_neighbors`` (default: the prepared k) of them: the exact k-NN
+        rows at k = ``max_neighbors``, masked beyond the radius.  Returns
+        (ids (m, cap) in original indexing, -1 beyond the count; d2 (m,
+        cap) ascending, inf beyond; counts (m,); truncated (m,): True where
+        the cap was reached, so more neighbours may lie in range)."""
+        cap = self.config.k if max_neighbors is None else int(max_neighbors)
+        if cap > self.config.k:
+            raise InvalidKError(
+                f"max_neighbors={cap} exceeds the prepared k={self.config.k}")
+        ids, d2 = self.query(queries, k=cap)
+        return radius_mask_from_knn(ids, d2, radius, cap)
+
     # -- result extraction --------------------------------------------------
 
     def get_points(self) -> np.ndarray:
@@ -142,6 +232,12 @@ class KnnProblem:
         out[perm] = mapped
         return out
 
+    def get_edges(self, symmetric: bool = False) -> np.ndarray:
+        """The kNN graph as a COO edge list (E, 2) of original point ids;
+        ``symmetric`` adds reverse edges and deduplicates."""
+        self._require_solved()
+        return edges_from_neighbors(self.get_knearests_original(), symmetric)
+
     def _require_solved(self) -> None:
         if self.result is None:
             raise RuntimeError("call solve() first")
@@ -159,6 +255,24 @@ def knn(points, k: int = 10, config: KnnConfig | None = None,
 def _npz_path(path: str) -> str:
     path = str(path)
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_problem(problem: KnnProblem, path: str) -> None:
+    """Checkpoint a prepared problem (grid and config) to one ``.npz``
+    ('.npz' is appended when missing), in the reference package's layout:
+    this port's :func:`load_problem` and the reference's read it back.
+    Solved results are not saved (the solve is deterministic)."""
+    g = problem.grid
+    cfg = dataclasses.asdict(problem.config)
+    np.savez_compressed(
+        _npz_path(path),
+        points=g.points.cpu().numpy(),
+        permutation=g.permutation.cpu().numpy(),
+        cell_starts=g.cell_starts.cpu().numpy(),
+        cell_counts=g.cell_counts.cpu().numpy(),
+        dim=np.int64(g.dim), domain=np.float64(g.domain),
+        config_json=np.bytes_(json.dumps(
+            {key: v for key, v in cfg.items() if v is not None}).encode()))
 
 
 def load_problem(path: str, device=None) -> KnnProblem:

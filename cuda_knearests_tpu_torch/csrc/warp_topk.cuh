@@ -161,9 +161,11 @@ __device__ __forceinline__ float center_d2(float x, float y, float z,
 }
 
 // Stage the chunk of nq query slots at qbase in s_query / s_target, and the
-// center of the real queries' bounding box in s_center.  Returns false
-// (to every thread) when mode (a) finds no real slot in the chunk.  Called
-// by every thread of the block; ends with a barrier.
+// center of the real queries' bounding box in s_center: in mode (a) the
+// slots with a target row (external queries carry no stored id), in mode
+// (b) the slots with a stored id.  Returns false (to every thread) when
+// mode (a) finds no real slot in the chunk.  Called by every thread of the
+// block; ends with a barrier.
 __device__ __forceinline__ bool stage_queries(const float* __restrict__ qx,
                               const float* __restrict__ qy,
                               const float* __restrict__ qz,
@@ -186,7 +188,9 @@ __device__ __forceinline__ bool stage_queries(const float* __restrict__ qx,
     float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
     for (int q = lane; q < nq; q += 32) {
       const float4 sq = s_query[q];
-      if (__float_as_int(sq.w) < 0) continue;
+      if (tgt != nullptr ? s_target[q] < 0 : __float_as_int(sq.w) < 0) {
+        continue;
+      }
       const float c[3] = {sq.x, sq.y, sq.z};
       for (int a = 0; a < 3; ++a) {
         lo[a] = fminf(lo[a], c[a]);

@@ -1,7 +1,7 @@
-"""Adaptive supercell capacities: per-supercell radii, capacity classes and
-the class-partitioned solve.
+"""Adaptive supercell capacities: per-supercell radii, capacity classes,
+the class-partitioned solve and external queries through the same classes.
 
-Counterpart of ``cuda_knearests_tpu/ops/adaptive.py:56-836``.  At prepare
+Counterpart of ``cuda_knearests_tpu/ops/adaptive.py:56-1092``.  At prepare
 time, on the host:
 
   1. each supercell gets the smallest dilation radius whose local ring
@@ -31,6 +31,11 @@ chooses it (``cuda_knearests_tpu/ops/adaptive.py:201-218``):
 
 A class never falls back after a kernel fails: the route is fixed when the
 plan is built.  Every row then gets its box-margin certificate.
+
+External queries (:func:`query_adaptive`) reuse the plan: each query takes
+its supercell's class, the class's candidate pack and its route, and a
+kernel class streams its queries only when their padded query pack does
+not fit the memory budget.
 """
 
 from __future__ import annotations
@@ -44,15 +49,18 @@ import torch
 
 from ..config import (KnnConfig, blocked_topm, default_ring_radius,
                       resolve_kernel)
+from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
 from .cuda_solve import (_PAD_Q, ClassPack, blocked_topk, hbm_budget_bytes,
                          pack_bytes, pack_inputs, pick_q_tile,
                          supercell_topk)
-from .gridhash import GridHash
+from .gridhash import GridHash, cell_coords_host
+from .query import brute_force_by_coords
 from .rings import ring_occupancy
 from .solve import (KnnResult, _box_cell_ids, _boxes_grid, _margin_sq,
                     _round_up, pack_cells, sum_sq_diff)
-from .topk import INVALID_ID, init_topk, merge_topk, pack_key, unpack_key
+from .topk import (INVALID_ID, init_topk, merge_topk, pack_key,
+                   translate_ids, unpack_key)
 
 # Candidate slots per step of the streamed route (the reference's
 # KnnConfig.stream_tile default), and the bound on its (rows, qcap, tile)
@@ -189,11 +197,20 @@ class ClassPlan:
 class AdaptivePlan:
     """Class schedules plus ``inv_box``: (n,) int32 index of each stored
     point's supercell in the concatenation of the classes' supercell axes
-    (for the per-row certificate boxes)."""
+    (for the per-row certificate boxes).
+
+    ``class_of_sc`` / ``row_of_sc`` are (n_sc_global,) int32 host arrays,
+    equal to the reference's: the class of each supercell of the grid (-1
+    for one that holds no stored point) and its row in that class (0
+    where it has none).  External queries bucket through them on the host
+    (:func:`query_adaptive`), so one plan serves the self-solve and
+    arbitrary query coordinates."""
 
     classes: Tuple[ClassPlan, ...]
     inv_box: torch.Tensor
     n_points: int
+    class_of_sc: np.ndarray
+    row_of_sc: np.ndarray
 
 
 def plan_class_specs(counts: np.ndarray, dim: int, cfg: KnnConfig):
@@ -214,11 +231,13 @@ def plan_class_specs(counts: np.ndarray, dim: int, cfg: KnnConfig):
     return sc, build_class_specs(pts_cum[:, 0], pts_cum, radii, cfg)
 
 
-def class_blocked_m(cfg: KnnConfig, ccap: int) -> int:
-    """The blocked kernel's m for a class of candidate capacity ``ccap``,
-    or 0 when the class runs the one-stage kernel."""
-    if resolve_kernel(cfg.effective_kernel(), cfg.k, ccap) == "blocked":
-        return blocked_topm(cfg.k, ccap)
+def class_blocked_m(cfg: KnnConfig, ccap: int, k: int | None = None) -> int:
+    """The blocked kernel's m for a class of candidate capacity ``ccap``
+    launched at ``k`` (default ``cfg.k``; an external query may ask for
+    fewer), or 0 when the class runs the one-stage kernel."""
+    k = cfg.k if k is None else k
+    if resolve_kernel(cfg.effective_kernel(), k, ccap) == "blocked":
+        return blocked_topm(k, ccap)
     return 0
 
 
@@ -334,7 +353,11 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
 
     w = grid.domain / dim
     classes = []
-    for spec, rows in zip(specs, step_rows):
+    class_of = np.full((sc.shape[0],), -1, np.int32)
+    row_of = np.zeros((sc.shape[0],), np.int32)
+    for ci, (spec, rows) in enumerate(zip(specs, step_rows)):
+        class_of[spec.rows] = ci
+        row_of[spec.rows] = np.arange(spec.rows.size, dtype=np.int32)
         sc_c = sc[spec.rows]
         own = torch.as_tensor(_box_cell_ids(sc_c, 0, 0, s, dim),
                               device=device)
@@ -363,7 +386,8 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
     classes = [dataclasses.replace(cp, tgt=t)
                for cp, t in zip(classes, tgts)]
     return AdaptivePlan(classes=tuple(classes), inv_box=inv_box,
-                        n_points=grid.n_points)
+                        n_points=grid.n_points, class_of_sc=class_of,
+                        row_of_sc=row_of)
 
 
 def _class_inverse_update(inv_box: torch.Tensor, cp: ClassPlan,
@@ -455,6 +479,20 @@ def streamed_topk(points: torch.Tensor, starts: torch.Tensor,
     return out
 
 
+def launch_kernel_class(cfg: KnnConfig, ccap: int, pk: ClassPack,
+                        tgt: torch.Tensor, k: int, exclude_self: bool,
+                        out: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """One 'kernel' class's mode (a) launch into ``out`` through the
+    forward map ``tgt``: ``blocked_topk`` where the class of candidate
+    capacity ``ccap`` runs the blocked kernel at ``k``
+    (:func:`class_blocked_m`), else ``supercell_topk``."""
+    m = class_blocked_m(cfg, ccap, k)
+    if m:
+        blocked_topk(*pk.args(), k, m, exclude_self, tgt=tgt, out=out)
+    else:
+        supercell_topk(*pk.args(), k, exclude_self, tgt=tgt, out=out)
+
+
 def _streamed_class(grid: GridHash, cp: ClassPlan, k: int,
                     exclude_self: bool, buf_d: torch.Tensor,
                     buf_i: torch.Tensor) -> None:
@@ -493,15 +531,280 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
         if cp.route == "streamed":
             _streamed_class(grid, cp, k, cfg.exclude_self, buf_d, buf_i)
             continue
-        m = class_blocked_m(cfg, cp.ccap)
-        if m:
-            blocked_topk(*cp.pk.args(), k, m, cfg.exclude_self, tgt=cp.tgt,
-                         out=(out_d, out_i))
-        else:
-            supercell_topk(*cp.pk.args(), k, cfg.exclude_self, tgt=cp.tgt,
-                           out=(out_d, out_i))
+        launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
+                            cfg.exclude_self, (out_d, out_i))
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)
     return KnnResult(neighbors=out_i, dists_sq=out_d, certified=cert,
                      uncert_count=(~cert).sum().to(torch.int32))
+
+
+# -- external queries through the class schedule ------------------------------
+
+# Device bytes of one slot of a class's query pack on the kernel route: its
+# three coordinates, its (pad) id and its destination row.
+_QUERY_SLOT_BYTES = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryBucket:
+    """Host plan of one class's external queries (:func:`plan_queries`).
+
+    ``src`` are the queries' indices in the call, stably sorted by their
+    supercell row in class ``cls``; ``slot`` is each one's flat slot, row *
+    ``q2cap`` + rank, in the class's (Sc, q2cap) query pack; ``starts``
+    (Sc + 1,) where each row's queries begin in ``src``.  ``route`` is
+    'kernel' (one launch over the whole pack) or 'streamed'
+    (:func:`streamed_topk`, ``step_rows`` supercells a step)."""
+
+    cls: int
+    src: np.ndarray
+    slot: np.ndarray
+    starts: np.ndarray
+    n_sc: int
+    q2cap: int
+    route: str
+    step_rows: Optional[int]
+
+    @property
+    def pack_bytes(self) -> int:
+        """Device bytes of the kernel route's query pack (the streamed
+        route builds one step's slots at a time)."""
+        return _QUERY_SLOT_BYTES * self.n_sc * self.q2cap
+
+
+def bucket_queries(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
+                   queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host bucketing of (m, 3) float32 queries: each query's class (-1
+    where its supercell holds no stored point) and its row in that class,
+    from the grid cells :func:`gridhash.cell_coords_host` gives."""
+    scc = cell_coords_host(queries, grid.dim, grid.domain) // cfg.supercell
+    n_sc = -(-grid.dim // cfg.supercell)
+    # int64: n_sc^3 passes int32 at dim / supercell ~ 1,290
+    sid = (scc[:, 0].astype(np.int64) + n_sc * (scc[:, 1].astype(np.int64)
+           + n_sc * scc[:, 2].astype(np.int64)))
+    return plan.class_of_sc[sid], plan.row_of_sc[sid]
+
+
+def query_step_rows(cp: ClassPlan, q2cap: int, k: int, n_class: int,
+                    m: int, side: int, budget: int | None) -> int:
+    """Supercells a step of one class's streamed queries: at most
+    :func:`streamed_rows_chunk`'s, and within what the memory ``budget``
+    leaves after the call's (m + 1, k) outputs, the class's staged query
+    indices and, for a kernel class, the cell table built for the call.
+    Each step holds its slots (``_SLOT_SOLVE_BYTES`` each) and
+    :func:`stream_step_bytes`.  Raises :class:`LaunchBudgetError` when not
+    even one supercell a step fits."""
+    rows = streamed_rows_chunk(cp.n_sc, q2cap, stream_tile(cp.ccap))
+    if budget is None:
+        return rows
+    fixed = ((m + 1) * k * 8 + 16 * n_class
+             + (0 if cp.cand is not None else 4 * cp.n_sc * side ** 3))
+    per_row = (stream_step_bytes(1, q2cap, cp.ccap, k)
+               + _SLOT_SOLVE_BYTES * q2cap)
+    if budget - fixed < per_row:
+        raise LaunchBudgetError(
+            f"external query: a class's outputs and one streamed supercell "
+            f"of {q2cap} query slots need {fixed + per_row} bytes, above the "
+            f"{budget}-byte budget (a fraction of the device's free "
+            f"memory); reduce the query batch",
+            requested=fixed + per_row, budget=budget, site="query_adaptive")
+    return min(rows, (budget - fixed) // per_row)
+
+
+def plan_queries(cfg: KnnConfig, plan: AdaptivePlan, qcls: np.ndarray,
+                 qrow: np.ndarray, k: int, budget: int | None
+                 ) -> Tuple[QueryBucket, ...]:
+    """Host plan of an external-query call: per class with queries, their
+    row-major order and slots, and the padded per-supercell capacity
+    ``q2cap`` -- a multiple of 128 on the kernel route, a power of two >= 8
+    on the streamed route, as the reference sizes them.  A kernel class
+    keeps the kernel when its query pack (``_QUERY_SLOT_BYTES`` a slot) and
+    the call's (m + 1, k) outputs fit the memory ``budget`` (None:
+    unbounded); otherwise its queries stream."""
+    m = qcls.shape[0]
+    buckets = []
+    for ci, cp in enumerate(plan.classes):
+        sel = np.nonzero(qcls == ci)[0]
+        if sel.size == 0:
+            continue
+        rows = qrow[sel]
+        # numpy sorts 16-bit keys stably by radix sort, in linear time
+        order = np.argsort(rows.astype(np.uint16) if cp.n_sc <= 1 << 16
+                           else rows, kind="stable")
+        rows = rows[order]
+        counts = np.bincount(rows, minlength=cp.n_sc)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        rank = np.arange(sel.size, dtype=np.int64) - starts[rows]
+        max_q = int(counts.max())
+        q2cap = -(-max_q // 128) * 128
+        route = cp.route
+        if (route == "kernel" and budget is not None
+                and (_QUERY_SLOT_BYTES * cp.n_sc * q2cap
+                     + (m + 1) * k * 8) > budget):
+            route = "streamed"
+        step = None
+        if route == "streamed":
+            q2cap = 1 << max(3, (max_q - 1).bit_length())
+            step = query_step_rows(cp, q2cap, k, sel.size, m,
+                                   cfg.supercell + 2 * cp.radius, budget)
+        elif cp.n_sc * q2cap > 2**31 - 1:
+            # a wrapped int32 slot index would place wrong-yet-certifiable
+            # rows
+            raise ValueError(
+                f"query pack exceeds int32 slot indexing ({cp.n_sc} "
+                f"supercells x {q2cap} slots); reduce the query batch")
+        buckets.append(QueryBucket(
+            cls=ci, src=sel[order].astype(np.int32),
+            slot=rows.astype(np.int64) * q2cap + rank, starts=starts,
+            n_sc=cp.n_sc, q2cap=q2cap, route=route, step_rows=step))
+    return tuple(buckets)
+
+
+def query_pack(queries: torch.Tensor, cp: ClassPlan, b: QueryBucket,
+               m: int) -> Tuple[ClassPack, torch.Tensor]:
+    """The kernel route's inputs for one class's queries: per-axis (Sc,
+    q2cap) query coordinates (zero on pad slots), ``qid`` all ``_PAD_Q``
+    (an external query excludes nothing), beside the class's own packed
+    candidates, and the forward map ``tgt``: each slot's row in the call's
+    (m, k) outputs, ``m`` on pad slots, which mode (a) skips."""
+    pk = cp.pk
+    if tuple(pk.cx.shape) != (cp.n_sc, cp.ccap):
+        raise ValueError(
+            f"ClassPack/plan mismatch: candidate pack {tuple(pk.cx.shape)} "
+            f"vs plan (n_sc={cp.n_sc}, ccap={cp.ccap}); was this plan built "
+            f"against a different grid?")
+    device = queries.device
+    src = dispatch.stage(b.src, device)
+    slot = dispatch.stage(b.slot, device)
+    q = queries[src.long()]
+    axes = []
+    for ax in range(3):
+        a = torch.zeros((b.n_sc * b.q2cap,), dtype=torch.float32,
+                        device=device)
+        a[slot] = q[:, ax]
+        axes.append(a.view(b.n_sc, b.q2cap))
+    qid = torch.full((b.n_sc, b.q2cap), _PAD_Q, dtype=torch.int32,
+                     device=device)
+    tgt = torch.full((b.n_sc * b.q2cap,), m, dtype=torch.int32,
+                     device=device)
+    tgt[slot] = src
+    return ClassPack(*axes, qid, pk.cx, pk.cy, pk.cz, pk.cid), tgt
+
+
+def _streamed_query_class(grid: GridHash, plan: AdaptivePlan,
+                          b: QueryBucket, queries: torch.Tensor, k: int,
+                          supercell: int, buf_d: torch.Tensor,
+                          buf_i: torch.Tensor) -> None:
+    """One class's queries through :func:`streamed_topk`, ``b.step_rows``
+    supercells a step, each step's query slots built from the staged
+    queries (steps without a query are skipped); rows land in the (m + 1,
+    k) buffers through each step's forward map (pads in the spare row
+    m).  A kernel class has no cell table: it is rebuilt from the class's
+    supercells, found in the plan's host maps."""
+    device = queries.device
+    m = buf_d.shape[0] - 1
+    cp = plan.classes[b.cls]
+    cand = cp.cand
+    if cand is None:
+        sids = np.nonzero(plan.class_of_sc == b.cls)[0]
+        sids = sids[np.argsort(plan.row_of_sc[sids])]
+        coords = _boxes_grid(-(-grid.dim // supercell))[sids]
+        cand = torch.as_tensor(
+            _box_cell_ids(coords, -cp.radius, cp.radius, supercell,
+                          grid.dim), device=device)
+    src = dispatch.stage(b.src, device)
+    slot = dispatch.stage(b.slot, device)
+    q2cap, tile = b.q2cap, stream_tile(cp.ccap)
+    for r0 in range(0, b.n_sc, b.step_rows):
+        r1 = min(r0 + b.step_rows, b.n_sc)
+        a, e = int(b.starts[r0]), int(b.starts[r1])
+        if a == e:
+            continue
+        rows = r1 - r0
+        s = slot[a:e] - r0 * q2cap
+        q = torch.zeros((rows * q2cap, 3), dtype=torch.float32,
+                        device=device)
+        q[s] = queries[src[a:e].long()]
+        q_ok = torch.zeros((rows * q2cap,), dtype=torch.bool, device=device)
+        q_ok[s] = True
+        tgt = torch.full((rows * q2cap,), m, dtype=torch.int32,
+                         device=device)
+        tgt[s] = src[a:e]
+        streamed_topk(grid.points, grid.cell_starts, grid.cell_counts,
+                      cand[r0:r1], q.view(rows, q2cap, 3),
+                      q_ok.view(rows, q2cap),
+                      torch.full((rows, q2cap), -2, dtype=torch.int32,
+                                 device=device),
+                      k, cp.ccap, tile, rows, tgt=tgt, out=(buf_d, buf_i))
+
+
+def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
+                   queries: np.ndarray, k: int, fallback: str = "brute"
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact kNN of arbitrary query coordinates through the plan prepare()
+    built: the external-query twin of :func:`solve_adaptive`, counterpart
+    of the reference's ``query_adaptive``
+    (``cuda_knearests_tpu/ops/adaptive.py:1011-1092``).
+
+    Queries bucket by supercell on the host (:func:`bucket_queries`) and
+    inherit their supercell's class: its radius, its candidate pack and
+    its route (:func:`plan_queries`).  Every class launches back to back
+    into device-resident (m + 1, k) buffers: a kernel class in one mode
+    (a) launch of ``supercell_topk`` (or ``blocked_topk``) over its query
+    pack, whose forward map places each row and skips pads; a streamed
+    class through :func:`streamed_topk`.  Each row is certified from its
+    raw k-th d2 against its supercell's dilated box (a blocked deficit
+    row's NaN fails), then non-finite entries become (-1, inf) and ids
+    translate to original indexing on the device, and one batched fetch
+    reads ids, d2 and certificates back.  Queries whose supercell holds no
+    stored point (no class) always resolve through
+    :func:`brute_force_by_coords`; uncertified rows do too under
+    ``fallback='brute'``, behind one more fetch: at most two host round
+    trips.  Returns ((m, k) ids in original indexing, ascending; (m, k)
+    d2), in query order."""
+    queries = np.ascontiguousarray(queries, np.float32)
+    m = queries.shape[0]
+    if m == 0:
+        return np.empty((0, k), np.int32), np.empty((0, k), np.float32)
+    device = grid.device
+    qcls, qrow = bucket_queries(grid, cfg, plan, queries)
+    buckets = plan_queries(cfg, plan, qcls, qrow, k,
+                           hbm_budget_bytes(device))
+    q_dev = dispatch.stage(queries, device)
+    buf_d = torch.full((m + 1, k), float("inf"), dtype=torch.float32,
+                       device=device)
+    buf_i = torch.full((m + 1, k), INVALID_ID, dtype=torch.int32,
+                       device=device)
+    out_d, out_i = buf_d[:m], buf_i[:m]
+    for b in buckets:
+        cp = plan.classes[b.cls]
+        if b.route == "streamed":
+            _streamed_query_class(grid, plan, b, q_dev, k, cfg.supercell,
+                                  buf_d, buf_i)
+            continue
+        pk, tgt = query_pack(q_dev, cp, b, m)
+        launch_kernel_class(cfg, cp.ccap, pk, tgt, k, False, (out_d, out_i))
+    has = qcls >= 0
+    box_off = np.cumsum([0] + [cp.n_sc for cp in plan.classes])[:-1]
+    box = dispatch.stage(
+        np.where(has, box_off[np.maximum(qcls, 0)] + qrow, 0), device).long()
+    lo = torch.cat([cp.lo for cp in plan.classes])[box]
+    hi = torch.cat([cp.hi for cp in plan.classes])[box]
+    cert = ((out_d[:, k - 1] <= _margin_sq(q_dev, lo, hi, grid.domain))
+            & dispatch.stage(has, device))
+    ok = torch.isfinite(out_d)
+    ids = translate_ids(torch.where(ok, out_i, INVALID_ID), grid.permutation)
+    d2 = torch.where(ok, out_d, float("inf"))
+    ids, d2, cert = dispatch.fetch(ids, d2, cert)
+    need = ~cert if fallback == "brute" else ~has
+    if need.any():
+        bad = np.nonzero(need)[0]
+        b_i, b_d = brute_force_by_coords(
+            grid.points, dispatch.stage(queries[bad], device), k,
+            ids_map=grid.permutation)
+        b_i, b_d = dispatch.fetch(b_i, b_d)
+        ids[bad] = b_i
+        d2[bad] = b_d
+    return ids, d2

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import DEFAULT_CELL_DENSITY, DOMAIN_SIZE, grid_dim_for
@@ -53,6 +54,15 @@ def cell_coords(points: torch.Tensor, dim: int,
     scale = torch.tensor(dim / domain, dtype=torch.float32,
                          device=points.device)
     return torch.clamp((points * scale).to(torch.int32), 0, dim - 1)
+
+
+def cell_coords_host(points: np.ndarray, dim: int,
+                     domain: float = DOMAIN_SIZE) -> np.ndarray:
+    """Host numpy twin of :func:`cell_coords`: the same float32 scale,
+    truncation and clamp, so queries bucket on the host into exactly the
+    cells the device grid uses, with no device round trip."""
+    scaled = np.asarray(points, np.float32) * np.float32(dim / domain)
+    return np.clip(scaled.astype(np.int32), 0, dim - 1)
 
 
 def cell_ids(points: torch.Tensor, dim: int,

@@ -1,31 +1,36 @@
 """Exact kNN of external query coordinates.
 
-Counterpart of ``cuda_knearests_tpu/ops/query.py:150-180``
+Counterpart of ``cuda_knearests_tpu/ops/query.py:149-180``
 (``brute_force_by_coords``): the external-query twin of
-``ops.solve.brute_force_by_index``, plain torch like it.  The rest of the
-reference's external-query route (bucketing, the class-query kernels) is
-not ported yet.
+``ops.solve.brute_force_by_index``, plain torch like it.  It resolves the
+external-query rows the class route cannot certify or has no class for
+(``ops.adaptive.query_adaptive``) and the brute route's uncertified rows
+(``mxu/solve.py``).  The reference's legacy (non-adaptive) query route is
+not ported: the port runs only the adaptive class schedule.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import solve as _solve
-from .topk import init_topk, merge_topk, pack_key, unpack_key
+from .topk import init_topk, merge_topk, pack_key, translate_ids, unpack_key
 
 
 def brute_force_by_coords(points: torch.Tensor, queries: torch.Tensor,
-                          k: int, tile: int = 8192
+                          k: int, tile: int = 8192,
+                          ids_map: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of (m, d) query coordinates against the (n, d) stored
     points for any d >= 1, streamed over point tiles with the 'diff'
     arithmetic of :func:`ops.solve.sum_sq_diff`.  Returns ((m, k) ids
     ascending, (m, k) d2); ties go to the lowest stored id, missing
-    neighbours are (-1, inf).  Query rows run in chunks that bound the
-    (rows, tile) temporaries, as in the index twin."""
+    neighbours are (-1, inf).  ``ids_map`` (the grid permutation)
+    translates the ids on the device before any readback.  Query rows run
+    in chunks that bound the (rows, tile) temporaries, as in the index
+    twin."""
     n, m = int(points.shape[0]), int(queries.shape[0])
     out_d = torch.empty((m, k), dtype=torch.float32, device=points.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=points.device)
@@ -40,4 +45,6 @@ def brute_force_by_coords(points: torch.Tensor, queries: torch.Tensor,
             d2 = _solve.sum_sq_diff(q, pts_t)
             best = merge_topk(best, pack_key(d2, ids_t.expand(d2.shape)))
         out_d[r0:r0 + step], out_i[r0:r0 + step] = unpack_key(best)
+    if ids_map is not None:
+        out_i = translate_ids(out_i, ids_map)
     return out_i, out_d

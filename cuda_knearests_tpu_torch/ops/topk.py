@@ -21,6 +21,15 @@ _ID_MASK = 0xFFFFFFFF
 _MISSING = (0x7F800000 << 32) | _ID_MASK  # inf distance, all-ones id
 
 
+def translate_ids(ids: torch.Tensor, ids_map: torch.Tensor) -> torch.Tensor:
+    """Sentinel-keeping id translation on the ids' device: entries >= 0
+    gather through ``ids_map`` (sorted storage index -> original id, the
+    grid permutation); ``INVALID_ID`` stays ``INVALID_ID``."""
+    safe = torch.clamp(ids, 0, ids_map.shape[0] - 1).long()
+    return torch.where(ids >= 0, ids_map[safe],
+                       torch.full_like(ids, INVALID_ID))
+
+
 def pack_key(d2: torch.Tensor, ids: torch.Tensor,
              mask: torch.Tensor | None = None) -> torch.Tensor:
     """int64 (d2, id) keys; ``mask`` False (or an inf distance) marks a

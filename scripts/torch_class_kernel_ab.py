@@ -23,6 +23,15 @@ cloud (20k uniform 3-D points, k=1,800) at m=128 and m=100, 3 calls after
 a warm-up; where the checkout's ``select_split`` takes ``arm``, also each
 arm at d=3 and at d=128 (20k x 128, k=1,600, m=128).  Only the port is
 imported, never JAX.
+
+Before the roots run, the working tree this script belongs to buckets
+``chip_smoke.py``'s external queries against the 900k/k=10 plan (1M
+uniform queries, seed 901, and 200k clustered ones, seed 902) into
+``build/ab_query_slots.npz``; each root then times ``supercell_topk``
+(mode (a), no self-exclusion) on the query packs built from those slots
+and its own class pack, as ``ops/adaptive.query_pack`` builds them, so
+checkouts older than the query route time their kernel on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -33,6 +42,64 @@ import subprocess
 import sys
 
 CLOUDS = (("900k/k=10", 900_000, 900, 10), ("300k/k=50", 300_000, 301, 50))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUERY_SLOTS = os.path.join(HERE, "build", "ab_query_slots.npz")
+QUERY_SETS = ("uniform", "clustered")
+
+
+def save_query_slots() -> None:
+    """The slots of ``chip_smoke.py``'s query sets in the 900k/k=10 plan's
+    one class, from this working tree's query planning."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import (generate_blue_noise,
+                                             generate_clustered,
+                                             generate_uniform)
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    prob = pt.KnnProblem.prepare(generate_blue_noise(900_000, seed=900),
+                                 pt.KnnConfig(k=10), device="cuda")
+    out = {}
+    for name, q in (("uniform", generate_uniform(1_000_000, seed=901)),
+                    ("clustered", generate_clustered(200_000, seed=902))):
+        qcls, qrow = adaptive.bucket_queries(prob.grid, prob.config,
+                                             prob.aplan, q)
+        (b,) = adaptive.plan_queries(prob.config, prob.aplan, qcls, qrow, 10,
+                                     None)
+        out.update({f"{name}_queries": q, f"{name}_src": b.src,
+                    f"{name}_slot": b.slot, f"{name}_q2cap": b.q2cap})
+    os.makedirs(os.path.dirname(QUERY_SLOTS), exist_ok=True)
+    np.savez(QUERY_SLOTS, **out)
+
+
+def query_packs(pk, n_sc: int):
+    """(name, kernel arguments, forward map, m) of each saved query set
+    over the class pack ``pk`` (query coordinates scattered to their
+    slots, ids all pads, pad slots targeting row m)."""
+    import numpy as np
+    import torch
+
+    packs = []
+    with np.load(QUERY_SLOTS) as z:
+        for name in QUERY_SETS:
+            q = torch.as_tensor(z[f"{name}_queries"], device="cuda")
+            src = torch.as_tensor(z[f"{name}_src"], device="cuda")
+            slot = torch.as_tensor(z[f"{name}_slot"], device="cuda")
+            q2cap, m = int(z[f"{name}_q2cap"]), q.shape[0]
+            axes = []
+            for ax in range(3):
+                a = torch.zeros(n_sc * q2cap, device="cuda")
+                a[slot] = q[src.long(), ax]
+                axes.append(a.view(n_sc, q2cap))
+            qid = torch.full((n_sc, q2cap), -2, dtype=torch.int32,
+                             device="cuda")
+            tgt = torch.full((n_sc * q2cap,), m, dtype=torch.int32,
+                             device="cuda")
+            tgt[slot] = src
+            packs.append((name, [*axes, qid, *pk[4:]], tgt, m))
+    return packs
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -112,6 +179,16 @@ def time_root(root: str) -> dict:
         runs.append((f"one-stage {name} packed", "supercell_topk", lambda: [
             cs.supercell_topk(*a, k, True, tgt=cp.tgt, out=out)
             for cp, a in zip(classes, packed)]))
+        if n == 900_000:
+            for qname, args, tgt, m in query_packs(packed[0],
+                                                   classes[0].n_sc):
+                q_out = (torch.full((m, k), float("inf"), device="cuda"),
+                         torch.full((m, k), -1, dtype=torch.int32,
+                                    device="cuda"))
+                runs.append((f"one-stage {name} {qname} queries",
+                             "supercell_topk",
+                             lambda a=args, t=tgt, o=q_out: cs.supercell_topk(
+                                 *a, k, False, tgt=t, out=o)))
         for label, kernel, fn in runs:
             res[label] = cuda_ms(fn, 20)
             res[label + " (profiler)"] = device_ms(fn, 20, kernel)
@@ -169,6 +246,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--root":
         print(json.dumps(time_root(sys.argv[2])), flush=True)
         return 0
+    if sys.argv[1:] == ["--save-query-slots"]:
+        save_query_slots()
+        return 0
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -177,6 +257,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--save-query-slots"], check=True)
     for root in sys.argv[1:]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--root",
                         root], check=True)

@@ -16,7 +16,9 @@ selection (``csrc/mxu_select_bf16.cu``), whose q.p the tensor cores sum in
 their own order: it is held to the contract stated in its source (equal
 on exact inputs, within the certification band elsewhere).  The split
 selection (``csrc/mxu_select_split.cu``) sums q.p in order on CUDA cores,
-so it is equal to the plain version at both tiers.
+so it is equal to the plain version at both tiers.  External queries
+(``KnnProblem.query``) on the card equal the same queries on the CPU, ids
+and d2, through the class kernels and the streamed route.
 """
 
 import numpy as np
@@ -24,7 +26,8 @@ import pytest
 import torch
 
 import cuda_knearests_tpu_torch as pt
-from cuda_knearests_tpu_torch.io import generate_blue_noise, generate_clustered
+from cuda_knearests_tpu_torch.io import (generate_blue_noise,
+                                         generate_clustered, generate_uniform)
 from cuda_knearests_tpu_torch import mxu
 from cuda_knearests_tpu_torch.mxu import kernel as mk
 from cuda_knearests_tpu_torch.mxu import scorer as ms
@@ -709,3 +712,70 @@ def test_split_direct_arm_launches_once_and_counts_passes(cuda_device):
     counts = passes.cpu().numpy()
     assert counts.sum() == -(-n // mk._SPLIT_DIRECT_QUERIES)
     assert counts[:2].sum() == 0 and counts[2] > 0
+
+
+def _query_pair(gpu, cpu, queries, counter, launched):
+    """One query on the card, counted, and the same on the CPU: equal ids
+    and d2, at most two host round trips, ``launched`` more launches of
+    the class kernel ``counter`` names."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    before = getattr(cs, counter)
+    dispatch.reset_stats()
+    g = gpu.query(queries)
+    assert dispatch.stats().host_syncs <= dispatch.SYNC_BUDGET
+    assert getattr(cs, counter) == before + launched
+    c = cpu.query(queries)
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[1], c[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,counter", [("kpass", "launches"),
+                                            ("blocked", "blocked_launches")])
+def test_gpu_query_equals_cpu_query(cuda_device, kernel, counter):
+    """Uniform and clustered queries (the latter inflate q2cap) against a
+    20k cloud: one mode (a) launch per class with queries, GPU = CPU bit
+    for bit; with the clustered cloud's several classes and fallback rows
+    too."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    for pts, kw in ((generate_blue_noise(20_000, seed=41), dict(k=10)),
+                    (generate_clustered(20_000, seed=3),
+                     dict(k=10, ring_radius=1))):
+        cfg = pt.KnnConfig(kernel=kernel, **kw)
+        gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+        cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+        for q in (generate_uniform(5000, seed=42),
+                  generate_clustered(5000, seed=43), pts[:3000]):
+            qcls, _ = adaptive.bucket_queries(gpu.grid, cfg, gpu.aplan, q)
+            _query_pair(gpu, cpu, q, counter,
+                        len(np.unique(qcls[qcls >= 0])))
+
+
+@pytest.mark.cuda
+def test_gpu_query_forced_streamed_equals_cpu(cuda_device, monkeypatch):
+    """A class whose query pack exceeds the memory budget streams its
+    queries on the card (no kernel launch) a few supercells a step, and
+    answers what the CPU's kernel route answers."""
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    pts = generate_blue_noise(20_000, seed=44)
+    cfg = pt.KnnConfig(k=8, supercell=1, ring_radius=1)
+    gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    q = generate_uniform(5000, seed=45)
+    qcls, qrow = adaptive.bucket_queries(gpu.grid, cfg, gpu.aplan, q)
+    (b,) = adaptive.plan_queries(cfg, gpu.aplan, qcls, qrow, 8, None)
+    assert b.route == "kernel"
+    _query_pair(gpu, cpu, q, "launches", 1)
+    want = cpu.query(q)
+    budget = b.pack_bytes + (q.shape[0] + 1) * 8 * 8 - 1
+    monkeypatch.setattr(adaptive, "hbm_budget_bytes", lambda device: budget)
+    (r,) = adaptive.plan_queries(cfg, gpu.aplan, qcls, qrow, 8, budget)
+    assert r.route == "streamed" and r.step_rows < b.n_sc
+    before = cs.launches
+    got = gpu.query(q)
+    assert cs.launches == before
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
