@@ -91,7 +91,21 @@ H100: the kernels target sm_90a).  It imports only the port
      query-pack bytes, queries/s, the kernel's time on the query packs
      (held to its plain version) and one profiled call's device busy
      share and device-to-host copies;
-  9. times each kernel at its main path's shapes against its plain version
+  9. runs friends-of-friends (``cluster.fof_labels``, plain torch rounds)
+     on the reference's pts300K.xyz (300,000 points) at b = 14.938 (its
+     mean spacing) and 2.988: 1 cold and 5 warm calls in rounds + 1 host
+     round trips, labels and sizes equal to the same call on the CPU and
+     inside the bracket of cKDTree's pairs at sqrt(b^2 -+ band) (the
+     union-find oracle's, ``cluster.compare.check_fof_bracket``), with the
+     host twin, the staging (the links scored once) and the rounds'
+     device time, kernels and host wall under torch.profiler; then
+     requires the 900k blue cube at b = 10.357 to be refused with
+     ``LaunchBudgetError`` before any allocation on the card, as the
+     reference refuses it; then one 900k/k=10 solve with
+     ``plane_feed=True`` and one ``query(planes=True)`` of (i)'s 1M
+     queries, each through the class kernel in at most two host round
+     trips with planes bit-identical to a float64 recompute from its ids;
+ 10. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
      the --fmad=false ceiling, twice the operations bound, and the
@@ -2080,6 +2094,285 @@ def query_phase(points: np.ndarray, prob, prob_b) -> dict:
             "uniform": uni, "clustered": clu, "blocked": blk}
 
 
+# -- phase 10: friends-of-friends and the plane feed ---------------------------
+
+# The reference's FoF row (its fof_300k bench row): b = the mean spacing of
+# pts300K.xyz, and 0.2 x that, the usual halo-finder linking length.
+FOF_LENGTHS = (14.938, 2.988)
+
+
+def dataset(name: str) -> np.ndarray:
+    """The reference's named datasets (its ``io.get_dataset``), rebuilt
+    from their generators and normalized as it normalizes them."""
+    from cuda_knearests_tpu_torch.io import (generate_blue_noise,
+                                             generate_uniform,
+                                             normalize_points)
+
+    make = {"pts300K.xyz": lambda: generate_uniform(300_000, seed=300),
+            "900k_blue_cube.xyz": lambda: generate_blue_noise(900_000,
+                                                              seed=900)}
+    return normalize_points(make[name]())
+
+
+def kdtree_bracket(points: np.ndarray, b: float, band: float):
+    """The union-find oracle's bracketing partitions (``oracle.fof_oracle``)
+    at a size its O(n^2) pairs cannot reach: connected components of
+    cKDTree's pairs within sqrt(max(b^2 - band, 0)) (must link) and
+    sqrt(b^2 + band) (may link), in float64."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points.astype(np.float64))
+    n = points.shape[0]
+    b2 = float(np.float64(b) ** 2)
+    out = []
+    for r2 in (max(b2 - band, 0.0), b2 + band):
+        pairs = tree.query_pairs(np.sqrt(r2), output_type="ndarray")
+        graph = coo_matrix((np.ones(len(pairs), np.int8),
+                            (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+        out.append(connected_components(graph, directed=False)[1])
+    return out
+
+
+def fof_breakdown(name: str, points: np.ndarray, b: float) -> dict:
+    """One FoF solve taken apart: the host twin (sort and densest cell)
+    and the neighbour cells by host clock; the staging (grid build,
+    neighbour cells again, upload, ``link_slots``) by host clock ending in
+    a synchronize; the rounds under torch.profiler (device time and
+    kernels a round against host wall a round, each round ending in its
+    counted flag read); the finalize by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_knearests_tpu_torch.cluster import fof
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    n = points.shape[0]
+    t0 = time.perf_counter()
+    plan = fof.plan_fof(points, b)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fof._neighbor_cells_host(points, plan.order, plan.dim, 1000.0)
+    cells_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, slots = fof.stage_fof(points, b, plan, 1000.0, torch.device(DEV))
+    labels = dispatch.stage(np.arange(n, dtype=np.int32), DEV)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rounds, changed = 0, True
+        while changed:
+            labels, chg = fof.fof_round(labels, slots)
+            rounds += 1
+            changed = bool(dispatch.fetch(chg)[0])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            busy += us / 1e3
+            if "Memcpy" not in e.key and "Memset" not in e.key:
+                kernels += e.count
+    fin_ms = cuda_ms(lambda: fof.fof_finalize(labels, grid.permutation), 10)
+    print(f"  FoF {name}: host twin (sort, densest cell) {twin_ms:.3f} ms, "
+          f"neighbour cells {cells_ms:.3f} ms; staging (grid build, "
+          f"neighbour cells, upload, link_slots: {slots.numel() * 4:,} "
+          f"bytes) {stage_ms:.3f} ms; {rounds} rounds in {wall_ms:.3f} ms "
+          f"wall under the profiler = {wall_ms / rounds:.3f} ms a round, "
+          f"device {busy / rounds:.4f} ms a round ({busy / wall_ms:.1%} of "
+          f"wall), {kernels / rounds:.0f} kernels a round; finalize "
+          f"{fin_ms:.4f} ms (CUDA events)", flush=True)
+    if not busy:
+        print("    the profiler recorded no device time", flush=True)
+    return {"twin_ms": twin_ms, "cells_ms": cells_ms, "stage_ms": stage_ms,
+            "rounds": rounds, "round_wall_ms": wall_ms / rounds,
+            "round_device_ms": busy / rounds,
+            "kernels_per_round": kernels / rounds, "finalize_ms": fin_ms}
+
+
+def fof_run(points: np.ndarray, b: float, warm: int) -> dict:
+    """``fof_labels`` on the card, 1 cold and ``warm`` warm calls (the same
+    answer each time, ``rounds + 1`` host round trips), against the same
+    call on the CPU (labels, sizes and rounds equal) and the kd-tree
+    bracket (``check_fof_bracket``)."""
+    from cuda_knearests_tpu_torch.cluster import fof
+    from cuda_knearests_tpu_torch.cluster.compare import (check_fof_bracket,
+                                                          fof_band)
+
+    n = points.shape[0]
+    name = f"{n:,} points, b={b}"
+    plan = fof.plan_fof(points, b)
+    times = []
+    for i in range(1 + warm):
+        t0 = time.perf_counter()
+        res = fof.fof_labels(points, b)
+        times.append(time.perf_counter() - t0)
+        require(res.host_syncs == res.rounds + 1,
+                f"FoF {name}: {res.host_syncs} host round trips for "
+                f"{res.rounds} rounds")
+        if i:
+            require(np.array_equal(res.labels, first.labels)
+                    and np.array_equal(res.sizes, first.sizes),
+                    f"FoF {name}: a warm call answered differently")
+        else:
+            first = res
+    t0 = time.perf_counter()
+    cpu = fof.fof_labels(points, b, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(res.labels, cpu.labels)
+            and np.array_equal(res.sizes, cpu.sizes)
+            and res.rounds == cpu.rounds,
+            f"FoF {name}: the card's labels differ from the CPU's "
+            f"({int((res.labels != cpu.labels).sum())} points)")
+    t0 = time.perf_counter()
+    band = fof_band(b)
+    mand, allowed = kdtree_bracket(points, b, band)
+    bad = check_fof_bracket(res.labels, res.sizes, mand, allowed)
+    require(bad is None, f"FoF {name}: {bad.render() if bad else ''}")
+    check_s = time.perf_counter() - t0
+    ms = np.array(times[1:]) * 1e3
+    med = float(np.median(ms))
+    largest = int(res.sizes.max())
+    print(f"  FoF {name}: dim {res.dim}, cell_max {res.cell_max}, m "
+          f"{plan.m}; {res.rounds} rounds, {res.host_syncs} host round "
+          f"trips, {res.n_clusters:,} clusters, largest {largest:,}; cold "
+          f"{times[0] * 1e3:.3f} ms, warm median of {warm} {med:.3f} ms "
+          f"(min {ms.min():.3f}, max {ms.max():.3f}) = {n / med * 1e3:,.0f} "
+          f"points/s (range {n / ms.max() * 1e3:,.0f}-"
+          f"{n / ms.min() * 1e3:,.0f}); equal to the CPU run "
+          f"({cpu_s:.1f} s); inside the cKDTree bracket (band {band:.6g}; "
+          f"mandatory {int(np.unique(mand).size):,} and allowed "
+          f"{int(np.unique(allowed).size):,} components, checked in "
+          f"{check_s:.1f} s)", flush=True)
+    return {"b": b, "dim": res.dim, "cell_max": res.cell_max, "m": plan.m,
+            "rounds": res.rounds, "n_clusters": res.n_clusters,
+            "largest": largest, "cold_ms": times[0] * 1e3,
+            "median_ms": med, "min_ms": float(ms.min()),
+            "max_ms": float(ms.max()), "points_per_s": n / med * 1e3,
+            **fof_breakdown(name, points, b)}
+
+
+def fof_refusal(points: np.ndarray, b: float) -> None:
+    """The 900k blue cube at its mean spacing holds 900,000 x 16 x 27 =
+    388,800,000 candidate slots a round, over the 268,435,456 of
+    ``MAX_PAIR_SLOTS``: ``fof_labels`` must refuse it, as the reference
+    does, before allocating anything on the card."""
+    import torch
+
+    from cuda_knearests_tpu_torch.cluster import fof
+    from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fof.fof_labels(points, b)
+    except LaunchBudgetError as e:
+        err = e
+    else:
+        raise SmokeFailure(f"FoF on the 900k blue cube at b={b} ran; the "
+                           f"reference refuses it")
+    slots = points.shape[0] * 16 * 27
+    require(err.site == "cluster.fof" and err.kind == "oom"
+            and err.requested == slots * 4
+            and err.budget == fof.MAX_PAIR_SLOTS * 4,
+            f"FoF refusal: {err.site} {err.kind} {err.requested} "
+            f"{err.budget}")
+    peak = torch.cuda.max_memory_allocated()
+    require(peak == before, f"FoF refusal allocated {peak - before} bytes "
+                            f"on the card first")
+    print(f"  FoF 900k blue cube, b={b}: refused with LaunchBudgetError "
+          f"({slots:,} candidate slots > {fof.MAX_PAIR_SLOTS:,}; requested "
+          f"{err.requested:,} bytes, budget {err.budget:,}), nothing "
+          f"allocated on the card", flush=True)
+
+
+def ref_planes(sites: np.ndarray, points: np.ndarray,
+               ids: np.ndarray) -> np.ndarray:
+    """The plane feed recomputed in float64 from returned ids."""
+    q = sites.astype(np.float64)[:, None, :]
+    p = points[np.clip(ids, 0, None)].astype(np.float64)
+    nn = (p - q).astype(np.float32)
+    d = (((p * p).sum(-1) - (q * q).sum(-1)) / 2.0).astype(np.float32)
+    ok = ids >= 0
+    return np.concatenate(
+        [np.where(ok[..., None], nn, np.float32(0.0)),
+         np.where(ok, d, np.float32(np.inf))[..., None]], axis=-1)
+
+
+def plane_feed_phase(points: np.ndarray) -> dict:
+    """One solve with ``plane_feed=True`` on the 900k/k=10 main path and
+    one ``query(planes=True)`` of 1M uniform queries against it: each
+    launches the class kernel once per class (counts set to 0 just before,
+    read just after), makes at most two host round trips, and gives planes
+    equal bit for bit to a float64 recompute from its ids.  The host
+    epilogue (``bisector_planes`` over the fetched rows) is timed apart,
+    once more."""
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.cluster.planes import bisector_planes
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.ops import adaptive
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    prob = pt.KnnProblem.prepare(points, pt.KnnConfig(k=10, plane_feed=True))
+    n_cls = len(prob.aplan.classes)
+    cs.launches = cs.blocked_launches = 0
+    dispatch.reset_stats()
+    t0 = time.perf_counter()
+    res = prob.solve()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    syncs, solve_launches = dispatch.stats().host_syncs, cs.launches
+    require(solve_launches == n_cls and syncs <= dispatch.SYNC_BUDGET,
+            f"plane feed solve: {solve_launches} launches for {n_cls} "
+            f"classes, {syncs} host round trips")
+    ids = prob.get_knearests_original()
+    require(res.planes is not None
+            and np.array_equal(res.planes, ref_planes(points, points, ids)),
+            "plane feed solve: planes differ from the float64 recompute")
+
+    def epilogue_ms(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    solve_epi = epilogue_ms(prob._compute_planes)
+    print(f"  plane feed, 900k/k=10 solve: {solve_ms:.3f} ms with the feed, "
+          f"{solve_launches} launches, {syncs} host round trips; planes "
+          f"{res.planes.shape} bit-identical to the float64 recompute; host "
+          f"epilogue {solve_epi:.3f} ms", flush=True)
+    queries = generate_uniform(1_000_000, seed=901)
+    qcls, _ = adaptive.bucket_queries(prob.grid, prob.config, prob.aplan,
+                                      queries)
+    n_q = len(np.unique(qcls[qcls >= 0]))
+    cs.launches = cs.blocked_launches = 0
+    dispatch.reset_stats()
+    t0 = time.perf_counter()
+    q_ids, _, q_planes = prob.query(queries, planes=True)
+    query_ms = (time.perf_counter() - t0) * 1e3
+    q_syncs, query_launches = dispatch.stats().host_syncs, cs.launches
+    require(query_launches == n_q and q_syncs <= dispatch.SYNC_BUDGET,
+            f"plane feed query: {query_launches} launches for {n_q} "
+            f"classes, {q_syncs} host round trips")
+    require(np.array_equal(q_planes, ref_planes(queries, points, q_ids)),
+            "plane feed query: planes differ from the float64 recompute")
+    query_epi = epilogue_ms(lambda: bisector_planes(queries, points, q_ids))
+    print(f"  plane feed, 1M uniform queries: {query_ms:.3f} ms with the "
+          f"feed, {query_launches} launches, {q_syncs} host round trips; "
+          f"planes {q_planes.shape} bit-identical to the float64 "
+          f"recompute; host epilogue {query_epi:.3f} ms", flush=True)
+    return {"solve_launches": solve_launches,
+            "query_launches": query_launches, "solve_ms": solve_ms,
+            "solve_epilogue_ms": solve_epi, "query_ms": query_ms,
+            "query_epilogue_ms": query_epi}
+
+
 _T0 = time.perf_counter()
 
 
@@ -2183,6 +2476,13 @@ def main() -> int:
     require(query["launches"] > 0 and query["blocked_launches"] > 0,
             "the query path launched no class kernel")
 
+    phase("friends-of-friends and the plane feed")
+    pts_fof = dataset("pts300K.xyz")
+    fof_runs = [fof_run(pts_fof, b, 5) for b in FOF_LENGTHS]
+    del pts_fof
+    fof_refusal(dataset("900k_blue_cube.xyz"), 10.357)
+    planes = plane_feed_phase(pts900)
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -2210,7 +2510,9 @@ def main() -> int:
              query_bound_ms_clustered=query["clustered"]["kernel"][
                  "bound_ms"],
              query_bound_by_clustered=query["clustered"]["kernel"][
-                 "bound_by"]),
+                 "bound_by"],
+             plane_feed_launches=planes["solve_launches"],
+             plane_query_launches=planes["query_launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -2243,6 +2545,9 @@ def main() -> int:
              max_abs_err=max_err["mxu_select_split"],
              shape="20k x 3 f32 k=1800", **split_timings),
     ]
+    print(f"  FoF (plain torch, no kernel of its own): "
+          f"{json.dumps(fof_runs)}", flush=True)
+    print(f"  plane feed: {json.dumps(planes)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,9 @@ sorted point indexing (``get_knearests``) or original indexing
 (``get_knearests_original``, ``get_edges``).  ``query`` and
 ``query_radius`` answer (m, 3) query coordinates through the same classes
 (``ops.adaptive.query_adaptive``), in original indexing; ``save_problem``
-and ``load_problem`` checkpoint the prepared grid.
+and ``load_problem`` checkpoint the prepared grid.  The Voronoi plane feed
+(``KnnConfig.plane_feed``, ``get_planes``, ``query(planes=True)``) is a
+host epilogue over the fetched rows (``cluster/planes.py``).
 
 Everything runs on the GPU unless ``device='cpu'`` is passed.
 """
@@ -24,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .cluster.planes import bisector_planes
 from .config import KnnConfig
 from .io import validate_or_raise
 from .ops.adaptive import (AdaptivePlan, build_adaptive_plan, query_adaptive,
@@ -34,9 +37,10 @@ from .runtime import dispatch
 from .utils.memory import InvalidConfigError, InvalidKError
 from .utils.platform import resolve_device
 
-# Fields of the reference package's KnnConfig that tune how it runs on its
-# own hardware and cannot change an answer; a configuration read from its
-# checkpoints drops them.
+# Fields of KnnConfig that tune how the reference package runs on its own
+# hardware and cannot change an answer; load_problem drops them from a
+# checkpoint's configuration, so a checkpoint written under any value of
+# them reads back (KnnConfig itself refuses a value it does not honour).
 _REFERENCE_RUNTIME_KNOBS = frozenset({
     "sc_batch", "interpret", "stream_tile", "epilogue", "query_chunk",
     "hbm_budget_bytes"})
@@ -79,6 +83,10 @@ class KnnProblem:
     config: KnnConfig
     aplan: Optional[AdaptivePlan] = None
     result: Optional[KnnResult] = None
+    # the stored cloud in original order on the host: the validated input
+    # array, kept by reference by prepare; None on a problem resumed from
+    # a checkpoint until the plane feed first needs it (_host_original)
+    host_points: Optional[np.ndarray] = None
 
     @property
     def device(self) -> torch.device:
@@ -86,21 +94,29 @@ class KnnProblem:
 
     @classmethod
     def prepare(cls, points, config: KnnConfig | None = None,
-                device=None, dim: int | None = None) -> "KnnProblem":
+                dim: int | None = None, validate: bool = True, *,
+                device=None) -> "KnnProblem":
         """Validate ``points`` ((n, 3) inside [0, 1000]^3), build the grid
-        and plan the classes on ``device`` (default: the GPU).  n = 0 and
-        k > n are legal degraded modes."""
+        (``dim`` cells per axis, default from the density) and plan the
+        classes on ``device`` (default: the GPU).  n = 0 and k > n are
+        legal degraded modes.  ``validate=False`` skips the front door and
+        only casts to float32, for callers that validated already."""
         config = config or KnnConfig()
         device = resolve_device(device)
-        points = validate_or_raise(points, k=config.k)
+        points = (validate_or_raise(points, k=config.k) if validate
+                  else np.ascontiguousarray(points, np.float32))
         grid = build_grid(torch.as_tensor(points, device=device), dim=dim,
                           density=config.density)
-        return cls._planned(grid, config)
+        problem = cls._planned(grid, config)
+        problem.host_points = points
+        return problem
 
-    def with_points(self, points) -> "KnnProblem":
+    def with_points(self, points, validate: bool = True) -> "KnnProblem":
         """A fresh problem over ``points`` under this problem's config, on
-        its device: the rebuild-from-scratch primitive of serving."""
-        return KnnProblem.prepare(points, self.config, device=self.device)
+        its device: the rebuild-from-scratch primitive of serving
+        (``validate`` as in :meth:`prepare`)."""
+        return KnnProblem.prepare(points, self.config, validate=validate,
+                                  device=self.device)
 
     @classmethod
     def _planned(cls, grid: GridHash, config: KnnConfig,
@@ -114,17 +130,19 @@ class KnnProblem:
 
     def solve(self) -> KnnResult:
         """Run the grid solve, then resolve uncertified rows exactly (with
-        ``fallback='brute'``).  At most two host round trips."""
+        ``fallback='brute'``).  At most two host round trips.  With
+        ``config.plane_feed`` the result carries the plane feed
+        (``planes``)."""
         if self.grid.n_points == 0:
             k = self.config.k
             self.result = KnnResult(
                 neighbors=np.empty((0, k), np.int32),
                 dists_sq=np.empty((0, k), np.float32),
                 certified=np.empty((0,), bool), uncert_count=np.int32(0))
-            return self.result
-        res = solve_adaptive(self.grid, self.config, self.aplan)
-        self.result = self._finalize(res)
-        return self.result
+        else:
+            res = solve_adaptive(self.grid, self.config, self.aplan)
+            self.result = self._finalize(res)
+        return self._with_plane_feed()
 
     def _finalize(self, res: KnnResult) -> KnnResult:
         """One batched readback of ids, d2, certificates and the
@@ -158,12 +176,10 @@ class KnnProblem:
         indexing, ascending by distance, -1 = none; (m, k) squared
         distances, inf = none).  At most two host round trips.
 
-        ``planes=True`` (the Voronoi plane feed) is refused: it is not
-        ported yet."""
-        if planes:
-            raise InvalidConfigError(
-                "query(planes=True) is not supported by the PyTorch/CUDA "
-                "port: the Voronoi plane feed is not ported yet")
+        ``planes=True`` adds the (m, k, 4) Voronoi plane feed of the rows
+        (``cluster.planes.bisector_planes``: ``[nx, ny, nz, d]``, the
+        half-space ``n . x <= d`` holds the query), computed on the host
+        from the fetched rows."""
         k = self.config.k if k is None else k
         queries = validate_or_raise(queries, k=k, what="queries")
         k = int(k)
@@ -171,7 +187,10 @@ class KnnProblem:
             raise InvalidKError(
                 f"k={k} exceeds the prepared k={self.config.k}; re-prepare "
                 f"with a larger config.k (it sizes the candidate dilation)")
-        return self._query_ids(queries, k)
+        ids, d2 = self._query_ids(queries, k)
+        if not planes:
+            return ids, d2
+        return ids, d2, bisector_planes(queries, self._host_original(), ids)
 
     def _query_ids(self, queries: np.ndarray, k: int):
         """query()'s route (validated inputs): ((m, k) ids in original
@@ -197,6 +216,44 @@ class KnnProblem:
                 f"max_neighbors={cap} exceeds the prepared k={self.config.k}")
         ids, d2 = self.query(queries, k=cap)
         return radius_mask_from_knn(ids, d2, radius, cap)
+
+    # -- the Voronoi plane feed ---------------------------------------------
+
+    def _with_plane_feed(self) -> KnnResult:
+        """solve()'s one exit: with ``config.plane_feed``, attach the plane
+        feed to the finalized result (a host epilogue over the fetched
+        rows, no device round trip on a prepared problem)."""
+        if self.config.plane_feed:
+            self.get_planes()
+        return self.result
+
+    def _host_original(self) -> np.ndarray:
+        """The stored cloud in original order on the host: free on a
+        prepared problem; a problem resumed from a checkpoint pays one
+        counted fetch of the sorted points and the permutation, cached."""
+        if self.host_points is None:
+            pts, perm = dispatch.fetch(self.grid.points,
+                                       self.grid.permutation)
+            out = np.empty_like(pts)
+            out[perm] = pts
+            self.host_points = out
+        return self.host_points
+
+    def _compute_planes(self) -> np.ndarray:
+        pts = self._host_original()
+        return bisector_planes(pts, pts, self.get_knearests_original())
+
+    def get_planes(self) -> np.ndarray:
+        """(n, k, 4) float32 plane feed of the solved all-points kNN, rows
+        in original point order: ``[nx, ny, nz, d]`` per neighbour, the
+        half-space ``n . x <= d`` holding the site; pad slots are the
+        trivially true ``n = 0, d = inf``.  Computed once and cached on
+        the result."""
+        self._require_solved()
+        if self.result.planes is None:
+            self.result = dataclasses.replace(
+                self.result, planes=self._compute_planes())
+        return self.result.planes
 
     # -- result extraction --------------------------------------------------
 
@@ -284,13 +341,13 @@ def load_problem(path: str, device=None) -> KnnProblem:
     with np.load(_npz_path(path)) as z:
         saved = json.loads(bytes(z["config_json"]).decode())
         known = {f.name for f in dataclasses.fields(KnnConfig)}
-        unknown = set(saved) - known - _REFERENCE_RUNTIME_KNOBS
+        unknown = set(saved) - known
         if unknown:
             raise InvalidConfigError(
                 f"{path}: saved config has fields this port does not know: "
                 f"{sorted(unknown)}")
         cfg = KnnConfig(**{key: v for key, v in saved.items()
-                           if key in known})
+                           if key not in _REFERENCE_RUNTIME_KNOBS})
         counts = z["cell_counts"].astype(np.int32)
         grid = GridHash(
             points=torch.as_tensor(z["points"].astype(np.float32),

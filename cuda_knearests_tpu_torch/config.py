@@ -2,12 +2,15 @@
 
 Counterpart of ``cuda_knearests_tpu/config.py``: the same grid constants,
 the fields of ``KnnConfig`` that the grid route reads, and the resolution
-rules of the scorer, precision and kernel knobs.  Fields the reference
-package has but the grid route does not honour are still accepted at their
-default value, so a configuration written by the reference package
-(``load_problem``) reads back; any other value raises
-:class:`InvalidConfigError` at construction.  A knob is never silently
-ignored.
+rules of the scorer, precision and kernel knobs.  Every field of the
+reference package's ``KnnConfig`` exists here.  Fields the grid route does
+not honour are accepted at their default value (or at the value that
+means what this port does) and any other value raises
+:class:`InvalidConfigError` at construction: a knob is never silently
+ignored.  ``load_problem`` drops the reference's runtime knobs (the last
+six fields below) from a checkpoint's configuration before it builds one,
+since they tune how the reference runs on its hardware and cannot change
+an answer.
 """
 
 from __future__ import annotations
@@ -58,9 +61,26 @@ _UNSUPPORTED = {
     "precision": (("auto", "f32"), "reduced-precision scoring on the grid "
                                    "route is not ported yet; the brute "
                                    "route (mxu.solve_general) has it"),
-    "plane_feed": ((False,), "the Voronoi plane feed is not ported yet"),
+    "plane_feed": ((False, True), "plane_feed is a bool"),
     "adaptive": ((True,), "only the adaptive class schedule is ported"),
     "dist_method": (("diff",), "only 'diff' distance arithmetic is ported"),
+    # the reference's runtime knobs
+    "sc_batch": ((64,), "the reference's supercells per Pallas grid step; "
+                        "the CUDA kernels launch a block per supercell"),
+    "interpret": ((False,), "the reference's Pallas interpret mode has no "
+                            "counterpart: on the CPU the port runs its "
+                            "kernels' plain versions"),
+    "stream_tile": ((2048,), "the reference's streamed-route tile; the "
+                             "port's streamed route sizes its own steps"),
+    "hbm_budget_bytes": ((None,), "a configured memory budget is not "
+                                  "honoured yet: the port plans against "
+                                  "0.8 x the card's free memory"),
+    "epilogue": (("auto", "scatter"), "the port's kernels scatter rows to "
+                                      "their destination (mode (a)); the "
+                                      "gather epilogue is not ported yet"),
+    "query_chunk": ((None,), "the chunked query pipeline of the "
+                             "reference's legacy query route is not "
+                             "ported"),
 }
 
 
@@ -84,6 +104,8 @@ class KnnConfig:
         one-stage supercell top-k, 'blocked' the two-stage per-block top-m
         kernel where ``blocked_topm`` finds the class eligible.  Solvers
         read ``effective_kernel()``, not this field.
+      plane_feed: attach the Voronoi plane feed to every solve's result
+        (``KnnResult.planes``, ``cluster.planes.bisector_planes``).
 
     The remaining fields exist so that configurations of the reference
     package read back; each accepts only the values this port honours.
@@ -104,6 +126,12 @@ class KnnConfig:
     plane_feed: bool = False
     adaptive: bool = True
     dist_method: str = "diff"
+    sc_batch: int = 64
+    interpret: bool = False
+    stream_tile: int = 2048
+    hbm_budget_bytes: Optional[int] = None
+    epilogue: str = "auto"
+    query_chunk: Optional[int] = None
 
     def __post_init__(self):
         for name, (allowed, why) in _UNSUPPORTED.items():

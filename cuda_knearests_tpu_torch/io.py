@@ -14,8 +14,9 @@ import numpy as np
 
 from .config import DOMAIN_SIZE
 from .utils.memory import (CorruptInputError, DegenerateExtentError,
-                           DomainBoundsError, InvalidKError,
-                           InvalidShapeError, NonFiniteInputError)
+                           DomainBoundsError, InvalidConfigError,
+                           InvalidKError, InvalidShapeError,
+                           NonFiniteInputError)
 
 
 def load_xyz(path: str) -> np.ndarray:
@@ -117,6 +118,31 @@ def validate_or_raise(points, k: Optional[int] = None,
                 f"contract is [0, {domain:g}]^3 -- run io.normalize_points "
                 f"first")
     return np.ascontiguousarray(points)
+
+
+def validate_linking_length(b) -> float:
+    """The linking-length front door of friends-of-friends
+    (``cluster.fof_labels``): ``b`` must be a finite positive real.  A
+    ``b`` wider than the domain is legal (every point joins one cluster).
+    Returns ``float(b)``."""
+    if isinstance(b, bool) or isinstance(b, (str, bytes)):
+        # bool is an int subclass and float('12') would parse: neither is
+        # ever meant as a linking length
+        raise InvalidConfigError(
+            f"linking length must be a positive real number, got {b!r} "
+            f"(FoF input contract)")
+    try:
+        out = float(b)
+    except (TypeError, ValueError) as e:
+        raise InvalidConfigError(
+            f"linking length must be a positive real number, got {b!r} "
+            f"(FoF input contract)") from e
+    if not np.isfinite(out) or out <= 0.0:
+        raise InvalidConfigError(
+            f"linking length must be finite and > 0, got {out!r} (FoF "
+            f"input contract; b beyond the domain diagonal is legal: "
+            f"everything joins one cluster)")
+    return out
 
 
 def generate_uniform(n: int, seed: int = 0,

@@ -1,16 +1,58 @@
-"""Ring occupancy of supercell dilations (host numpy).
+"""Chebyshev ring schedule and ring occupancy of supercell dilations (host
+numpy).
 
-Counterpart of ``cuda_knearests_tpu/ops/rings.py:108-171``: a 3-D summed-
-area table over the per-cell counts answers, per supercell and per dilation
-radius r, how many points (and how many in-grid cells) the r-dilated box
-holds -- the signal the adaptive planner turns into per-supercell radii.
+Counterpart of ``cuda_knearests_tpu/ops/rings.py``: :func:`ring_schedule`
+lists the cell offsets of rings 0..nmax-1 around a cell in ring order
+(friends-of-friends walks rings 0..1, the 27-cell block), and a 3-D
+summed-area table over the per-cell counts answers, per supercell and per
+dilation radius r, how many points (and how many in-grid cells) the
+r-dilated box holds -- the signal the adaptive planner turns into
+per-supercell radii.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
+
+
+class RingSchedule(NamedTuple):
+    """Cell offsets of rings 0..nmax-1.
+
+    offsets:    (m, 3) int32 -- (di, dj, dk) per cell, ring-major order.
+    ring_of:    (m,) int32   -- Chebyshev ring of each offset.
+    ring_start: (nmax+1,) int32 -- ring r's offsets are
+                [ring_start[r], ring_start[r+1]).
+    """
+
+    offsets: np.ndarray
+    ring_of: np.ndarray
+    ring_start: np.ndarray
+
+    @property
+    def nmax(self) -> int:
+        return len(self.ring_start) - 1
+
+
+def ring_schedule(nmax: int) -> RingSchedule:
+    """All (2*nmax-1)^3 cell offsets around a centre cell, ordered by ring
+    (ring r is the shell ``max(|di|, |dj|, |dk|) == r``), lexicographic
+    within a ring."""
+    if nmax < 1:
+        raise ValueError("nmax must be >= 1")
+    r = np.arange(-(nmax - 1), nmax, dtype=np.int32)
+    di, dj, dk = np.meshgrid(r, r, r, indexing="ij")
+    offs = np.stack([di.ravel(), dj.ravel(), dk.ravel()], axis=1)
+    ring = np.abs(offs).max(axis=1).astype(np.int32)
+    # a stable sort by ring keeps the lexicographic order within a shell
+    order = np.argsort(ring, kind="stable")
+    offs, ring = offs[order], ring[order]
+    ring_start = np.searchsorted(ring, np.arange(nmax + 1),
+                                 side="left").astype(np.int32)
+    return RingSchedule(offsets=np.ascontiguousarray(offs),
+                        ring_of=np.ascontiguousarray(ring),
+                        ring_start=ring_start)
 
 
 def summed_area_table(counts3: np.ndarray) -> np.ndarray:

@@ -30,12 +30,15 @@ class KnnResult:
 
     ``certified`` marks rows proven complete by the box-margin bound;
     ``uncert_count`` is the number of rows that were not (on a finalized
-    result: the rows the exact fallback had to resolve)."""
+    result: the rows the exact fallback had to resolve).  ``planes`` is
+    the Voronoi plane feed, rows in original order, when the solve was
+    asked for it (``KnnConfig.plane_feed``, ``KnnProblem.get_planes``)."""
 
     neighbors: np.ndarray | torch.Tensor   # (n, k) i32
     dists_sq: np.ndarray | torch.Tensor    # (n, k) f32
     certified: np.ndarray | torch.Tensor   # (n,) bool
     uncert_count: Optional[np.ndarray | torch.Tensor] = None
+    planes: Optional[np.ndarray] = None    # (n, k, 4) f32
 
 
 def _boxes_grid(n_sc: int) -> np.ndarray:

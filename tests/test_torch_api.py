@@ -181,7 +181,7 @@ def test_topk_keys_order_lexicographically():
 
 REFUSED = [dict(scorer="mxu"), dict(recall_target=0.9),
            dict(backend="oracle"), dict(kernel="fast"),
-           dict(precision="bf16"), dict(plane_feed=True),
+           dict(precision="bf16"), dict(plane_feed="yes"),
            dict(adaptive=False), dict(dist_method="dot"),
            dict(fallback="maybe")]
 

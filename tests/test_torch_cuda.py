@@ -18,7 +18,9 @@ on exact inputs, within the certification band elsewhere).  The split
 selection (``csrc/mxu_select_split.cu``) sums q.p in order on CUDA cores,
 so it is equal to the plain version at both tiers.  External queries
 (``KnnProblem.query``) on the card equal the same queries on the CPU, ids
-and d2, through the class kernels and the streamed route.
+and d2, through the class kernels and the streamed route; so do the
+plane feed and friends-of-friends labels (``cluster.fof_labels``, plain
+torch rounds whose link predicate rounds each operation on its own).
 """
 
 import numpy as np
@@ -779,3 +781,93 @@ def test_gpu_query_forced_streamed_equals_cpu(cuda_device, monkeypatch):
     assert cs.launches == before
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+_SPACING_20K = 1000.0 / 20_000 ** (1.0 / 3.0)
+# (name, cloud, b, density): uniform clouds at the sparse, percolating
+# and dense linking lengths; the clustered cloud's densest cell at the
+# default density holds 909 points (refused, as the reference refuses
+# it), so it runs on a finer grid
+FOF_CLOUDS = [
+    ("uniform-0.4", lambda: generate_uniform(20_000, seed=51),
+     0.4 * _SPACING_20K, 3.1),
+    ("uniform-1.0", lambda: generate_uniform(20_000, seed=52),
+     1.0 * _SPACING_20K, 3.1),
+    ("uniform-2.2", lambda: generate_uniform(20_000, seed=53),
+     2.2 * _SPACING_20K, 3.1),
+    ("clustered", lambda: generate_clustered(20_000, seed=3), 6.0, 0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,b,density", FOF_CLOUDS,
+                         ids=[c[0] for c in FOF_CLOUDS])
+def test_gpu_fof_equals_cpu_fof(cuda_device, name, make, b, density):
+    """The link predicate rounds each operation on its own on both
+    devices, so the card links exactly the pairs the CPU links: equal
+    labels, sizes and rounds, in rounds + 1 host round trips."""
+    from cuda_knearests_tpu_torch.cluster import fof_labels
+    from cuda_knearests_tpu_torch.cluster.compare import check_fof_bracket
+
+    pts = make()
+    g = fof_labels(pts, b, density=density, device=cuda_device)
+    c = fof_labels(pts, b, density=density, device="cpu")
+    np.testing.assert_array_equal(g.labels, c.labels)
+    np.testing.assert_array_equal(g.sizes, c.sizes)
+    assert (g.rounds, g.n_clusters, g.dim, g.cell_max) == \
+        (c.rounds, c.n_clusters, c.dim, c.cell_max)
+    assert g.host_syncs == g.rounds + 1
+    # labels and sizes well formed against a trivial bracket
+    n = pts.shape[0]
+    assert check_fof_bracket(g.labels, g.sizes, np.arange(n),
+                             np.zeros(n, np.int64)) is None
+
+
+@pytest.mark.cuda
+def test_gpu_fof_refused_before_any_device_allocation(cuda_device,
+                                                      monkeypatch):
+    """A cloud over the pair-slot budget (the 900k blue cube's case, with
+    the budget cut to this cloud's size) is refused before the grid is
+    built on the card."""
+    from cuda_knearests_tpu_torch.cluster import fof
+    from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
+
+    pts = generate_blue_noise(20_000, seed=54)
+    plan = fof.plan_fof(pts, 10.0)
+    monkeypatch.setattr(fof, "MAX_PAIR_SLOTS",
+                        20_000 * plan.m * 27 - 1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    with pytest.raises(LaunchBudgetError) as e:
+        fof.fof_labels(pts, 10.0, device=cuda_device)
+    assert e.value.site == "cluster.fof" and e.value.kind == "oom"
+    assert torch.cuda.memory_allocated(cuda_device) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,counter", [("kpass", "launches"),
+                                            ("blocked", "blocked_launches")])
+def test_gpu_plane_feed_equals_cpu(cuda_device, kernel, counter):
+    """solve() with plane_feed=True, get_planes() and query(planes=True)
+    on the card equal the CPU's bit for bit, through the class kernels,
+    within two host round trips a call."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    pts = generate_clustered(20_000, seed=3)
+    cfg = pt.KnnConfig(k=8, ring_radius=1, plane_feed=True, kernel=kernel)
+    gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    before = getattr(cs, counter)
+    dispatch.reset_stats()
+    g = gpu.solve()
+    assert dispatch.stats().host_syncs <= dispatch.SYNC_BUDGET
+    assert getattr(cs, counter) > before
+    c = cpu.solve()
+    np.testing.assert_array_equal(g.planes, c.planes)
+    assert gpu.get_planes() is g.planes
+    q = generate_uniform(5000, seed=55)
+    dispatch.reset_stats()
+    gq = gpu.query(q, planes=True)
+    assert dispatch.stats().host_syncs <= dispatch.SYNC_BUDGET
+    cq = cpu.query(q, planes=True)
+    for a, b in zip(gq, cq):
+        np.testing.assert_array_equal(a, b)

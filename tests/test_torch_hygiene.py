@@ -48,6 +48,8 @@ def test_package_import_leaves_jax_out_of_sys_modules():
             "cuda_knearests_tpu_torch.ops.adaptive, "
             "cuda_knearests_tpu_torch.mxu.kernel\n"
             "import cuda_knearests_tpu_torch.mxu as mxu\n"
+            "import cuda_knearests_tpu_torch.cluster, "
+            "cuda_knearests_tpu_torch.cluster.compare\n"
             "mxu.solve_general([[1.0, 2.0], [3.0, 4.0]], k=1, "
             "device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -28,8 +28,7 @@ from cuda_knearests_tpu_torch.ops import adaptive
 from cuda_knearests_tpu_torch.ops.gridhash import cell_coords, cell_coords_host
 from cuda_knearests_tpu_torch.ops.topk import translate_ids
 from cuda_knearests_tpu_torch.runtime import dispatch
-from cuda_knearests_tpu_torch.utils.memory import (InvalidConfigError,
-                                                   InvalidKError,
+from cuda_knearests_tpu_torch.utils.memory import (InvalidKError,
                                                    LaunchBudgetError)
 
 
@@ -162,8 +161,13 @@ def test_smaller_k_and_refusals(problems):
         pp.query_radius(q, 10.0, max_neighbors=11)
     with pytest.raises(InvalidKError):
         pp.query(q, k=0)
-    with pytest.raises(InvalidConfigError, match="plane feed"):
-        pp.query(q, planes=True)
+    # the plane feed: equal to JAX's on the rows whose ids are equal
+    ids, _, planes = pp.query(q, planes=True)
+    jids, _, jplanes = jp.query(q, planes=True)
+    assert planes.shape == (200, 10, 4) and planes.dtype == np.float32
+    same = (ids == jids).all(axis=1)
+    assert same.mean() > 0.9
+    np.testing.assert_array_equal(planes[same], jplanes[same])
     with pytest.raises(ValueError):
         pp.query(q[:, :2])
     with pytest.raises(ValueError):
