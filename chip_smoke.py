@@ -105,7 +105,22 @@ H100: the kernels target sm_90a).  It imports only the port
      ``plane_feed=True`` and one ``query(planes=True)`` of (i)'s 1M
      queries, each through the class kernel in at most two host round
      trips with planes bit-identical to a float64 recompute from its ids;
- 10. times each kernel at its main path's shapes against its plain version
+ 10. serves the 900k/k=10 problem through the serving daemon
+     (``serve.ServeDaemon`` driven by ``serve.run_session``, open-loop
+     Poisson traffic at the reference bench's serve sessions: steady 400/s,
+     mutating 20%, an injected oom batch plus a malformed probe, and 50%
+     mutations at compact_threshold=256 forcing compactions of the 900k
+     cloud), each session on a fresh daemon with zero recompiles (kernel
+     builds plus library loads), the class kernel launched and no failed
+     request but the injected batch's; answers exact against cKDTree, and
+     with mutations pending 8 batches of 256 queries through the overlay
+     bit for bit equal in d2 to a rebuild (ids but in exact ties), each
+     batch split into host bucketing, class-kernel device ms, the query
+     pack's pad share and the overlay's brute calls; a fof request on the
+     900k daemon refused as one typed oom failure, the daemon still
+     serving; and a FoF session on pts300K.xyz whose labels equal
+     ``fof_labels`` of the mutated cloud, a repeat a memo hit;
+ 11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
      the --fmad=false ceiling, twice the operations bound, and the
@@ -2101,19 +2116,6 @@ def query_phase(points: np.ndarray, prob, prob_b) -> dict:
 FOF_LENGTHS = (14.938, 2.988)
 
 
-def dataset(name: str) -> np.ndarray:
-    """The reference's named datasets (its ``io.get_dataset``), rebuilt
-    from their generators and normalized as it normalizes them."""
-    from cuda_knearests_tpu_torch.io import (generate_blue_noise,
-                                             generate_uniform,
-                                             normalize_points)
-
-    make = {"pts300K.xyz": lambda: generate_uniform(300_000, seed=300),
-            "900k_blue_cube.xyz": lambda: generate_blue_noise(900_000,
-                                                              seed=900)}
-    return normalize_points(make[name]())
-
-
 def kdtree_bracket(points: np.ndarray, b: float, band: float):
     """The union-find oracle's bracketing partitions (``oracle.fof_oracle``)
     at a size its O(n^2) pairs cannot reach: connected components of
@@ -2373,6 +2375,553 @@ def plane_feed_phase(points: np.ndarray) -> dict:
             "query_epilogue_ms": query_epi}
 
 
+# -- the serving daemon -----------------------------------------------------------
+
+# The reference bench's serve sessions (its ``bench.py`` serve rows, at the
+# same traffic), then one that forces compactions of the 900k cloud: (name,
+# LoadSpec fields, KNTPU_SERVE_FAULT, compact_threshold).
+SERVE_SESSIONS = (
+    ("steady", dict(rate=400.0, requests=240, seed=20), None, 4096),
+    ("mutating", dict(rate=400.0, requests=160, mutation_ratio=0.2,
+                      seed=21), None, 4096),
+    ("contained fault", dict(rate=400.0, requests=120, seed=22),
+     "batch:1:oom", 4096),
+    ("compaction", dict(rate=400.0, requests=160, mutation_ratio=0.5,
+                        seed=23), None, 256),
+)
+SERVE_BATCHES = 8
+FOF_SERVE_B = 14.938
+
+
+class Recorder:
+    """Keeps every response of a daemon (its ``submit``, ``poll`` and
+    ``drain`` wrapped on the instance), the host seconds of each
+    compaction's re-prepare and each re-warm, and those of each overlay
+    insert and delete that did not compact (host numpy alone)."""
+
+    def __init__(self, daemon):
+        self.responses = {}
+        self.compact_s, self.warm_s = [], []
+        self.mutate_s = {"insert": [], "delete": []}
+        for name in ("submit", "poll", "drain"):
+            setattr(daemon, name, self._keep(getattr(daemon, name)))
+        ov = daemon.overlay
+        ov.compact = self._timed(ov.compact, self.compact_s)
+        daemon.warmup = self._timed(daemon.warmup, self.warm_s)
+        for name, into in self.mutate_s.items():
+            setattr(ov, name, self._mutation(ov, getattr(ov, name), into))
+
+    def _keep(self, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            for r in out:
+                self.responses[r.req_id] = r
+            return out
+        return wrapped
+
+    @staticmethod
+    def _mutation(ov, fn, into):
+        def wrapped(*a, **kw):
+            n0 = ov.stats.compactions
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if ov.stats.compactions == n0:
+                into.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    @staticmethod
+    def _timed(fn, into):
+        import torch
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+
+def served_queries(spec, n0: int, responses) -> tuple:
+    """(queries, ids, d2) of every answered query request of a session,
+    stacked: the payloads regenerated from the seeded schedule
+    (``run_session`` numbers request i of the schedule i + 1)."""
+    from cuda_knearests_tpu_torch.serve import build_schedule
+
+    qs, ids, d2 = [], [], []
+    for i, item in enumerate(build_schedule(spec, n0), start=1):
+        r = responses.get(i)
+        if item["kind"] == "query" and r is not None and r.ok:
+            qs.append(item["payload"])
+            ids.append(r.ids)
+            d2.append(r.d2)
+    return np.concatenate(qs), np.concatenate(ids), np.concatenate(d2)
+
+
+def check_served_exact(name: str, points: np.ndarray, queries, ids, tree,
+                       k: int) -> None:
+    dk, ik = tree.query(queries.astype(np.float64), k=k)
+    check_rows_exact(points, ids, np.arange(queries.shape[0]), dk ** 2, ik,
+                     queries=queries)
+    print(f"  serve {name}: {queries.shape[0]} served query rows exact "
+          f"against cKDTree", flush=True)
+
+
+def timed_brute(log: list):
+    """A stand-in for ``serve.delta.brute_force_by_coords`` that records
+    (stored rows, query rows, ms to a synchronize) of each overlay call."""
+    import torch
+
+    from cuda_knearests_tpu_torch.serve import delta
+
+    brute = delta.brute_force_by_coords
+
+    def timed(points, queries, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = brute(points, queries, *a, **kw)
+        torch.cuda.synchronize()
+        log.append((int(points.shape[0]), int(queries.shape[0]),
+                    (time.perf_counter() - t0) * 1e3))
+        return out
+    return brute, timed
+
+
+def batch_kernel_ms(prob, queries: np.ndarray, buckets, reps: int) -> float:
+    """The class kernel over one batch's query packs (mode (a), as
+    ``query()`` launches it), by CUDA events."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    cfg, m = prob.config, queries.shape[0]
+    q_dev = torch.as_tensor(queries, device=DEV)
+    packs = []
+    for b in buckets:
+        if b.route == "kernel":
+            cp = prob.aplan.classes[b.cls]
+            packs.append((cp, *adaptive.query_pack(q_dev, cp, b, m)))
+    out = row_buffers(m, cfg.k)
+
+    def run():
+        for cp, pk, tgt in packs:
+            adaptive.launch_kernel_class(cfg, cp.ccap, pk, tgt, cfg.k, False,
+                                         out)
+    return quiet(lambda: cuda_ms(run, reps))
+
+
+def overlay_batches(name: str, daemon, seed: int, tree_of) -> dict:
+    """``SERVE_BATCHES`` seeded batches of 256 uniform queries, and one
+    whose first 16 queries sit next to deleted points (the tombstone
+    probe), through the daemon's overlay with mutations pending, against a
+    rebuild
+    (``base.with_points(mutated_points()).query``): d2 bit for bit, ids
+    equal except inside exact d2 ties (counted), both exact against a
+    cKDTree of the mutated cloud.  Each batch split: host bucketing
+    (``bucket_queries``, ``plan_queries``), the class kernel's device ms
+    (CUDA events; the first batch also held to its plain version with its
+    bound), the query pack's pad share, and the overlay's brute calls
+    (tombstone resolution over the alive set, the delta merge).  The base
+    problem's and the rebuild's queries run under ``quiet``: only the
+    overlay's own launches count as serving."""
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.ops import adaptive
+    from cuda_knearests_tpu_torch.serve import delta
+
+    ov, k = daemon.overlay, daemon.k_serve
+    require(ov.n_deleted > 0 and ov.delta.shape[0] > 0,
+            f"serve {name}: no tombstone or insert pending")
+    prob = ov.base
+    t0 = time.perf_counter()
+    rebuild = prob.with_points(ov.mutated_points(), validate=False)
+    rebuild_s = time.perf_counter() - t0
+    pts = ov.mutated_points()
+    tree = tree_of(pts)
+    log = []
+    brute, timed = timed_brute(log)
+    rows, ties = [], 0
+    delta.brute_force_by_coords = timed
+    try:
+        for i in range(SERVE_BATCHES + 1):
+            q = generate_uniform(256, seed=seed + i)
+            if i == SERVE_BATCHES:
+                # the tombstone probe: 16 queries next to deleted points,
+                # so the alive-set resolution runs and is timed
+                gone = ov._base_orig[~ov.alive][:16]
+                q[:gone.shape[0]] = np.clip(gone + np.float32(0.01), 0,
+                                            1000)
+            t0 = time.perf_counter()
+            qcls, qrow = adaptive.bucket_queries(prob.grid, prob.config,
+                                                 prob.aplan, q)
+            t1 = time.perf_counter()
+            buckets = adaptive.plan_queries(
+                prob.config, prob.aplan, qcls, qrow, k,
+                adaptive.hbm_budget_bytes(prob.device))
+            t2 = time.perf_counter()
+            t3 = time.perf_counter()
+            quiet(lambda: prob.query(q, k))
+            base_ms = (time.perf_counter() - t3) * 1e3
+            n_log = len(log)
+            t3 = time.perf_counter()
+            got_i, got_d = ov.query(q, k)
+            query_ms = (time.perf_counter() - t3) * 1e3
+            brute_ms = [(n, rq, ms) for n, rq, ms in log[n_log:]]
+            ref_i, ref_d = quiet(lambda: rebuild.query(q, k))
+            require(np.array_equal(got_d, ref_d),
+                    f"serve {name} batch {i}: overlay d2 differ from the "
+                    f"rebuild's")
+            differ = (got_i != ref_i).any(axis=1)
+            ties += int(differ.sum())
+            for r in np.nonzero(differ)[0]:
+                for dv in np.unique(got_d[r][got_i[r] != ref_i[r]]):
+                    at = got_d[r] == dv
+                    require(at.sum() > 1 or dv == got_d[r][-1],
+                            f"serve {name} batch {i} row {r}: ids differ "
+                            f"outside an exact d2 tie")
+            for what, ids in (("overlay", got_i), ("rebuild", ref_i)):
+                check_served_exact(f"{name} batch {i} {what}", pts, q, ids,
+                                   tree, k)
+            kern = [b for b in buckets if b.route == "kernel"]
+            slots = sum(b.n_sc * b.q2cap for b in kern)
+            pads = 1.0 - sum(b.src.size for b in kern) / max(slots, 1)
+            if i == 0:
+                kstats = query_kernel(f"serve {name} batch 0", prob, q,
+                                      buckets, 20)
+                kernel_ms = kstats["ms"]
+            else:
+                kernel_ms = batch_kernel_ms(prob, q, buckets, 20)
+            row = {"bucket_ms": (t1 - t0) * 1e3, "plan_ms": (t2 - t1) * 1e3,
+                   "kernel_ms": kernel_ms, "pad_share": pads,
+                   "q2cap": max((b.q2cap for b in kern), default=0),
+                   "brute": brute_ms, "query_ms": query_ms,
+                   "base_ms": base_ms}
+            rows.append(row)
+            print(f"  serve {name} batch {i}"
+                  f"{' (tombstone probe)' if i == SERVE_BATCHES else ''}: "
+                  f"256 queries, overlay query "
+                  f"{query_ms:.3f} ms (the base problem's query alone "
+                  f"{base_ms:.3f} ms); host bucket_queries "
+                  f"{row['bucket_ms']:.3f} ms, plan_queries "
+                  f"{row['plan_ms']:.3f} ms; class kernel {kernel_ms:.4f} ms "
+                  f"(CUDA events), q2cap {row['q2cap']}, pads "
+                  f"{pads:.1%} of the query pack; brute calls (stored rows, "
+                  f"query rows, ms) {[(n, rq, round(ms, 3)) for n, rq, ms in brute_ms]}",
+                  flush=True)
+    finally:
+        delta.brute_force_by_coords = brute
+    alive_rows = delta._round_pow2(int(ov.alive.sum()), minimum=128)
+    require(any(n == alive_rows for n, _, _ in rows[-1]["brute"]),
+            f"serve {name}: the tombstone probe ran no alive-set "
+            f"resolution")
+    print(f"  serve {name}: {SERVE_BATCHES} + 1 batches of 256 with "
+          f"{ov.n_deleted} tombstones and {ov.delta.shape[0]} inserts "
+          f"pending: d2 bit for bit equal to the rebuild ({rebuild_s:.3f} s "
+          f"to re-prepare), ids equal but in {ties} rows (exact d2 ties), "
+          f"both exact against cKDTree", flush=True)
+    return {"ties": ties, "rebuild_s": rebuild_s, "batches": rows,
+            "kernel": kstats}
+
+
+def serve_session(name: str, prob, points: np.ndarray, spec_kw: dict,
+                  fault, threshold: int, tree, tree_of) -> tuple:
+    """One open-loop session of ``SERVE_SESSIONS`` on a fresh daemon over
+    the prepared 900k/k=10 problem: zero recompiles and the class kernel
+    launched; no failed request but the injected batch's; checks by
+    session (see the phase's docstring).  Returns (measurements,
+    daemon)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.obs import spans
+    from cuda_knearests_tpu_torch.serve import (LoadSpec, ServeConfig,
+                                                ServeDaemon, run_session)
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    launches0 = cs.launches + cs.blocked_launches
+    saved = os.environ.pop("KNTPU_SERVE_FAULT", None)
+    if fault:
+        os.environ["KNTPU_SERVE_FAULT"] = fault
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        daemon = ServeDaemon(prob, ServeConfig(
+            max_batch=256, max_delay_s=0.004, compact_threshold=threshold))
+    finally:
+        os.environ.pop("KNTPU_SERVE_FAULT", None)
+        if saved is not None:
+            os.environ["KNTPU_SERVE_FAULT"] = saved
+    rec = Recorder(daemon)
+    spec = LoadSpec(**spec_kw)
+    t0 = time.perf_counter()
+    with spans.capture() as events:
+        summary = run_session(daemon, spec)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(summary["recompiles"] == 0 and summary["kernel_launches"] > 0
+            and summary["kernel_route"] == "cuda",
+            f"serve {name}: recompiles {summary['recompiles']}, kernel "
+            f"launches {summary['kernel_launches']}, route "
+            f"{summary['kernel_route']}")
+    require(summary["responses"] == summary["requests"]
+            and summary["refused"] == 0,
+            f"serve {name}: {summary['responses']} responses to "
+            f"{summary['requests']} requests, {summary['refused']} refused")
+    if fault:
+        failed = [r for r in rec.responses.values() if not r.ok]
+        require(summary["failed_batches"] == 1
+                and summary["failure_kinds"] == {"oom": 1}
+                and summary["failed_requests"] == len(failed) > 0
+                and all(r.failure_kind == "oom" for r in failed),
+                f"serve {name}: {summary['failed_batches']} failed batches "
+                f"{summary['failure_kinds']}, {summary['failed_requests']} "
+                f"failed requests")
+        probe = daemon.submit(req_id=-1, kind="query",
+                              payload=np.full((4, 3), -5.0, np.float32))
+        require(len(probe) == 1 and not probe[0].ok
+                and probe[0].failure_kind == "invalid-input"
+                and daemon.refused == 1 and daemon.failed_batches == 1,
+                f"serve {name}: the malformed probe was not refused alone")
+    else:
+        require(summary["failed_requests"] == 0
+                and summary["failed_batches"] == 0
+                and summary["failed_mutations"] == 0,
+                f"serve {name}: {summary['failed_requests']} failed "
+                f"requests, kinds {summary['failure_kinds']}")
+    out = {key: summary[key] for key in (
+        "sustained_qps", "p50_ms", "p99_ms", "p999_ms", "occupancy_mean",
+        "flushes", "latency_decomposition", "batches", "host_syncs",
+        "kernel_launches", "recompiles", "failed_requests", "elapsed_s")}
+    out.update({key: v for key, v in summary.items()
+                if key.startswith("overlay_")})
+    out.update(peak_bytes=peak, wall_s=wall_s,
+               syncs_per_batch=summary["host_syncs"] / summary["batches"],
+               compact_s=rec.compact_s, rewarm_s=rec.warm_s)
+    print(f"  serve {name}: {json.dumps(out)}", flush=True)
+    # the batches' device spans (the overlay query each batch ran): the
+    # slowest, with what flushed them
+    execs = {e["attrs"]["batch"]: e["attrs"] for e in events
+             if e["name"] == "serve.execute"}
+    dev = sorted(((e["dur_ms"], e["attrs"]["batch"]) for e in events
+                  if e["name"] == "serve.device"), reverse=True)
+    out["slowest_batches"] = [
+        (round(ms, 3), b, execs[b]["reason"], execs[b]["rows"])
+        for ms, b in dev[:5]]
+    print(f"  serve {name}: slowest batches (overlay query ms, batch, "
+          f"flush, rows) {out['slowest_batches']}; median "
+          f"{dev[len(dev) // 2][0]:.3f} ms of {len(dev)}", flush=True)
+    # the session's host time by piece: the batches' overlay queries (and
+    # those over 20 ms, where a tombstone resolution ran), the inserts and
+    # deletes that did not compact, and the admission's n_points (an
+    # alive.sum() over the base cloud, read once per admitted request and
+    # once per mutation's response), timed here over 50 reads
+    t0 = time.perf_counter()
+    for _ in range(50):
+        daemon.overlay.n_points
+    n_points_ms = (time.perf_counter() - t0) * 1e3 / 50
+    slow = [ms for ms, _ in dev if ms > 20.0]
+    split = {"elapsed_ms": summary["elapsed_s"] * 1e3,
+             "batches_ms": sum(ms for ms, _ in dev),
+             "slow_batches": len(slow), "slow_batches_ms": sum(slow),
+             "n_points_ms": n_points_ms,
+             "n_points_reads": summary["requests"]
+             + sum(len(v) for v in rec.mutate_s.values())}
+    for kind, secs in rec.mutate_s.items():
+        split[f"{kind}s"] = len(secs)
+        split[f"{kind}_ms_median"] = (float(np.median(secs)) * 1e3
+                                      if secs else 0.0)
+        split[f"{kind}_ms_total"] = sum(secs) * 1e3
+    out["host_split"] = split
+    print(f"  serve {name}: host split of the {split['elapsed_ms']:.3f} ms "
+          f"window: overlay queries {split['batches_ms']:.3f} ms over "
+          f"{len(dev)} batches ({len(slow)} over 20 ms: "
+          f"{split['slow_batches_ms']:.3f} ms); {split['inserts']} inserts "
+          f"{split['insert_ms_total']:.3f} ms (median "
+          f"{split['insert_ms_median']:.4f}); {split['deletes']} deletes "
+          f"{split['delete_ms_total']:.3f} ms (median "
+          f"{split['delete_ms_median']:.4f}); n_points {n_points_ms:.4f} ms "
+          f"a read x ~{split['n_points_reads']} reads", flush=True)
+    if spec.mutation_ratio == 0:
+        q, ids, _ = served_queries(spec, points.shape[0], rec.responses)
+        check_served_exact(name, points, q, ids, tree, daemon.k_serve)
+    else:
+        require(name != "compaction" or summary["overlay_compactions"] >= 2,
+                f"serve {name}: {summary['overlay_compactions']} "
+                f"compactions, not >= 2")
+        rng = np.random.default_rng(spec.seed + 100)
+        extra = 0
+        while daemon.overlay.n_deleted == 0 or \
+                daemon.overlay.delta.shape[0] == 0:
+            ins = (rng.random((4, 3)) * 980 + 10).astype(np.float32)
+            dels = np.sort(rng.choice(daemon.overlay.n_points, 4,
+                                      replace=False))
+            extra += 1
+            for kind, payload in (("insert", ins), ("delete", dels)):
+                r = daemon.submit(req_id=-10 * extra, kind=kind,
+                                  payload=payload)
+                require(r[-1].ok, f"serve {name}: extra {kind} failed")
+        out["extra_mutations"] = extra
+        n0 = cs.launches + cs.blocked_launches
+        out["overlay"] = overlay_batches(name, daemon, spec.seed + 200,
+                                         tree_of)
+        out["overlay_launches"] = cs.launches + cs.blocked_launches - n0
+    out["launches"] = cs.launches + cs.blocked_launches - launches0
+    return out, daemon
+
+
+def profiled_session(daemon) -> dict:
+    """One more steady session (400/s, 120 requests, seed 24) on a warmed
+    daemon under torch.profiler: the device's busy and idle shares of the
+    session's wall time, and its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_knearests_tpu_torch.serve import LoadSpec, run_session
+
+    batches0 = daemon.batches_executed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        summary = run_session(daemon, LoadSpec(rate=400.0, requests=120,
+                                               seed=24))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    batches = daemon.batches_executed - batches0
+    require(summary["failed_requests"] == 0 and summary["recompiles"] == 0,
+            f"serve profiled session: {summary['failed_requests']} failed, "
+            f"{summary['recompiles']} recompiles")
+    rows = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            rows.append((us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    print(f"  serve profiled steady session: {batches} batches, "
+          f"{summary['completed_queries']} queries in {wall_ms:.3f} ms wall "
+          f"under the profiler (p50 {summary['p50_ms']} ms, p99 "
+          f"{summary['p99_ms']} ms); device busy {busy:.3f} ms = "
+          f"{busy / wall_ms:.2%} of wall, idle {1 - busy / wall_ms:.2%}",
+          flush=True)
+    if not rows:
+        print("    the profiler recorded no device time", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"    {ms:9.4f} ms  x{count:<4d} {key[:80]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "batches": batches,
+            "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"]}
+
+
+def serve_fof_session(points: np.ndarray) -> dict:
+    """A daemon over pts300K.xyz: two fof requests at the mean spacing
+    with an 8-point insert between them, each equal to ``fof_labels`` of
+    the mutated cloud on the card, and a repeat a memo hit."""
+    from cuda_knearests_tpu_torch.cluster import fof_labels
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.serve import ServeConfig, ServeDaemon
+
+    prob = pt.KnnProblem.prepare(points, pt.KnnConfig(k=10))
+    daemon = ServeDaemon(prob, ServeConfig(max_batch=256, max_delay_s=0.004))
+    times = []
+    out = daemon.submit(1, "query", generate_uniform(64, seed=310))
+    for i, (kind, payload) in enumerate(
+            (("fof", FOF_SERVE_B),
+             ("insert", generate_uniform(8, seed=311)),
+             ("fof", FOF_SERVE_B), ("fof", FOF_SERVE_B)), start=2):
+        t0 = time.perf_counter()
+        got = daemon.submit(i, kind, payload)
+        times.append((kind, (time.perf_counter() - t0) * 1e3))
+        require(all(r.ok for r in got), f"serve FoF: request {i} failed")
+        out += got
+        if kind == "fof":
+            want = fof_labels(daemon.overlay.mutated_points(), FOF_SERVE_B)
+            require(np.array_equal(got[-1].labels, want.labels)
+                    and got[-1].n_clusters == want.n_clusters,
+                    f"serve FoF: request {i}'s labels differ from "
+                    f"fof_labels of the mutated cloud")
+    require(daemon.fof_requests == 3 and daemon.fof_memo_hits == 1
+            and out[-1].labels is out[-2].labels,
+            f"serve FoF: {daemon.fof_memo_hits} memo hits")
+    require(out[0].ok and out[0].ids.shape == (64, 10),
+            "serve FoF: the query before the fof requests failed")
+    print(f"  serve FoF, pts300K.xyz b={FOF_SERVE_B}: fof, insert 8, fof, "
+          f"fof (memo hit) host ms {[(k, round(t, 3)) for k, t in times]}; "
+          f"labels equal fof_labels of the mutated cloud, "
+          f"{out[-1].n_clusters:,} clusters of {out[-1].n_points:,} points",
+          flush=True)
+    return {"ms": times, "n_clusters": out[-1].n_clusters}
+
+
+def serve_phase(points: np.ndarray, prob) -> dict:
+    """The serving daemon (``serve/``) on the 900k/k=10 problem: the four
+    ``SERVE_SESSIONS``, each on a fresh daemon, with zero recompiles, the
+    class kernel launched and no failed request but the injected oom
+    batch (whose session also refuses a malformed probe alone); the
+    steady and fault sessions' answers exact against cKDTree; the
+    mutating and compaction sessions end with tombstones and inserts
+    pending and hold the overlay to a rebuild (``overlay_batches``).  A
+    fof request on the 900k daemon comes back as one typed oom failure
+    and the next query is served; then the FoF session on pts300K.xyz.
+    The class-kernel launches of the phase are counted from 0."""
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch.io import generate_uniform, get_dataset
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    t0 = time.perf_counter()
+    tree = cKDTree(points.astype(np.float64))
+
+    def tree_of(pts):
+        return cKDTree(pts.astype(np.float64))
+
+    print(f"  serve: cKDTree of the 900k cloud in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cs.launches = cs.blocked_launches = 0
+    sessions, daemons = {}, {}
+    for name, spec_kw, fault, threshold in SERVE_SESSIONS:
+        sessions[name], daemons[name] = serve_session(
+            name, prob, points, spec_kw, fault, threshold, tree, tree_of)
+    daemon = daemons["steady"]
+    del daemons
+    parts = {name: s["launches"] for name, s in sessions.items()}
+    n0 = cs.launches + cs.blocked_launches
+    sessions["steady"]["profiled"] = profiled_session(daemon)
+    parts["profiled"] = cs.launches + cs.blocked_launches - n0
+    n0 = cs.launches + cs.blocked_launches
+    refused = daemon.submit(1, "fof", 10.357)
+    require(len(refused) == 1 and not refused[0].ok
+            and refused[0].failure_kind == "oom"
+            and "LaunchBudgetError" in refused[0].error,
+            f"serve: the 900k fof request came back {refused}")
+    q = generate_uniform(32, seed=320)
+    nxt = daemon.submit(2, "query", q) + daemon.drain()
+    require(len(nxt) == 1 and nxt[0].ok, "serve: no query served after the "
+                                         "refused fof request")
+    check_served_exact("after the fof refusal", points, q, nxt[0].ids, tree,
+                       10)
+    print(f"  serve: fof b=10.357 on the 900k daemon refused as one typed "
+          f"{refused[0].failure_kind} failure; the next query served",
+          flush=True)
+    parts["900k fof refusal + next query"] = (cs.launches + cs.blocked_launches
+                                             - n0)
+    n0 = cs.launches + cs.blocked_launches
+    fof = serve_fof_session(get_dataset("pts300K.xyz"))
+    parts["pts300K fof daemon"] = cs.launches + cs.blocked_launches - n0
+    require(cs.launches > 0, "serve: the phase launched no class kernel")
+    require(sum(parts.values()) == cs.launches + cs.blocked_launches,
+            f"serve: the launch split {parts} does not add up to "
+            f"{cs.launches} + {cs.blocked_launches}")
+    split = {name: (sessions[name]["kernel_launches"],
+                    sessions[name].get("overlay_launches", 0))
+             for name in sessions}
+    print(f"  serve: {cs.launches} supercell_topk launches in the phase "
+          f"({cs.blocked_launches} blocked): by part {parts}; per session "
+          f"(in its measured window, in the overlay check batches) {split}; "
+          f"the rest are the daemons' warmups; the check batches' "
+          f"baseline and rebuild queries are not counted", flush=True)
+    return {"sessions": sessions, "fof": fof, "launches": cs.launches,
+            "blocked_launches": cs.blocked_launches, "launch_parts": parts}
+
+
 _T0 = time.perf_counter()
 
 
@@ -2389,7 +2938,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cuda_knearests_tpu_torch as pt
     from cuda_knearests_tpu_torch.io import (generate_blue_noise,
-                                             generate_clustered)
+                                             generate_clustered, get_dataset)
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.ops import _build
 
@@ -2477,11 +3026,14 @@ def main() -> int:
             "the query path launched no class kernel")
 
     phase("friends-of-friends and the plane feed")
-    pts_fof = dataset("pts300K.xyz")
+    pts_fof = get_dataset("pts300K.xyz")
     fof_runs = [fof_run(pts_fof, b, 5) for b in FOF_LENGTHS]
     del pts_fof
-    fof_refusal(dataset("900k_blue_cube.xyz"), 10.357)
+    fof_refusal(get_dataset("900k_blue_cube.xyz"), 10.357)
     planes = plane_feed_phase(pts900)
+
+    phase("the serving daemon")
+    serve = serve_phase(pts900, prob10)
 
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
@@ -2512,7 +3064,8 @@ def main() -> int:
              query_bound_by_clustered=query["clustered"]["kernel"][
                  "bound_by"],
              plane_feed_launches=planes["solve_launches"],
-             plane_query_launches=planes["query_launches"]),
+             plane_query_launches=planes["query_launches"],
+             serve_launches=serve["launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -2548,6 +3101,7 @@ def main() -> int:
     print(f"  FoF (plain torch, no kernel of its own): "
           f"{json.dumps(fof_runs)}", flush=True)
     print(f"  plane feed: {json.dumps(planes)}", flush=True)
+    print(f"  serving: {json.dumps(serve)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -226,3 +226,73 @@ def resolve_kernel(kernel: str, k: int, ccap: int) -> str:
     if kernel == "blocked" and not blocked_topm(k, ccap):
         return "kpass"
     return kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Tunables of the serving daemon (``serve/``); counterpart of the
+    reference's ``ServeConfig``.
+
+    Attributes:
+      max_batch: largest batch capacity (queries a flushed batch holds),
+        and the size trigger: the batcher flushes as soon as admitting the
+        next request would exceed it.  A single request wider than this is
+        refused at admission (``InvalidRequestError``).
+      max_delay_s: deadline trigger: a pending request older than this
+        forces a flush of a batch that is not full.
+      min_bucket: smallest capacity bucket.  A flushed batch pads up to the
+        next power-of-two bucket in [min_bucket, max_batch], so the batch
+        shapes a session can run form a fixed, finite set that the warmup
+        covers.
+      compact_threshold: mutations (inserts + deletes) the delta overlay
+        absorbs before it folds them into a full re-prepare of the mutated
+        cloud (``serve/delta.py``).
+      warmup: run one sentinel batch per capacity bucket when the daemon
+        starts and after each compaction.
+      k: neighbours per served query (None: the problem's prepared k).
+        Every batch runs at this k; a request's own smaller k truncates its
+        columns on the way out.
+    """
+
+    max_batch: int = 256
+    max_delay_s: float = 0.01
+    min_bucket: int = 8
+    compact_threshold: int = 512
+    warmup: bool = True
+    k: Optional[int] = None
+
+    def __post_init__(self):
+        if self.min_bucket < 1 or self.max_batch < self.min_bucket:
+            raise ValueError(
+                f"serve buckets need 1 <= min_bucket <= max_batch, got "
+                f"min_bucket={self.min_bucket} max_batch={self.max_batch}")
+        if self.max_delay_s < 0:
+            raise ValueError(f"max_delay_s must be >= 0, "
+                             f"got {self.max_delay_s}")
+        if self.compact_threshold < 1:
+            raise ValueError(f"compact_threshold must be >= 1, "
+                             f"got {self.compact_threshold}")
+        if self.k is not None and self.k < 1:
+            raise ValueError(f"serving k must be >= 1 (or None for the "
+                             f"prepared k), got {self.k}")
+
+    def buckets(self) -> tuple:
+        """The fixed capacity-bucket ladder: powers of two from min_bucket
+        up to and including a bucket covering max_batch."""
+        out = []
+        b = 1 << (self.min_bucket - 1).bit_length()
+        while b < self.max_batch:
+            out.append(b)
+            b <<= 1
+        out.append(b)
+        return tuple(out)
+
+    def bucket_for(self, m: int) -> int:
+        """Smallest bucket covering an m-query batch (m <= max_batch)."""
+        for b in self.buckets():
+            if m <= b:
+                return b
+        # the batcher never forms a batch over the cap: admission refuses
+        # wider requests
+        raise ValueError(f"batch of {m} queries exceeds max_batch="
+                         f"{self.max_batch}")

@@ -3,11 +3,14 @@ normalisation into the engine domain, and the synthetic generators.
 
 Counterpart of ``cuda_knearests_tpu/io.py``.  The generators are byte-for-
 byte copies (same numpy recipe, same seeds, same output), so a dataset named
-by its generator and seed is the same cloud in both packages.
+by its generator and seed is the same cloud in both packages.  The serving
+daemon's request front door (:func:`validate_request`) lives here too.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,8 +18,12 @@ import numpy as np
 from .config import DOMAIN_SIZE
 from .utils.memory import (CorruptInputError, DegenerateExtentError,
                            DomainBoundsError, InvalidConfigError,
-                           InvalidKError, InvalidShapeError,
-                           NonFiniteInputError)
+                           InvalidKError, InvalidRequestError,
+                           InvalidShapeError, NonFiniteInputError,
+                           OverQuotaError, UnknownTenantError)
+
+# The checkout's data directory (the reference's named datasets).
+DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 
 
 def load_xyz(path: str) -> np.ndarray:
@@ -145,6 +152,106 @@ def validate_linking_length(b) -> float:
     return out
 
 
+# Legal operation kinds of the serving request stream.  'fof' answers
+# friends-of-friends labels of the current mutated cloud; its payload is
+# the linking length.
+REQUEST_KINDS = ("query", "insert", "delete", "fof")
+
+
+def validate_request(kind: str, payload, *, k=None, k_max: Optional[int] = None,
+                     n_current: Optional[int] = None,
+                     max_batch: Optional[int] = None,
+                     domain: float = DOMAIN_SIZE,
+                     tenant: Optional[str] = None,
+                     tenants: Optional[Tuple[str, ...]] = None,
+                     quota_ok: Optional[bool] = None):
+    """The request-stream front door, enforced by the serving daemon at
+    admission, so a malformed request is refused with the typed
+    ``InputContractError`` taxonomy instead of crashing the batch it would
+    have ridden.
+
+    Legal requests:
+      * ``('query', (m, 3) coords)``: the points contract of
+        :func:`validate_or_raise` against the prepared domain, ``k`` (when
+        given) a positive integer <= ``k_max`` (the serving k), and
+        ``m <= max_batch`` (a wider request could never flush).
+      * ``('insert', (m, 3) coords)``: the same points contract.
+      * ``('delete', (m,) integer ids)``: unique ids of the current mutated
+        cloud, in [0, n_current).
+      * ``('fof', linking_length)``: one finite positive real
+        (:func:`validate_linking_length`).
+
+    With ``tenants`` (a multi-tenant front door's registry), ``tenant``
+    must name one of them (:class:`UnknownTenantError`); ``quota_ok=False``
+    (the admission controller's verdict) refuses with
+    :class:`OverQuotaError`.
+
+    Raises InvalidRequestError, UnknownTenantError, OverQuotaError,
+    InvalidKError, InvalidConfigError (a bad linking length) or the points
+    contract's errors.  Returns the validated payload: float32 (m, 3) for
+    query and insert, the integer id array for delete, a float for fof."""
+    if tenants is not None and tenant not in tenants:
+        raise UnknownTenantError(
+            f"unknown tenant {tenant!r}: this front door serves "
+            f"{tuple(tenants)} (request contract; the tenant field is "
+            f"mandatory on fleet wires)")
+    if quota_ok is False:
+        raise OverQuotaError(
+            f"tenant {tenant!r} is over quota: the token-bucket admission "
+            f"rate for this tenant is exhausted -- retry after backoff "
+            f"(request contract)")
+    if kind not in REQUEST_KINDS:
+        raise InvalidRequestError(
+            f"unknown request kind {kind!r}: expected one of "
+            f"{REQUEST_KINDS} (request contract)")
+    if kind == "fof":
+        return validate_linking_length(payload)
+    if kind in ("query", "insert"):
+        what = "request queries" if kind == "query" else "request inserts"
+        out = validate_or_raise(payload, k=k if kind == "query" else None,
+                                domain=domain, what=what)
+        if kind == "query" and k is not None and k_max is not None \
+                and int(k) > int(k_max):
+            who = f"tenant {tenant!r}'s" if tenant is not None else "the"
+            raise InvalidKError(
+                f"request k={int(k)} exceeds {who} serving k={int(k_max)} "
+                f"(request contract)")
+        if max_batch is not None and out.shape[0] > int(max_batch):
+            raise InvalidRequestError(
+                f"{what} carry {out.shape[0]} rows but the daemon's largest "
+                f"capacity bucket is max_batch={int(max_batch)}; split the "
+                f"request (request contract)")
+        return out
+    try:
+        ids = np.asarray(payload)
+    except (TypeError, ValueError) as e:
+        raise InvalidRequestError(
+            f"delete ids are not an array: {e} (request contract)") from e
+    if ids.ndim != 1 or not np.issubdtype(ids.dtype, np.integer):
+        raise InvalidRequestError(
+            f"delete ids must be a 1-d integer array, got shape "
+            f"{ids.shape} dtype {ids.dtype} (request contract)")
+    if ids.size and np.unique(ids).size != ids.size:
+        raise InvalidRequestError(
+            "delete ids contain duplicates (request contract: each id "
+            "deletes one point of the current cloud)")
+    if n_current is not None and ids.size:
+        lo, hi = int(ids.min()), int(ids.max())
+        if lo < 0 or hi >= int(n_current):
+            raise InvalidRequestError(
+                f"delete ids span [{lo}, {hi}] but the current cloud has "
+                f"{int(n_current)} points (request contract: ids index the "
+                f"mutated cloud at admission time)")
+    return ids
+
+
+def validate_points(points: np.ndarray,
+                    domain: float = DOMAIN_SIZE) -> np.ndarray:
+    """The points half of :func:`validate_or_raise` under the reference's
+    older name."""
+    return validate_or_raise(points, domain=domain)
+
+
 def generate_uniform(n: int, seed: int = 0,
                      domain: float = DOMAIN_SIZE) -> np.ndarray:
     """n i.i.d. uniform points in [0, domain]^3."""
@@ -188,3 +295,26 @@ def generate_blue_noise(n: int, seed: int = 0,
     keep = rng.permutation(cells)[:n]
     keep.sort()
     return pts[keep].astype(np.float32)
+
+
+# The reference's named datasets, by the generator and seed each was made
+# with.
+_GENERATORS = {
+    "pts20K.xyz": lambda: generate_uniform(20626, seed=20),
+    "pts300K.xyz": lambda: generate_uniform(300_000, seed=300),
+    "300k_blue_cube.xyz": lambda: generate_blue_noise(300_000, seed=301),
+    "900k_blue_cube.xyz": lambda: generate_blue_noise(900_000, seed=900),
+}
+
+
+def get_dataset(name: str, data_dir=DATA_DIR) -> np.ndarray:
+    """A named dataset, normalized into the engine domain: the ``.xyz``
+    file in ``data_dir`` (the checkout's ``data/``) when it is there, else
+    regenerated from the reference's generator for the name.  Nothing is
+    downloaded or written."""
+    path = os.path.join(data_dir, name)
+    if os.path.exists(path):
+        return normalize_points(load_xyz(path))
+    if name not in _GENERATORS:
+        raise FileNotFoundError(f"unknown dataset {name!r}")
+    return normalize_points(_GENERATORS[name]())

@@ -6,7 +6,10 @@ name keyed by a hash of the source, the ``csrc`` headers it includes and
 the flags, and loaded with ``ctypes``; later processes reuse the library
 while none of them changed.  :func:`load_all` builds several sources at once, one ``nvcc``
 process each.  Any build or load failure raises :class:`KernelBuildError`.
-Nothing here runs at import time.
+Nothing here runs at import time.  :data:`builds` and :data:`loads` count
+the ``nvcc`` builds that succeeded and the libraries loaded in this
+process: the serving daemon's "recompiles" are their sum inside its
+measured window.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ _LIBS: dict = {}
 # nvcc's output (ptxas register / spill report) of each build this process
 # ran, by source name.
 BUILD_LOGS: dict = {}
+# nvcc builds that succeeded, and libraries loaded, in this process.
+builds = 0
+loads = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -84,10 +90,11 @@ def load(name: str) -> ctypes.CDLL:
 def load_all(names) -> list:
     """The loaded libraries of ``csrc/<name>.cu`` for every name, building
     the missing ones with one ``nvcc`` process each, all started together."""
+    global builds, loads
     with _LOCK:
         if all(name in _LIBS for name in names):  # no hashing on hot paths
             return [_LIBS[name] for name in names]
-        builds = []
+        started = []
         for name in names:
             out = library_path(name)
             if name in _LIBS or out.exists():
@@ -98,9 +105,9 @@ def load_all(names) -> list:
                    str(_CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-            builds.append((name, out, tmp, cmd, proc))
+            started.append((name, out, tmp, cmd, proc))
         failed = []
-        for name, out, tmp, cmd, proc in builds:
+        for name, out, tmp, cmd, proc in started:
             BUILD_LOGS[name] = proc.communicate()[0]
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -109,6 +116,7 @@ def load_all(names) -> list:
                               f"{BUILD_LOGS[name]}")
             else:
                 os.replace(tmp, out)
+                builds += 1
         if failed:
             raise KernelBuildError("\n".join(failed))
         for name in names:
@@ -118,4 +126,5 @@ def load_all(names) -> list:
                     _LIBS[name] = ctypes.CDLL(str(path))
                 except OSError as e:
                     raise KernelBuildError(f"cannot load {path}: {e}") from e
+                loads += 1
         return [_LIBS[name] for name in names]

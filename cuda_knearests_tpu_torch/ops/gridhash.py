@@ -88,3 +88,42 @@ def build_grid(points: torch.Tensor, dim: int | None = None,
     return GridHash(points=points[order], permutation=order.to(torch.int32),
                     cell_starts=starts, cell_counts=counts, dim=dim,
                     domain=float(domain))
+
+
+def delta_csr_host(points: np.ndarray, dim: int,
+                   domain: float = DOMAIN_SIZE):
+    """Host CSR layout of a delta point set on an existing grid's cells
+    (counterpart of ``cuda_knearests_tpu/ops/gridhash.py:137``): the
+    grid build's count / reserve / scatter run over the delta alone and
+    held compact, segments indexed by dirty-cell position rather than cell
+    id, so its cost is O(d log d) in the delta, never O(dim^3).
+
+    Returns (order, dirty, starts, counts): ``order`` sorts the delta rows
+    by cell (stable); ``dirty`` the sorted unique cell ids they occupy;
+    ``order[starts[j]:starts[j] + counts[j]]`` are the rows in cell
+    ``dirty[j]``."""
+    coords = cell_coords_host(points, dim, domain)
+    cids = coords[:, 0] + dim * (coords[:, 1] + dim * coords[:, 2])
+    order = np.argsort(cids, kind="stable").astype(np.int32)
+    dirty, counts = np.unique(cids, return_counts=True)
+    counts = counts.astype(np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    return order, dirty.astype(np.int32), starts, counts
+
+
+def cell_min_d2_host(queries: np.ndarray, cells: np.ndarray, dim: int,
+                     domain: float = DOMAIN_SIZE) -> np.ndarray:
+    """(m, c) lower bound on the squared distance from each query to any
+    point of each cell (counterpart of ``gridhash.py:168``): the delta
+    overlay's pruning bound.  Computed in float64 against the exact cell
+    box [lo, hi] with the per-axis clamp max(lo - q, 0, q - hi), so it
+    never exceeds a true distance; a query inside the cell gets 0."""
+    w = np.float64(domain) / dim
+    cx = cells % dim
+    cy = (cells // dim) % dim
+    cz = cells // (dim * dim)
+    lo = np.stack([cx, cy, cz], axis=-1).astype(np.float64) * w
+    hi = lo + w
+    q = np.asarray(queries, np.float64)[:, None, :]
+    d = np.maximum(np.maximum(lo[None] - q, q - hi[None]), 0.0)
+    return (d * d).sum(-1)

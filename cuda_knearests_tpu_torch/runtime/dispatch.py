@@ -7,6 +7,8 @@ one call is one round trip however many tensors ride it.  :func:`stage` is
 the non-blocking host-to-device upload.  A solve completes within
 :data:`SYNC_BUDGET` fetches: one batched readback of the assembled rows,
 plus one more when uncertified rows need the exact fallback.
+:func:`kernel_stats` reads the kernel counters: builds and library loads
+(``ops/_build``) and class-kernel launches (``ops/cuda_solve``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,24 @@ def stats() -> DispatchStats:
     """Snapshot of the current window's counters."""
     with _STATS_LOCK:
         return dataclasses.replace(_STATS)
+
+
+def stats_dict() -> dict:
+    """The current window's counters as a plain dict."""
+    return dataclasses.asdict(stats())
+
+
+def kernel_stats() -> dict:
+    """Process-wide kernel counters: ``kernel_builds`` (nvcc builds that
+    succeeded) and ``kernel_loads`` (libraries loaded), whose sum inside a
+    serving window is that window's ``recompiles``, and
+    ``kernel_launches``, the class kernels' launches
+    (``cuda_solve.launches + blocked_launches``; CUDA tensors only)."""
+    from ..ops import _build, cuda_solve
+
+    return {"kernel_builds": _build.builds, "kernel_loads": _build.loads,
+            "kernel_launches": cuda_solve.launches
+            + cuda_solve.blocked_launches}
 
 
 def fetch(*tensors: torch.Tensor):

@@ -871,3 +871,112 @@ def test_gpu_plane_feed_equals_cpu(cuda_device, kernel, counter):
     cq = cpu.query(q, planes=True)
     for a, b in zip(gq, cq):
         np.testing.assert_array_equal(a, b)
+
+
+def _serve_stream(n0: int):
+    """A seeded mutating request stream (queries, inserts, deletes, a
+    compaction at compact_threshold=64, a fof request): (t, kind, payload,
+    k) per request."""
+    from cuda_knearests_tpu_torch.serve import LoadSpec, build_schedule
+
+    items = [(it["t"], it["kind"], it["payload"], it.get("k"))
+             for it in build_schedule(
+                 LoadSpec(rate=400.0, requests=60, mutation_ratio=0.3,
+                          seed=61, batch_mix=((1, 0.4), (5, 0.3),
+                                              (29, 0.3))),
+                 n_current=n0)]
+    items.insert(30, (items[29][0], "fof", 25.0, None))
+    return items
+
+
+def _serve_replay(daemon, items):
+    """``items`` at their times on a synthetic clock, so two daemons form
+    the same batches; responses by request id."""
+    out = []
+    for i, (t, kind, payload, k) in enumerate(items):
+        out += daemon.poll(t)
+        out += daemon.submit(req_id=i, kind=kind, payload=payload, k=k, now=t)
+    out += daemon.drain(items[-1][0] + 1.0)
+    return {r.req_id: r for r in out}
+
+
+@pytest.mark.cuda
+def test_gpu_serve_session_equals_cpu(cuda_device):
+    """One seeded mutating session on the card equals the same session on
+    the CPU: the same responses, ids equal and d2 bit for bit (the class
+    kernels equal their plain versions, and the overlay's brute calls
+    round as they do), FoF labels equal; after warmup the card's session
+    builds and loads no kernel library and launches the class kernel."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+    from cuda_knearests_tpu_torch.serve import ServeConfig, ServeDaemon
+
+    pts = generate_uniform(20_000, seed=60)
+    cfg = ServeConfig(max_batch=32, max_delay_s=0.004, compact_threshold=64)
+    items = _serve_stream(pts.shape[0])
+    daemons = [ServeDaemon(pt.KnnProblem.prepare(pts, pt.KnnConfig(k=10),
+                                                 device=dev), cfg)
+               for dev in (cuda_device, "cpu")]
+    before = dispatch.kernel_stats()
+    gpu = _serve_replay(daemons[0], items)
+    after = dispatch.kernel_stats()
+    cpu = _serve_replay(daemons[1], items)
+    assert len(gpu) == len(cpu) == len(items)
+    assert after["kernel_builds"] == before["kernel_builds"]
+    assert after["kernel_loads"] == before["kernel_loads"]
+    assert after["kernel_launches"] > before["kernel_launches"]
+    for i, (_, kind, _, _) in enumerate(items):
+        g, c = gpu[i], cpu[i]
+        assert (g.ok, g.failure_kind, g.n_points) == \
+            (c.ok, c.failure_kind, c.n_points), (i, kind, g.error)
+        assert g.ok, (i, kind, g.error)
+        for name in ("ids", "d2", "labels"):
+            a, b = getattr(g, name), getattr(c, name)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == b.dtype
+    stats = [d.overlay.stats for d in daemons]
+    assert stats[0] == stats[1] and stats[0].compactions >= 1
+    assert stats[0].resolved_rows > 0 and stats[0].delta_launches > 0
+    assert daemons[0].overlay.base.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_gpu_serve_steady_zero_recompiles(cuda_device):
+    """An open-loop session on the card after warmup: zero recompiles,
+    the class kernel launched, no failed request."""
+    from cuda_knearests_tpu_torch.serve import (LoadSpec, ServeConfig,
+                                                ServeDaemon, run_session)
+
+    prob = pt.KnnProblem.prepare(generate_blue_noise(20_000, seed=62),
+                                 pt.KnnConfig(k=10), device=cuda_device)
+    daemon = ServeDaemon(prob, ServeConfig(max_batch=128, max_delay_s=0.004,
+                                           compact_threshold=64))
+    summary = run_session(daemon, LoadSpec(rate=400.0, requests=120,
+                                           mutation_ratio=0.3, seed=63))
+    assert summary["recompiles"] == 0 and summary["kernel_launches"] > 0
+    assert summary["kernel_route"] == "cuda"
+    assert summary["failed_requests"] == 0 and summary["refused"] == 0
+    assert summary["batches"] >= 1 and summary["overlay_compactions"] >= 1
+
+
+@pytest.mark.cuda
+def test_gpu_serve_fof_equals_cpu(cuda_device):
+    """A fof request on the card's daemon equals the CPU labels of the same
+    mutated cloud, and a repeat is a memo hit."""
+    from cuda_knearests_tpu_torch.cluster import fof_labels
+    from cuda_knearests_tpu_torch.serve import ServeConfig, ServeDaemon
+
+    pts = generate_uniform(20_000, seed=64)
+    daemon = ServeDaemon(pt.KnnProblem.prepare(pts, pt.KnnConfig(k=10),
+                                               device=cuda_device),
+                         ServeConfig(max_batch=32, warmup=False))
+    daemon.submit(1, "insert", generate_uniform(8, seed=65))
+    daemon.submit(2, "delete", np.array([3, 77, 19_000]))
+    got = daemon.submit(3, "fof", 30.0)[0]
+    again = daemon.submit(4, "fof", 30.0)[0]
+    want = fof_labels(daemon.overlay.mutated_points(), 30.0, device="cpu")
+    assert got.ok and again.labels is got.labels
+    assert daemon.fof_memo_hits == 1
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.n_clusters == want.n_clusters and got.n_points == 20_005

@@ -50,6 +50,16 @@ def test_package_import_leaves_jax_out_of_sys_modules():
             "import cuda_knearests_tpu_torch.mxu as mxu\n"
             "import cuda_knearests_tpu_torch.cluster, "
             "cuda_knearests_tpu_torch.cluster.compare\n"
+            "import cuda_knearests_tpu_torch.serve, "
+            "cuda_knearests_tpu_torch.serve.__main__, "
+            "cuda_knearests_tpu_torch.obs.metrics, "
+            "cuda_knearests_tpu_torch.obs.spans, "
+            "cuda_knearests_tpu_torch.runtime.supervisor\n"
+            "d = pt.serve.ServeDaemon(pt.KnnProblem.prepare("
+            "[[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], pt.KnnConfig(k=1), "
+            "device='cpu'))\n"
+            "d.submit(1, 'fof', 5.0); d.submit(2, 'query', [[1.0, 2.0, 3.0]])\n"
+            "assert all(r.ok for r in d.drain()); d.metrics_snapshot()\n"
             "mxu.solve_general([[1.0, 2.0], [3.0, 4.0]], k=1, "
             "device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
