@@ -57,6 +57,22 @@ H100: the kernels target sm_90a).  It imports only the port
      cKDTree on 20,000 sampled rows (tie-aware);
   4. breaks one 900k/k=10 and one 300k/k=50 solve down by device time
      (torch.profiler);
+  4b. runs the grid route's MXU tier (``KnnConfig(scorer='mxu')``,
+     ``mxu.scorer.grid_class_topk``, plain torch): (a) 300k blue noise at
+     k=50, f32, recall_target=1.0, 1 cold + 2 warm solves, ids and d2
+     equal to the elementwise solve and exact against cKDTree on 20,000
+     sampled rows, one class step's peak allocation within its model,
+     one pass of the tier broken down by kernel under torch.profiler;
+     (b) the same at bf16 and 0.9, one solve, exact; (c) the clustered
+     300k cloud at k=10 (per-supercell radii), recall_target=0.6,
+     fallback='none': a fold below min(k, 128), recall on 20,000 sampled
+     rows at the declared 2B band (``mxu/measure.py``) at least the
+     classes' bound, certified sampled rows exact, every row the fold
+     left open with (-1, inf) at column k-1; (d) slices of the 'mxu'
+     classes of (a) and (c), card = CPU bit for bit.  Each solve makes
+     at most two host round trips and prints the per-class route and
+     fold, the certified fraction, the fallback rows and ms and the
+     tier's ms by CUDA events;
   5. runs the brute route ``mxu.solve_general`` at full width on 300k
      uniform 3-D points (k=10: f32 exact with the brute refine, then
      recall targets 0.95/0.8/0.6 unrefined at f32 and bf16) and on 100k
@@ -770,17 +786,24 @@ def split_checks(rng) -> float:
     return err
 
 
-# -- phase 3/4: the grid main path ---------------------------------------------
+# -- phase 3/4: the grid main path --------------------------------------------
 
 def tree_reference(points: np.ndarray, rows: np.ndarray, k: int, tree):
     """Exact squared distances (f64) and ids of the k nearest other points
     of the sampled rows, from the kd-tree."""
     q = points[rows].astype(np.float64)
-    dk, ik = tree.query(q, k=k + 1)
+    _, ik = tree.query(q, k=k + 1)
     is_self = ik == rows[:, None]
     keep = ~is_self
     keep[~is_self.any(axis=1), -1] = False
-    return (dk[keep].reshape(-1, k)) ** 2, ik[keep].reshape(-1, k)
+    ik = ik[keep].reshape(-1, k)
+    # the tree's distances squared can fall an ulp short of the exact f64
+    # squared distance, and an f32-tie test against that k-th then fails
+    # an exact pick: recompute them from the coordinates
+    dk = ((points[ik].astype(np.float64) - q[:, None, :]) ** 2).sum(-1)
+    order = np.argsort(dk, axis=1, kind="stable")
+    return (np.take_along_axis(dk, order, axis=1),
+            np.take_along_axis(ik, order, axis=1))
 
 
 def brute_reference(points: np.ndarray, rows: np.ndarray, k: int):
@@ -946,7 +969,7 @@ def solve_certificates(prob, cfg):
                  .certified.cpu().numpy())
 
 
-# -- phase 9: timing at the main path's class shape -----------------------------
+# -- phase 9: timing at the main path's class shape ---------------------------
 
 def class_timing(name: str, prob, cfg) -> dict:
     """The class kernel ``cfg`` selects over every class of a prepared
@@ -1115,42 +1138,345 @@ def solve_breakdown(name: str, prob) -> None:
     device_breakdown(name, "solve", prob.solve, len(prob.aplan.classes))
 
 
-# -- phase 5: the brute route at full width ------------------------------------
+# -- phase 4b: the grid route's MXU tier --------------------------------------
+
+# (query slot, candidate slot) pairs of the class slices run on both
+# devices in phase 4b's card-equals-CPU check.
+MXU_SLICE_PAIRS = 1 << 25
+
+
+def mxu_class_lines(prob, cfg) -> float:
+    """Print each class's route and fold (m, g = ccap / 128, qcap, ccap);
+    returns the smallest recall bound of the 'mxu' classes."""
+    from cuda_knearests_tpu_torch.mxu.topk import (BLOCK, per_block_m,
+                                                   recall_bound)
+
+    bound = 1.0
+    for i, cp in enumerate(prob.aplan.classes):
+        g = cp.ccap // BLOCK
+        m = None
+        if cp.route == "mxu":
+            m = per_block_m(cfg.recall_target, cfg.k, g)
+            bound = min(bound, recall_bound(cfg.k, g, m))
+        print(f"    class {i}: route {cp.route}, m {m}, g {g}, qcap "
+              f"{cp.qcap}, ccap {cp.ccap}, supercells {cp.n_sc}, rows a "
+              f"step {cp.step_rows}", flush=True)
+    return bound
+
+
+def tier_timers(split: dict):
+    """Wrap the MXU tier's class scorer (CUDA events around each class)
+    and the api's exact fallback (host clock between synchronizations)
+    for the solves that follow.  Returns the restore function."""
+    import torch
+
+    from cuda_knearests_tpu_torch import api
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    scorer, fallback = adaptive.grid_class_topk, api.brute_force_by_index
+
+    def tier(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scorer(*a, **kw)
+        end.record()
+        end.synchronize()
+        split["tier_ms"] = split.get("tier_ms", 0.0) + start.elapsed_time(end)
+        return out
+
+    def timed_fallback(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fallback(*a, **kw)
+        torch.cuda.synchronize()
+        split["fallback_ms"] = (split.get("fallback_ms", 0.0)
+                                + (time.perf_counter() - t0) * 1e3)
+        return out
+
+    adaptive.grid_class_topk, api.brute_force_by_index = tier, timed_fallback
+
+    def restore():
+        adaptive.grid_class_topk, api.brute_force_by_index = scorer, fallback
+    return restore
+
+
+def mxu_solves(name: str, prob, cfg, runs: int) -> dict:
+    """Solve an mxu-planned problem 1 + ``runs`` times on the card: each
+    within two host round trips, one class-kernel launch a solve per
+    'kernel' class and none for an 'mxu' class, timed by
+    :func:`tier_timers`.  Prints the certified fraction, the fallback rows
+    and ms, and the tier's ms; returns them with the launches."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    require(prob.device.type == DEV, f"{name}: prepared on {prob.device}")
+    n = prob.grid.n_points
+    per_solve = sum(cp.route == "kernel" for cp in prob.aplan.classes)
+    splits, max_syncs = [], 0
+    cs.launches = 0
+    for _ in range(1 + runs):
+        split = {}
+        restore = tier_timers(split)
+        before = cs.launches
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        try:
+            res = prob.solve()
+        finally:
+            restore()
+        split["solve_ms"] = (time.perf_counter() - t0) * 1e3
+        syncs = dispatch.stats().host_syncs
+        require(syncs <= dispatch.SYNC_BUDGET,
+                f"{name}: solve made {syncs} host round trips")
+        require(cs.launches - before == per_solve,
+                f"{name}: solve made {cs.launches - before} class-kernel "
+                f"launches for {per_solve} kernel classes")
+        max_syncs = max(max_syncs, syncs)
+        splits.append(split)
+    unc = int(res.uncert_count)
+    require(prob.get_knearests().shape == (n, cfg.k),
+            f"{name}: result shape {prob.get_knearests().shape}")
+    warm = splits[1:] or splits
+    out = dict(
+        certified_fraction=1.0 - unc / n, fallback_rows=unc,
+        tier_ms=[s.get("tier_ms", 0.0) for s in splits],
+        fallback_ms=[s.get("fallback_ms", 0.0) for s in splits],
+        solve_ms=[s["solve_ms"] for s in splits],
+        solve_median_ms=float(np.median([s["solve_ms"] for s in warm])),
+        launches=cs.launches, host_round_trips=max_syncs)
+    print(f"  {name}: n={n} k={cfg.k} rt={cfg.recall_target} "
+          f"{cfg.resolved_precision()} fallback={cfg.fallback}: certified "
+          f"fraction {out['certified_fraction']:.6f}; fallback rows {unc}; "
+          f"tier ms (CUDA events) "
+          f"{[round(t, 3) for t in out['tier_ms']]}; fallback ms "
+          f"{[round(t, 3) for t in out['fallback_ms']]}; solve ms "
+          f"{[round(t, 3) for t in out['solve_ms']]} (median of warm "
+          f"{out['solve_median_ms']:.3f} = "
+          f"{n / out['solve_median_ms'] * 1e3:,.0f} queries/s); class-kernel "
+          f"launches {cs.launches}; host round trips {max_syncs}",
+          flush=True)
+    return out
+
+
+def mxu_step_memory(prob, cfg) -> float:
+    """One step of the widest 'mxu' class at its planned rows, run alone:
+    its peak allocation (above what was allocated before) within
+    ``adaptive.class_step_bytes``.  Returns the bytes per (query slot,
+    candidate slot) pair."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    cp = max((c for c in prob.aplan.classes if c.route == "mxu"),
+             key=lambda c: c.qcap * c.ccap)
+    g, rows = prob.grid, cp.step_rows
+    out = (torch.empty((rows * cp.qcap, cfg.k), device=DEV),
+           torch.empty((rows * cp.qcap, cfg.k), dtype=torch.int32,
+                       device=DEV))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    adaptive.grid_class_topk(
+        g.points, g.cell_starts, g.cell_counts, cp.own[:rows],
+        cp.cand[:rows], cp.qcap, cfg.k, cp.ccap, cfg.exclude_self,
+        cfg.recall_target, cfg.resolved_precision(), rows,
+        tgt=torch.arange(rows * cp.qcap, device=DEV), out=out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    model = adaptive.class_step_bytes(rows, cp.qcap, cp.ccap)
+    per_pair = peak / (rows * cp.qcap * cp.ccap)
+    print(f"    one step of {rows} supercells (qcap {cp.qcap}, ccap "
+          f"{cp.ccap}): peak {peak} bytes, model {model} "
+          f"({peak / model:.3f}), {per_pair:.2f} bytes a pair", flush=True)
+    require(peak <= model, "an MXU class step allocated above its model")
+    return per_pair
+
+
+def mxu_card_equals_cpu(name: str, prob, cfg, precisions) -> None:
+    """``grid_class_topk`` on the leading supercells of each 'mxu' class
+    (at most ``MXU_SLICE_PAIRS`` pairs) on the card and on the CPU: d2 (NaN
+    flags included) and ids equal bit for bit."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu.scorer import grid_class_topk
+
+    g = prob.grid
+    for cp in (c for c in prob.aplan.classes if c.route == "mxu"):
+        rows = max(1, min(cp.n_sc, MXU_SLICE_PAIRS // (cp.qcap * cp.ccap)))
+        dev_args = (g.points, g.cell_starts, g.cell_counts, cp.own[:rows],
+                    cp.cand[:rows])
+        cpu_args = [a.cpu() for a in dev_args]
+        for prec in precisions:
+            kw = dict(qcap=cp.qcap, k=cfg.k, ccap=cp.ccap,
+                      exclude_self=cfg.exclude_self,
+                      recall_target=cfg.recall_target, precision=prec)
+            gd, gi = grid_class_topk(*dev_args, **kw)
+            t0 = time.perf_counter()
+            cd, ci = grid_class_topk(*cpu_args, **kw)
+            cpu_s = time.perf_counter() - t0
+            gd, gi = gd.cpu(), gi.cpu()
+            require(torch.equal(gd.view(torch.int32), cd.view(torch.int32))
+                    and torch.equal(gi, ci),
+                    f"{name} {prec}: the 'mxu' class on the card differs "
+                    f"from the CPU")
+            print(f"    card = CPU bit for bit: {rows} supercells (qcap "
+                  f"{cp.qcap}, ccap {cp.ccap}) at {prec}, rt "
+                  f"{cfg.recall_target}: {int(torch.isnan(cd[:, -1]).sum())} "
+                  f"NaN rows of {cd.shape[0]} slots (CPU {cpu_s:.1f} s)",
+                  flush=True)
+
+
+def fold_open_rows(prob, cfg) -> np.ndarray:
+    """Sorted-index rows whose fold did not certify: NaN at column k-1 of
+    one more run of every 'mxu' class."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu.scorer import grid_class_topk
+
+    g, n, k = prob.grid, prob.grid.n_points, cfg.k
+    out = (torch.zeros((n + 1, k), device=DEV),
+           torch.zeros((n + 1, k), dtype=torch.int32, device=DEV))
+    for cp in (c for c in prob.aplan.classes if c.route == "mxu"):
+        grid_class_topk(g.points, g.cell_starts, g.cell_counts, cp.own,
+                        cp.cand, cp.qcap, k, cp.ccap, cfg.exclude_self,
+                        cfg.recall_target, cfg.resolved_precision(),
+                        cp.step_rows, tgt=cp.tgt, out=out)
+    return torch.isnan(out[0][:n, k - 1]).cpu().numpy()
+
+
+def mxu_phase(pts300: np.ndarray, prob50, pts_cl: np.ndarray) -> dict:
+    """Phase 4b: the grid route's MXU tier (``KnnConfig(scorer='mxu')``)
+    on the card.  (a) 300k blue noise at k=50, f32, recall_target=1.0,
+    1 cold + 2 warm solves: ids and d2 equal to the elementwise solve
+    (``prob50``'s), exact against cKDTree on 20,000 sampled rows, one step
+    within its memory model, one pass of the tier by kernel under
+    torch.profiler; (b) the same at bf16, recall_target=0.9, one
+    solve: exact; (c) the 300k clustered cloud at k=10 (per-supercell
+    radii), recall_target=0.6, fallback='none': a fold that is not exhaustive
+    (m < min(k, 128)), recall on 20,000 sampled rows at the declared 2B
+    band at least the classes' smallest bound, certified sampled rows
+    exact, every row the fold left open with (-1, inf) at column k-1;
+    (d) the 'mxu' classes of (a) and (c) on a slice, card = CPU bit for
+    bit."""
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+
+    out = {}
+    rng = np.random.default_rng(13)
+    cfg_a = pt.KnnConfig(k=50, scorer="mxu", recall_target=1.0)
+    prob_a, prep_s = prepared(pts300, cfg_a)
+    print(f"  (a) 300k blue noise, k=50, f32, recall_target=1.0: prepare "
+          f"{prep_s:.3f} s", flush=True)
+    mxu_class_lines(prob_a, cfg_a)
+    require(all(cp.route == "mxu" for cp in prob_a.aplan.classes),
+            "(a): a class of the 300k/k=50 plan is not on the MXU route")
+    want = (prob50.get_knearests(), prob50.get_dists_sq())
+    out["a"] = mxu_solves("(a) 300k/k=50 f32", prob_a, cfg_a, 2)
+    require(np.array_equal(prob_a.get_knearests(), want[0])
+            and np.array_equal(prob_a.get_dists_sq(), want[1]),
+            "(a): ids or d2 differ from the elementwise solve")
+    tree = cKDTree(pts300.astype(np.float64))
+    rows = np.sort(rng.permutation(pts300.shape[0])[:SAMPLE_ROWS])
+    check_exact(pts300, prob_a.get_knearests_original(), rows, 50, tree)
+    out["a"]["bytes_per_pair"] = mxu_step_memory(prob_a, cfg_a)
+    out["a"]["tier_profile"] = device_breakdown(
+        "(a) 300k/k=50 f32", "pass of the MXU tier",
+        lambda: fold_open_rows(prob_a, cfg_a), 0)
+    print(f"    ids and d2 equal to the elementwise solve; exact vs cKDTree "
+          f"on {rows.size} rows", flush=True)
+
+    cfg_b = pt.KnnConfig(k=50, scorer="mxu", recall_target=0.9,
+                         precision="bf16")
+    prob_b, _ = prepared(pts300, cfg_b)
+    print("  (b) 300k blue noise, k=50, bf16, recall_target=0.9", flush=True)
+    mxu_class_lines(prob_b, cfg_b)
+    out["b"] = mxu_solves("(b) 300k/k=50 bf16", prob_b, cfg_b, 0)
+    require(np.array_equal(prob_b.get_knearests(), want[0])
+            and np.array_equal(prob_b.get_dists_sq(), want[1]),
+            "(b): ids or d2 differ from the elementwise solve")
+    check_exact(pts300, prob_b.get_knearests_original(), rows, 50, tree)
+    print(f"    exact: equal to the elementwise solve, and vs cKDTree on "
+          f"{rows.size} rows", flush=True)
+    del prob_b, tree
+
+    k = 10
+    # its default per-supercell radii: at ring_radius=1 the one class
+    # class_eligible takes has ccap 256 (g = 2), whose fold keeps all k at
+    # any recall target, and the class with g >= 13 is the 14,392 x 24,704
+    # blob, which class_eligible refuses
+    cfg_c = pt.KnnConfig(k=k, recall_target=0.6, fallback="none")
+    prob_c, _ = prepared(pts_cl, cfg_c)
+    print("  (c) 300k clustered, k=10, recall_target=0.6, fallback='none'",
+          flush=True)
+    bound = mxu_class_lines(prob_c, cfg_c)
+    from cuda_knearests_tpu_torch.mxu.topk import BLOCK, per_block_m
+
+    ms = [per_block_m(0.6, k, cp.ccap // BLOCK)
+          for cp in prob_c.aplan.classes if cp.route == "mxu"]
+    require(bool(ms) and min(ms) < min(k, BLOCK),
+            f"(c): no 'mxu' class folds below min(k, 128) (m {ms})")
+    out["c"] = mxu_solves("(c) 300k clustered", prob_c, cfg_c, 1)
+    res = prob_c.result
+    ids, d2 = prob_c.get_knearests(), prob_c.get_dists_sq()
+    open_ = fold_open_rows(prob_c, cfg_c)
+    require(bool((ids[open_, k - 1] == -1).all())
+            and bool(np.isinf(d2[open_, k - 1]).all()),
+            "(c): a row the fold left open lacks (-1, inf) at column k-1")
+    require(not bool(np.asarray(res.certified)[open_].any()),
+            "(c): a row the fold left open is certified")
+    perm = prob_c.get_permutation()
+    cert = np.empty(perm.shape, bool)
+    cert[perm] = np.asarray(res.certified)
+    nbrs = prob_c.get_knearests_original()
+    rows = np.sort(rng.permutation(pts_cl.shape[0])[:SAMPLE_ROWS])
+    dk, ik = tree_reference(pts_cl, rows, k,
+                            cKDTree(pts_cl.astype(np.float64)))
+    kth = dk[:, -1]
+    sel = cert[rows]
+    check_rows_exact(pts_cl, nbrs, rows[sel], dk[sel], ik[sel])
+    require(bool((sampled_hits(pts_cl, nbrs, rows[sel], kth[sel]) == k)
+                 .all()), "(c): a certified sampled row is not exact")
+    recall = float(sampled_hits(pts_cl, nbrs, rows, kth,
+                                sampled_band(pts_cl, rows, "f32")).sum()) \
+        / (k * rows.size)
+    require(recall >= bound, f"(c): recall {recall} on the sampled rows "
+                             f"below the bound {bound}")
+    out["c"].update(recall=recall, bound=bound, fold_open_rows=int(
+        open_.sum()), m=ms)
+    print(f"    fold left {int(open_.sum())} rows open, each (-1, inf) at "
+          f"column k-1; sampled rows {rows.size}: {int(sel.sum())} "
+          f"certified, all exact; recall at the 2B band {recall:.6f} >= "
+          f"bound {bound:.6f}", flush=True)
+
+    print("  (d) the 'mxu' classes on the card against the CPU", flush=True)
+    mxu_card_equals_cpu("(a)", prob_a, cfg_a, ("f32", "bf16"))
+    mxu_card_equals_cpu("(c)", prob_c, cfg_c, ("f32",))
+    out["launches"] = sum(out[c]["launches"] for c in "abc")
+    return out
+
+
+# -- phase 5: the brute route at full width -----------------------------------
 
 def sampled_hits(points: np.ndarray, nbrs: np.ndarray, rows: np.ndarray,
                  kth: np.ndarray, band=None) -> np.ndarray:
-    """Per sampled row, the returned ids that are true top-k picks, as
-    ``mxu/measure.py`` counts them: exact f64 distance at most the true
-    k-th (``kth``), widened by the row's ``band`` (2B), or without a band
-    tying it at f32 resolution."""
-    return row_hits(points, rows, nbrs[rows], kth, band)
+    """Per sampled row, the returned ids that are true top-k picks
+    (``mxu/measure.row_hits``): exact f64 distance at most the true k-th
+    (``kth``), widened by the row's ``band`` (2B), or without a band tying
+    it at f32 resolution."""
+    from cuda_knearests_tpu_torch.mxu.measure import row_hits
+
+    return row_hits(points, nbrs[rows], kth, band, queries=points[rows])
 
 
-def row_hits(points: np.ndarray, rows: np.ndarray, ids: np.ndarray,
-             kth: np.ndarray, band=None) -> np.ndarray:
-    """:func:`sampled_hits` of the (len(rows), k) ids of the rows."""
-    q = points[rows].astype(np.float64)
-    valid = ids >= 0
-    c = points[np.where(valid, ids, 0)].astype(np.float64)
-    gd = ((c - q[:, None, :]) ** 2).sum(-1)
-    if band is None:
-        hit = ((gd <= kth[:, None])
-               | (gd.astype(np.float32) <= kth[:, None].astype(np.float32)))
-    else:
-        hit = gd <= (kth + band)[:, None]
-    return (valid & hit).sum(axis=1)
+def sampled_band(points: np.ndarray, rows: np.ndarray,
+                 precision: str) -> np.ndarray:
+    """``mxu/measure.declared_band`` of the sampled rows: 2B from f64
+    norms at the scoring precision."""
+    from cuda_knearests_tpu_torch.mxu.measure import declared_band
 
-
-def declared_band(points: np.ndarray, rows: np.ndarray,
-                  precision: str) -> np.ndarray:
-    """``mxu/measure.declared_band`` on the sampled rows: 2B from f64
-    norms, B = topk.dot_error_bound at the scoring precision."""
-    from cuda_knearests_tpu_torch.mxu.topk import dot_error_bound
-
-    p64 = points.astype(np.float64)
-    qn = (p64[rows] ** 2).sum(axis=1)
-    pn_max = float((p64 * p64).sum(axis=1).max())
-    return 2.0 * dot_error_bound(qn, pn_max, points.shape[1], precision)
+    return declared_band(points, points[rows], precision)
 
 
 def split_timers(split: dict):
@@ -1254,7 +1580,7 @@ def brute_run(label: str, points: np.ndarray, k: int, rt: float,
     exact_hits = sampled_hits(points, res.neighbors, rows, kth)
     require(bool((exact_hits[res.certified[rows]] == k).all()),
             f"{label}: a certified sampled row is not exact")
-    band = declared_band(points, rows, precision)
+    band = sampled_band(points, rows, precision)
     recall = float(sampled_hits(points, res.neighbors, rows, kth,
                                 band).sum()) / (k * rows.size)
     require(recall >= res.bound,
@@ -1294,6 +1620,7 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
 
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.measure import row_hits
     from cuda_knearests_tpu_torch.mxu.solve import select_inputs
 
     bf16 = precision == "bf16"
@@ -1319,8 +1646,9 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
             mk.prep_plain(p, cid)[3], d, False)
         del dump, s_plain
         cert = got[2].cpu().numpy()
-        hits = row_hits(points, rows[:sub.numel()], got[0].cpu().numpy(),
-                        ref[0][:sub.numel(), -1])
+        hits = row_hits(points, got[0].cpu().numpy(),
+                        ref[0][:sub.numel(), -1],
+                        queries=points[rows[:sub.numel()]])
         require(bool((hits[cert] == k).all()),
                 f"{what}: a certified row is not exact")
         prep_ms = quiet(lambda: cuda_ms(lambda: (mk.prep(q),
@@ -1654,7 +1982,7 @@ def fold_timing(label: str, points: np.ndarray, k: int, m: int) -> float:
     return t
 
 
-# -- phase 6: the grid path with the blocked kernel ----------------------------
+# -- phase 6: the grid path with the blocked kernel ---------------------------
 
 def path_b(points: np.ndarray, kpass_prob) -> tuple:
     """The 900k/k=10 main path with kernel='blocked': blocked launches,
@@ -1677,7 +2005,9 @@ def path_b(points: np.ndarray, kpass_prob) -> tuple:
     require(cs.launches == kpass_launches,
             "900k blocked: the one-stage kernel ran on the blocked path")
     raw = quiet(lambda: solve_adaptive(prob.grid, cfg, prob.aplan))
-    deficit = int(torch.isnan(raw.dists_sq[:, cfg.k - 1]).sum())
+    # a deficit row's NaN at column k-1 is cleared to (-1, inf) after the
+    # certificate; every box here holds more than k points
+    deficit = int((raw.neighbors[:, cfg.k - 1] < 0).sum())
     a_d, b_d = prob.get_dists_sq(), kpass_prob.get_dists_sq()
     require(np.array_equal(a_d, b_d),
             "900k blocked: distances differ from the one-stage path")
@@ -1699,7 +2029,7 @@ def path_b(points: np.ndarray, kpass_prob) -> tuple:
     return prob, cfg, launches
 
 
-# -- phase 7: the grid path at a k no class kernel holds -----------------------
+# -- phase 7: the grid path at a k no class kernel holds ----------------------
 
 def streamed_path(points: np.ndarray, k: int, runs: int) -> dict:
     """``KnnProblem.prepare(points).solve()`` at k = ``k`` (>= 893: the
@@ -2109,7 +2439,7 @@ def query_phase(points: np.ndarray, prob, prob_b) -> dict:
             "uniform": uni, "clustered": clu, "blocked": blk}
 
 
-# -- phase 10: friends-of-friends and the plane feed ---------------------------
+# -- phase 10: friends-of-friends and the plane feed --------------------------
 
 # The reference's FoF row (its fof_300k bench row): b = the mean spacing of
 # pts300K.xyz, and 0.2 x that, the usual halo-finder linking length.
@@ -2375,7 +2705,7 @@ def plane_feed_phase(points: np.ndarray) -> dict:
             "query_epilogue_ms": query_epi}
 
 
-# -- the serving daemon -----------------------------------------------------------
+# -- the serving daemon -------------------------------------------------------
 
 # The reference bench's serve sessions (its ``bench.py`` serve rows, at the
 # same traffic), then one that forces compactions of the 900k cloud: (name,
@@ -2987,6 +3317,9 @@ def main() -> int:
     solve_breakdown("900k/k=10", prob10)
     solve_breakdown("300k/k=50", prob50)
 
+    phase("the grid route's MXU tier")
+    mxu_tier = mxu_phase(pts300, prob50, pts_cl)
+
     phase("brute route at full width")
     mk.launches = mk.launches_bf16 = mk.prep_launches = 0
     mk.prep_launches_f32 = 0
@@ -3065,7 +3398,8 @@ def main() -> int:
                  "bound_by"],
              plane_feed_launches=planes["solve_launches"],
              plane_query_launches=planes["query_launches"],
-             serve_launches=serve["launches"]),
+             serve_launches=serve["launches"],
+             mxu_tier_launches=mxu_tier["launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -3102,6 +3436,7 @@ def main() -> int:
           f"{json.dumps(fof_runs)}", flush=True)
     print(f"  plane feed: {json.dumps(planes)}", flush=True)
     print(f"  serving: {json.dumps(serve)}", flush=True)
+    print(f"  MXU tier: {json.dumps(mxu_tier)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

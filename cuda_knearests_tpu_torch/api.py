@@ -100,8 +100,12 @@ class KnnProblem:
         (``dim`` cells per axis, default from the density) and plan the
         classes on ``device`` (default: the GPU).  n = 0 and k > n are
         legal degraded modes.  ``validate=False`` skips the front door and
-        only casts to float32, for callers that validated already."""
+        only casts to float32, for callers that validated already.  The
+        scorer knobs are resolved first, as the reference resolves them:
+        ValueError on an unknown scorer or tier, a recall_target outside
+        (0, 1], or 'elementwise' with recall_target < 1 or 'bf16'."""
         config = config or KnnConfig()
+        config.resolved_precision()
         device = resolve_device(device)
         points = (validate_or_raise(points, k=config.k) if validate
                   else np.ascontiguousarray(points, np.float32))
@@ -348,6 +352,7 @@ def load_problem(path: str, device=None) -> KnnProblem:
                 f"{sorted(unknown)}")
         cfg = KnnConfig(**{key: v for key, v in saved.items()
                            if key not in _REFERENCE_RUNTIME_KNOBS})
+        cfg.resolved_precision()
         counts = z["cell_counts"].astype(np.int32)
         grid = GridHash(
             points=torch.as_tensor(z["points"].astype(np.float32),

@@ -7,10 +7,12 @@ reference package's ``KnnConfig`` exists here.  Fields the grid route does
 not honour are accepted at their default value (or at the value that
 means what this port does) and any other value raises
 :class:`InvalidConfigError` at construction: a knob is never silently
-ignored.  ``load_problem`` drops the reference's runtime knobs (the last
-six fields below) from a checkpoint's configuration before it builds one,
-since they tune how the reference runs on its hardware and cannot change
-an answer.
+ignored.  The scorer knobs (``scorer``, ``recall_target``, ``precision``)
+are checked where the reference checks them, when a problem is prepared
+(``resolved_scorer``/``resolved_precision``).  ``load_problem`` drops the
+reference's runtime knobs (the last six fields below) from a checkpoint's
+configuration before it builds one, since they tune how the reference
+runs on its hardware and cannot change an answer.
 """
 
 from __future__ import annotations
@@ -49,18 +51,9 @@ def default_ring_radius(k: int, density: float = DEFAULT_CELL_DENSITY) -> int:
 # values each accepts (the reference's default, or the value meaning
 # "exact grid route").  Anything else is refused with the reason.
 _UNSUPPORTED = {
-    "scorer": (("auto", "elementwise"),
-               "the grid route's MXU class scorer is not ported yet; the "
-               "brute route (mxu.solve_general) has the MXU scorer"),
-    "recall_target": ((1.0,), "approximate search (recall_target < 1) on "
-                              "the grid route is not ported yet; the brute "
-                              "route (mxu.solve_general) has it"),
     "backend": (("auto",), "only the grid engine with the CUDA kernel is "
                            "ported ('oracle' and 'xla' are not)"),
     "kernel": (("kpass", "auto", "blocked"), "unknown kernel"),
-    "precision": (("auto", "f32"), "reduced-precision scoring on the grid "
-                                   "route is not ported yet; the brute "
-                                   "route (mxu.solve_general) has it"),
     "plane_feed": ((False, True), "plane_feed is a bool"),
     "adaptive": ((True,), "only the adaptive class schedule is ported"),
     "dist_method": (("diff",), "only 'diff' distance arithmetic is ported"),
@@ -106,6 +99,15 @@ class KnnConfig:
         read ``effective_kernel()``, not this field.
       plane_feed: attach the Voronoi plane feed to every solve's result
         (``KnnResult.planes``, ``cluster.planes.bisector_planes``).
+      scorer: 'elementwise' (exact diff arithmetic), 'mxu' (the grid
+        MXU class scorer, ``mxu.scorer.grid_class_topk``, on every class
+        ``class_eligible`` takes) or 'auto'.  Solvers read
+        ``resolved_scorer()``.
+      recall_target: the TPU-KNN expected-recall bound of the MXU fold in
+        (0, 1]; 1.0 is exhaustive.  Uncertified rows still go to the
+        exact fallback unless ``fallback='none'``.
+      precision: the MXU scorer's scoring tier, 'f32', 'bf16' or 'auto'
+        (f32).  Solvers read ``resolved_precision()``.
 
     The remaining fields exist so that configurations of the reference
     package read back; each accepts only the values this port honours.
@@ -148,6 +150,20 @@ class KnnConfig:
             raise InvalidConfigError(
                 f"supercell and max_classes must be >= 1, got "
                 f"supercell={self.supercell} max_classes={self.max_classes}")
+
+    def resolved_scorer(self) -> str:
+        """:func:`resolve_scorer` of this config (ValueError on an unknown
+        scorer, a recall_target outside (0, 1], or 'elementwise' below
+        1.0).  The reference also requires its adaptive route for 'mxu';
+        here ``adaptive``, ``dist_method`` and ``backend`` take only their
+        adaptive values, so every accepted config is on it."""
+        return resolve_scorer(self.scorer, self.recall_target, self.precision)
+
+    def resolved_precision(self) -> str:
+        """:func:`resolve_precision` of this config against its resolved
+        scorer (ValueError on an unknown tier, or 'bf16' with the
+        elementwise scorer)."""
+        return resolve_precision(self.precision, self.resolved_scorer())
 
     def effective_kernel(self) -> str:
         """The kernel string solvers resolve from.  fallback='none' pins

@@ -8,14 +8,17 @@ keeps its d=3 contract and refuses wider input with a pointer here
 
 * :mod:`topk`   -- the recall bound, per-block keep counts, error bound and
   slot interleave (host numpy).
-* :mod:`scorer` -- dot-form scores, the fold, and ``select_plain``, the
-  plain version of the selection kernel.
+* :mod:`scorer` -- dot-form scores, the fold, ``select_plain`` (the plain
+  version of the selection kernel), and ``grid_class_topk``, the grid
+  route's MXU class scorer (``KnnConfig(scorer='mxu')``, plain torch).
 * :mod:`kernel` -- ``select``: the CUDA selection kernels
   (``csrc/mxu_select.cu`` at f32, ``csrc/mxu_select_bf16.cu`` at bf16,
   ``csrc/mxu_select_split.cu`` for the k they do not hold) on CUDA
   tensors, the plain version on CPU ones.
 * :mod:`solve`  -- ``solve_general`` (any d, recall knob, at most two host
   round trips) and ``knn``.
+* :mod:`measure` -- the tie-aware float64 recall oracle (numpy).
+* ``python -m cuda_knearests_tpu_torch.mxu [--device cpu]`` -- the smoke.
 """
 
 from __future__ import annotations

@@ -17,8 +17,8 @@ time, on the host:
      per-point supercell map (``AdaptivePlan.inv_box``) for the
      certificate.
 
-Each class takes one of two routes, chosen in the plan as the reference
-chooses it (``cuda_knearests_tpu/ops/adaptive.py:201-218``):
+Each class takes one of three routes, chosen in the plan as the reference
+chooses it (``cuda_knearests_tpu/ops/adaptive.py:185-224``):
 
   * 'kernel': one launch of the one-stage ``supercell_topk`` (or
     ``blocked_topk`` where ``config.resolve_kernel`` gives 'blocked')
@@ -27,15 +27,23 @@ chooses it (``cuda_knearests_tpu/ops/adaptive.py:201-218``):
   * 'streamed': :func:`streamed_topk`, plain torch on either device,
     folding candidate tiles into a running top-k with a bounded
     temporary -- everywhere else (k too large for one block's lists, or a
-    pack over the budget).
+    pack over the budget);
+  * 'mxu': under ``resolved_scorer() == 'mxu'``, every class whose score
+    tile ``mxu.scorer.class_eligible`` takes runs the MXU class scorer
+    (``mxu.scorer.grid_class_topk``, plain torch; NaN at column k-1 on the
+    rows its fold does not certify); the other classes keep the routes
+    above.
 
 A class never falls back after a kernel fails: the route is fixed when the
-plan is built.  Every row then gets its box-margin certificate.
+plan is built.  Every row then gets its box-margin certificate, and
+non-finite entries become (inf, -1).
 
 External queries (:func:`query_adaptive`) reuse the plan: each query takes
 its supercell's class, the class's candidate pack and its route, and a
 kernel class streams its queries only when their padded query pack does
-not fit the memory budget.
+not fit the memory budget.  An 'mxu' class's queries take the class's
+exact route (:func:`class_route`), as the reference sends them to its
+exact dense route: the MXU scorer is a self-solve.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 
 from ..config import (KnnConfig, blocked_topm, default_ring_radius,
                       resolve_kernel)
+from ..mxu.scorer import class_eligible, class_rows_chunk, grid_class_topk
 from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
 from .cuda_solve import (_PAD_Q, ClassPack, blocked_topk, hbm_budget_bytes,
@@ -78,6 +87,12 @@ _STEP_PACK_BYTES = 64
 # Per query slot of a streamed class at solve time: its coordinates,
 # validity and the gather's int32 and int64 indices.
 _SLOT_SOLVE_BYTES = 25
+# Peak bytes of one step of an 'mxu' class (:func:`class_step_bytes`) per
+# (query slot, candidate slot) pair -- the f32 scores, the int64 keys
+# beside them (twice the reference's f32 tile) and the fold's masks and
+# per-block lists -- and per candidate slot of its pack.
+_CLASS_PAIR_BYTES = 40
+_CLASS_CAND_BYTES = 64
 
 
 def select_radii(points_cum: np.ndarray, cells_cum: np.ndarray, k: int,
@@ -106,7 +121,7 @@ class ClassSpec:
     radius: int
     qcap: int             # per-supercell query capacity (8-aligned)
     ccap: int             # per-supercell candidate capacity (128-aligned)
-    route: str = "kernel"  # 'kernel' | 'streamed'
+    route: str = "kernel"  # 'kernel' | 'streamed' | 'mxu'
 
 
 def class_route(cfg: KnnConfig, qcap: int, ccap: int) -> str:
@@ -130,7 +145,9 @@ def build_class_specs(own_n: np.ndarray, pts_cum: np.ndarray,
     when the group maximum exceeds twice it, then the smallest groups merge
     (taking the larger radius) until the class budget holds.  Each class's
     ccap is measured at its final radius, so packing never truncates a
-    candidate list.  Each class is routed by :func:`class_route`."""
+    candidate list.  Under ``cfg.resolved_scorer() == 'mxu'`` a class
+    whose score tile ``class_eligible`` takes is routed 'mxu'; every other
+    class by :func:`class_route`."""
     def cand_at(rows: np.ndarray, radius: int) -> np.ndarray:
         return pts_cum[rows, radius]
 
@@ -153,11 +170,15 @@ def build_class_specs(own_n: np.ndarray, pts_cum: np.ndarray,
         groups = groups[2:] + [(np.concatenate([rows_a, rows_b]),
                                 max(r_a, r_b))]
 
+    mxu = cfg.resolved_scorer() == "mxu"
+
     def mk(rows: np.ndarray, radius: int) -> ClassSpec:
         qcap = _round_up(int(own_n[rows].max()), 8)
         ccap = _round_up(max(int(cand_at(rows, radius).max()), cfg.k), 128)
+        route = ("mxu" if mxu and class_eligible(qcap, ccap)
+                 else class_route(cfg, qcap, ccap))
         return ClassSpec(rows=rows, radius=radius, qcap=qcap, ccap=ccap,
-                         route=class_route(cfg, qcap, ccap))
+                         route=route)
 
     return tuple(mk(rows, r) for rows, r in groups)
 
@@ -174,7 +195,9 @@ class ClassPlan:
     'streamed' class carries ``cand``, the (Sc, side^3) int32 cell ids of
     each supercell's dilated box (-1 off the grid), which
     :func:`streamed_topk` packs tile by tile, and ``step_rows``, its
-    supercells a step (from :func:`_preflight`)."""
+    supercells a step (from :func:`_preflight`).  An 'mxu' class carries
+    ``cand``, ``own`` (the (Sc, s^3) cell ids of each supercell) and
+    ``step_rows``: :func:`grid_class_topk` packs both step by step."""
 
     lo: torch.Tensor
     hi: torch.Tensor
@@ -187,6 +210,7 @@ class ClassPlan:
     cand: Optional[torch.Tensor]
     step_rows: Optional[int]
     tgt: Optional[torch.Tensor]
+    own: Optional[torch.Tensor] = None
 
     @property
     def n_sc(self) -> int:
@@ -271,6 +295,31 @@ def stream_table_bytes(n_sc: int, qcap: int, side: int) -> int:
     return n_sc * (8 * qcap + 4 * side ** 3 + _SLOT_SOLVE_BYTES * qcap)
 
 
+def class_step_bytes(rows: int, qcap: int, ccap: int) -> int:
+    """Device bytes one step of :func:`grid_class_topk` over ``rows``
+    supercells allocates at its peak: ``_CLASS_PAIR_BYTES`` per (query
+    slot, candidate slot) pair and ``_CLASS_CAND_BYTES`` per candidate
+    slot of its pack."""
+    return rows * ccap * (_CLASS_PAIR_BYTES * qcap + _CLASS_CAND_BYTES)
+
+
+def step_bytes(sp: ClassSpec, k: int) -> int:
+    """One supercell's step of a class that does not take the kernel
+    route: its MXU scorer's step on an 'mxu' class, else its streamed
+    step."""
+    if sp.route == "mxu":
+        return class_step_bytes(1, sp.qcap, sp.ccap)
+    return stream_step_bytes(1, sp.qcap, sp.ccap, k)
+
+
+def table_bytes(sp: ClassSpec, cfg: KnnConfig) -> int:
+    """A class's tables without kernel packs: the streamed route's, and an
+    'mxu' class's (Sc, s^3) cell table of its own supercells too."""
+    own = 4 * sp.rows.size * cfg.supercell ** 3 if sp.route == "mxu" else 0
+    return own + stream_table_bytes(sp.rows.size, sp.qcap,
+                                    cfg.supercell + 2 * sp.radius)
+
+
 def kernel_extra_bytes(sp: ClassSpec, cfg: KnnConfig) -> int:
     """What a class's kernel packs take beyond its streamed tables."""
     return (pack_bytes(sp.rows.size, sp.qcap, sp.ccap)
@@ -279,35 +328,38 @@ def kernel_extra_bytes(sp: ClassSpec, cfg: KnnConfig) -> int:
 
 
 def streamed_plan_bytes(specs, cfg: KnnConfig, n: int) -> int:
-    """Device bytes of the plan with every class streamed one supercell a
-    step: the (n + 1, k) outputs and the per-point supercell map, every
-    class's tables, and the largest class's one-supercell step."""
+    """Device bytes of the plan with every class one supercell a step, the
+    'mxu' classes on their route and every other class streamed: the
+    (n + 1, k) outputs and the per-point supercell map, every class's
+    tables (:func:`table_bytes`), and the largest one-supercell step
+    (:func:`step_bytes`)."""
     return ((n + 1) * cfg.k * 8 + n * 4
-            + sum(stream_table_bytes(sp.rows.size, sp.qcap,
-                                     cfg.supercell + 2 * sp.radius)
-                  for sp in specs)
-            + max(stream_step_bytes(1, sp.qcap, sp.ccap, cfg.k)
-                  for sp in specs))
+            + sum(table_bytes(sp, cfg) for sp in specs)
+            + max(step_bytes(sp, cfg.k) for sp in specs))
 
 
 def _preflight(specs, cfg: KnnConfig, n: int, budget: int | None):
     """Route the classes against the memory ``budget`` (None: unbounded)
     before anything is allocated, and refuse only a plan that no route
-    can hold: one whose classes, all streamed one supercell a step, do not
-    fit (:func:`streamed_plan_bytes`).  From what that plan leaves, each
+    can hold: one whose classes, one supercell a step (the 'mxu' classes
+    on their route, the rest streamed), do not fit
+    (:func:`streamed_plan_bytes`).  From what that plan leaves, each
     class the launch gate takes keeps the kernel route, in order, while
-    its packs still fit; the rest stream.  Returns (the routed specs, each
-    class's supercells a step: None on the kernel route, else what its
-    step may take of the budget left, at most
-    :func:`streamed_rows_chunk`'s)."""
+    its packs still fit; the rest stream, and an 'mxu' class keeps its
+    route.  Returns (the routed specs, each class's supercells a step:
+    None on the kernel route, else what its step may take of the budget
+    left, at most :func:`streamed_rows_chunk`'s or, on an 'mxu' class,
+    ``class_rows_chunk``'s)."""
     k = cfg.k
 
     def rows_chunk(sp, left):
-        rows = streamed_rows_chunk(sp.rows.size, sp.qcap,
-                                   stream_tile(sp.ccap))
+        if sp.route == "mxu":
+            rows = class_rows_chunk(sp.rows.size, sp.qcap, sp.ccap)
+        else:
+            rows = streamed_rows_chunk(sp.rows.size, sp.qcap,
+                                       stream_tile(sp.ccap))
         if left is not None:
-            rows = min(rows, left // stream_step_bytes(1, sp.qcap, sp.ccap,
-                                                       k))
+            rows = min(rows, left // step_bytes(sp, k))
         return rows
 
     if budget is None:
@@ -325,15 +377,16 @@ def _preflight(specs, cfg: KnnConfig, n: int, budget: int | None):
     left = budget - need
     routed = []
     for sp in specs:
-        extra = kernel_extra_bytes(sp, cfg)
-        if sp.route == "kernel" and extra <= left:
-            left -= max(extra, 0)
-        else:
-            sp = dataclasses.replace(sp, route="streamed")
+        if sp.route == "kernel":
+            extra = kernel_extra_bytes(sp, cfg)
+            if extra <= left:
+                left -= max(extra, 0)
+            else:
+                sp = dataclasses.replace(sp, route="streamed")
         routed.append(sp)
     # classes run one after another: each step may take what is left and
     # the one-supercell step reserved for the largest
-    step = max(stream_step_bytes(1, sp.qcap, sp.ccap, k) for sp in specs)
+    step = max(step_bytes(sp, k) for sp in specs)
     return routed, [None if sp.route == "kernel" else
                     rows_chunk(sp, left + step) for sp in routed]
 
@@ -380,7 +433,8 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
             lo=torch.as_tensor(lo, device=device),
             hi=torch.as_tensor(hi, device=device), radius=spec.radius,
             qcap=spec.qcap, ccap=spec.ccap, route=spec.route, qid=qid,
-            pk=pk, cand=cand, step_rows=rows, tgt=None))
+            pk=pk, cand=cand, step_rows=rows, tgt=None,
+            own=own if spec.route == "mxu" else None))
 
     inv_box, tgts = _invert_partition(classes, grid.n_points, device)
     classes = [dataclasses.replace(cp, tgt=t)
@@ -507,15 +561,28 @@ def _streamed_class(grid: GridHash, cp: ClassPlan, k: int,
                   cp.step_rows, tgt=cp.tgt, out=(buf_d, buf_i))
 
 
+def _mxu_class(grid: GridHash, cfg: KnnConfig, cp: ClassPlan,
+               buf_d: torch.Tensor, buf_i: torch.Tensor) -> None:
+    """One 'mxu' class through ``grid_class_topk``, ``cp.step_rows``
+    supercells a step, its rows scattered through the class's forward map
+    into the (n + 1, k) buffers (pad slots land in the spare row n)."""
+    grid_class_topk(grid.points, grid.cell_starts, grid.cell_counts, cp.own,
+                    cp.cand, cp.qcap, cfg.k, cp.ccap, cfg.exclude_self,
+                    float(cfg.recall_target), cfg.resolved_precision(),
+                    cp.step_rows, tgt=cp.tgt, out=(buf_d, buf_i))
+
+
 def solve_adaptive(grid: GridHash, cfg: KnnConfig,
                    plan: AdaptivePlan | None = None) -> KnnResult:
     """All-points kNN over the class schedule: one kernel launch per
     'kernel' class (rows land in their final place), :func:`streamed_topk`
-    per 'streamed' class (rows scattered through its forward map), then
-    the certificate of every row from its raw k-th distance -- a blocked
-    deficit row's NaN there fails it (NaN <= margin is false).  Results
-    stay on the device, in sorted indexing; uncertified rows are left for
-    the api's exact fallback."""
+    per 'streamed' class and ``grid_class_topk`` per 'mxu' class (rows
+    scattered through its forward map), then the certificate of every row
+    from its raw k-th distance -- a blocked deficit row's or an
+    uncertified 'mxu' row's NaN there fails it (NaN <= margin is false)
+    -- and non-finite entries become (inf, -1).  Results stay on the
+    device, in sorted indexing; uncertified rows are left for the api's
+    exact fallback."""
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
     n, k = plan.n_points, cfg.k
@@ -530,13 +597,18 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
     for cp in plan.classes:
         if cp.route == "streamed":
             _streamed_class(grid, cp, k, cfg.exclude_self, buf_d, buf_i)
-            continue
-        launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
-                            cfg.exclude_self, (out_d, out_i))
+        elif cp.route == "mxu":
+            _mxu_class(grid, cfg, cp, buf_d, buf_i)
+        else:
+            launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
+                                cfg.exclude_self, (out_d, out_i))
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)
-    return KnnResult(neighbors=out_i, dists_sq=out_d, certified=cert,
+    ok = torch.isfinite(out_d)
+    return KnnResult(neighbors=torch.where(ok, out_i, INVALID_ID),
+                     dists_sq=torch.where(ok, out_d, float("inf")),
+                     certified=cert,
                      uncert_count=(~cert).sum().to(torch.int32))
 
 
@@ -640,8 +712,14 @@ def plan_queries(cfg: KnnConfig, plan: AdaptivePlan, qcls: np.ndarray,
         max_q = int(counts.max())
         q2cap = -(-max_q // 128) * 128
         route = cp.route
+        # an 'mxu' class keeps no candidate pack: its queries take the
+        # class's exact route, the kernel on a pack built for the call
+        cand_pack = 0
+        if route == "mxu":
+            route = class_route(cfg, cp.qcap, cp.ccap)
+            cand_pack = pack_bytes(cp.n_sc, cp.qcap, cp.ccap)
         if (route == "kernel" and budget is not None
-                and (_QUERY_SLOT_BYTES * cp.n_sc * q2cap
+                and (_QUERY_SLOT_BYTES * cp.n_sc * q2cap + cand_pack
                      + (m + 1) * k * 8) > budget):
             route = "streamed"
         step = None
@@ -784,6 +862,10 @@ def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
             _streamed_query_class(grid, plan, b, q_dev, k, cfg.supercell,
                                   buf_d, buf_i)
             continue
+        if cp.pk is None:  # an 'mxu' class
+            cp = dataclasses.replace(cp, pk=pack_inputs(
+                grid.points, grid.cell_starts, grid.cell_counts, cp.own,
+                cp.cand, cp.qcap, cp.ccap))
         pk, tgt = query_pack(q_dev, cp, b, m)
         launch_kernel_class(cfg, cp.ccap, pk, tgt, k, False, (out_d, out_i))
     has = qcls >= 0

@@ -179,17 +179,31 @@ def test_topk_keys_order_lexicographically():
     assert d.tolist() == [[0.0, 1.0, 1.0, 3.0, float("inf"), float("inf")]]
 
 
-REFUSED = [dict(scorer="mxu"), dict(recall_target=0.9),
+REFUSED = [dict(scorer="bogus"), dict(recall_target=1.5),
            dict(backend="oracle"), dict(kernel="fast"),
-           dict(precision="bf16"), dict(plane_feed="yes"),
-           dict(adaptive=False), dict(dist_method="dot"),
-           dict(fallback="maybe")]
+           dict(precision="bf16", scorer="elementwise"),
+           dict(plane_feed="yes"), dict(adaptive=False),
+           dict(dist_method="dot"), dict(fallback="maybe")]
+# The scorer knobs construct and are refused when a problem is prepared,
+# as the reference refuses them (it refuses bf16 with the elementwise
+# scorer later, at solve).
+SCORER_KNOBS = ("scorer", "recall_target", "precision")
 
 
 @pytest.mark.parametrize("kw", REFUSED, ids=[next(iter(r)) for r in REFUSED])
 def test_unsupported_config_is_refused(kw):
-    with pytest.raises(InvalidConfigError):
-        pt.KnnConfig(**kw)
+    if next(iter(kw)) not in SCORER_KNOBS:
+        with pytest.raises(InvalidConfigError):
+            pt.KnnConfig(**kw)
+        return
+    pts = generate_blue_noise(200, seed=3)
+    with pytest.raises(ValueError) as want:
+        ck.KnnProblem.prepare(pts, ck.KnnConfig(k=4, **kw)).solve()
+    cfg = pt.KnnConfig(k=4, **kw)
+    with pytest.raises(ValueError) as got:
+        pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    assert type(got.value) is type(want.value) is ValueError
+    assert str(got.value) == str(want.value)
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):

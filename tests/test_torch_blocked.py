@@ -213,10 +213,15 @@ def test_grid_route_with_blocked_kernel_matches_jax(case):
     pp = pt.KnnProblem.prepare(pts, cfg, device="cpu")
     assert any(class_blocked_m(cfg, cp.ccap) for cp in pp.aplan.classes)
     p_raw = psolve(pp.grid, pp.config, pp.aplan)
-    deficit = torch.isnan(p_raw.dists_sq[:, k - 1])
+    kp = pt.KnnProblem.prepare(pts, pt.KnnConfig(**kw), device="cpu")
+    # deficit rows: the blocked kernel's NaN at column k-1 fails the
+    # certificate and is then cleared to (-1, inf), in both packages,
+    # where the one-stage kernel has a k-th neighbour
+    k_raw = psolve(kp.grid, kp.config, kp.aplan)
+    deficit = (p_raw.neighbors[:, k - 1] < 0) & (k_raw.neighbors[:, k - 1]
+                                                 >= 0)
     assert bool(deficit.any())
-    # deficit rows fail the certificate in both packages (JAX clears the
-    # NaN after certifying, so its rows are matched by certificate)
+    assert bool(torch.isinf(p_raw.dists_sq[deficit, k - 1]).all())
     assert not bool(p_raw.certified[deficit].any())
     assert not np.asarray(j_raw.certified)[deficit.numpy()].any()
     assert int(p_raw.uncert_count) == int(j_raw.uncert_count)
@@ -229,5 +234,4 @@ def test_grid_route_with_blocked_kernel_matches_jax(case):
     assert bad is None, bad.render()
     assert p_fin.certified.all() and np.isfinite(p_fin.dists_sq).all()
     # the finalized rows are the one-stage kernel's rows
-    kp = pt.KnnProblem.prepare(pts, pt.KnnConfig(**kw), device="cpu")
     np.testing.assert_array_equal(p_fin.dists_sq, kp.solve().dists_sq)

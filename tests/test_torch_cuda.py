@@ -21,6 +21,8 @@ so it is equal to the plain version at both tiers.  External queries
 and d2, through the class kernels and the streamed route; so do the
 plane feed and friends-of-friends labels (``cluster.fof_labels``, plain
 torch rounds whose link predicate rounds each operation on its own).
+The grid route's MXU class scorer (``mxu.scorer.grid_class_topk``, plain
+torch) equals its CPU run bit for bit too, NaN flags included.
 """
 
 import numpy as np
@@ -980,3 +982,115 @@ def test_gpu_serve_fof_equals_cpu(cuda_device):
     assert daemon.fof_memo_hits == 1
     np.testing.assert_array_equal(got.labels, want.labels)
     assert got.n_clusters == want.n_clusters and got.n_points == 20_005
+
+
+# -- the grid route's MXU class scorer (plain torch on the card) --------------
+
+MXU_GRID_CLOUDS = {
+    "blue-k50": (lambda: generate_blue_noise(30_000, seed=3), dict(k=50)),
+    "clustered-r1": (lambda: generate_clustered(30_000, seed=5),
+                     dict(k=10, ring_radius=1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("rt", [1.0, 0.6])
+@pytest.mark.parametrize("cloud", list(MXU_GRID_CLOUDS))
+def test_mxu_grid_class_equals_cpu_bit_for_bit(cuda_device, cloud, rt,
+                                               prec):
+    """``grid_class_topk`` of the leading supercells of every 'mxu' class
+    on the card equals the same call on the CPU: d2 bits (NaN flags of
+    the rows the fold left open included) and ids."""
+    from cuda_knearests_tpu_torch.mxu.scorer import grid_class_topk
+
+    make, kw = MXU_GRID_CLOUDS[cloud]
+    cfg = pt.KnnConfig(scorer="mxu", recall_target=rt, precision=prec, **kw)
+    prob = pt.KnnProblem.prepare(make(), cfg, device=cuda_device)
+    g = prob.grid
+    classes = [cp for cp in prob.aplan.classes if cp.route == "mxu"]
+    assert classes
+    for cp in classes:
+        rows = max(1, min(cp.n_sc, (1 << 24) // (cp.qcap * cp.ccap)))
+        args = (g.points, g.cell_starts, g.cell_counts, cp.own[:rows],
+                cp.cand[:rows])
+        call = dict(qcap=cp.qcap, k=cfg.k, ccap=cp.ccap, exclude_self=True,
+                    recall_target=rt, precision=prec,
+                    rows_chunk=max(1, rows // 3))
+        gd, gi = grid_class_topk(*args, **call)
+        cd, ci = grid_class_topk(*[a.cpu() for a in args], **call)
+        assert gd.is_cuda
+        assert torch.equal(gd.cpu().view(torch.int32), cd.view(torch.int32))
+        assert torch.equal(gi.cpu(), ci)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud,kw", [
+    ("blue-k50", dict(scorer="mxu")),
+    ("blue-k50", dict(recall_target=0.9, precision="bf16")),
+    ("clustered-r1", dict(recall_target=0.6, fallback="none"))])
+def test_gpu_mxu_grid_solve_equals_cpu(cuda_device, cloud, kw):
+    """The mxu-planned solve on the card equals the CPU solve (ids, d2,
+    certificates), within two host round trips; with the exact fallback
+    it equals the elementwise solve too; external queries against it
+    equal the CPU's."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    make, base = MXU_GRID_CLOUDS[cloud]
+    pts = make()
+    cfg = pt.KnnConfig(**base, **kw)
+    gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    assert "mxu" in {cp.route for cp in gpu.aplan.classes}
+    dispatch.reset_stats()
+    g = gpu.solve()
+    assert dispatch.stats().host_syncs <= dispatch.SYNC_BUDGET
+    c = cpu.solve()
+    assert int(g.uncert_count) == int(c.uncert_count)
+    np.testing.assert_array_equal(g.neighbors, c.neighbors)
+    np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+    np.testing.assert_array_equal(g.certified, c.certified)
+    if cfg.fallback == "brute":
+        e = pt.KnnProblem.prepare(pts, pt.KnnConfig(**base),
+                                  device=cuda_device).solve()
+        np.testing.assert_array_equal(g.neighbors, e.neighbors)
+        np.testing.assert_array_equal(g.dists_sq, e.dists_sq)
+    q = generate_uniform(5000, seed=66)
+    for a, b in zip(gpu.query(q), cpu.query(q)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", list(MXU_GRID_CLOUDS))
+def test_mxu_grid_step_memory_within_its_model(cuda_device, cloud):
+    """One step of the widest 'mxu' class at its planned rows: the peak it
+    allocates stays within ``adaptive.class_step_bytes``, the model the
+    plan chunks by.  Prints the measured bytes per pair."""
+    from cuda_knearests_tpu_torch.mxu.scorer import grid_class_topk
+    from cuda_knearests_tpu_torch.ops import adaptive
+
+    make, kw = MXU_GRID_CLOUDS[cloud]
+    cfg = pt.KnnConfig(scorer="mxu", **kw)
+    prob = pt.KnnProblem.prepare(make(), cfg, device=cuda_device)
+    g = prob.grid
+    cp = max((c for c in prob.aplan.classes if c.route == "mxu"),
+             key=lambda c: c.qcap * c.ccap)
+    rows = cp.step_rows
+    out = (torch.empty((rows * cp.qcap, cfg.k), device=cuda_device),
+           torch.empty((rows * cp.qcap, cfg.k), dtype=torch.int32,
+                       device=cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grid_class_topk(g.points, g.cell_starts, g.cell_counts, cp.own[:rows],
+                    cp.cand[:rows], cp.qcap, cfg.k, cp.ccap, True, 1.0,
+                    "f32", rows, tgt=torch.arange(rows * cp.qcap,
+                                                  device=cuda_device),
+                    out=out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    model = adaptive.class_step_bytes(rows, cp.qcap, cp.ccap)
+    print(f"mxu step {cloud}: rows {rows}, qcap {cp.qcap}, ccap {cp.ccap}: "
+          f"peak {peak} bytes, model {model} ({peak / model:.3f}), "
+          f"{peak / (rows * cp.qcap * cp.ccap):.2f} bytes a pair")
+    assert peak <= model

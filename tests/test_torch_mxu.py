@@ -400,13 +400,12 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
 
 
 def test_grid_route_points_general_d_at_the_brute_route():
-    with pytest.raises(pmem.InputContractError, match="mxu"):
-        pt.KnnProblem.prepare(np.zeros((16, 5), np.float32),
-                              pt.KnnConfig(k=4), device=CPU)
-    for kw in (dict(scorer="mxu"), dict(recall_target=0.9),
+    # the grid route's MXU tier keeps the d=3 contract too
+    for kw in (dict(), dict(scorer="mxu"), dict(recall_target=0.9),
                dict(precision="bf16")):
-        with pytest.raises(pmem.InvalidConfigError, match="solve_general"):
-            pt.KnnConfig(**kw)
+        with pytest.raises(pmem.InputContractError, match="mxu"):
+            pt.KnnProblem.prepare(np.zeros((16, 5), np.float32),
+                                  pt.KnnConfig(k=4, **kw), device=CPU)
 
 
 # -- (f) the repaired general-d pieces ----------------------------------------
