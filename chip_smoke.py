@@ -57,6 +57,19 @@ H100: the kernels target sm_90a).  It imports only the port
      cKDTree on 20,000 sampled rows (tie-aware);
   4. breaks one 900k/k=10 and one 300k/k=50 solve down by device time
      (torch.profiler);
+  4a. runs the legacy single-schedule route and the gather epilogue on the
+     900k/k=10 cloud: ``adaptive=False`` under scatter and gather, the
+     adaptive route and ``kernel='blocked'`` under gather (1 + 3 solves
+     each), ``backend='xla'`` (one solve), 1M uniform queries through the
+     legacy pipeline (``ops.query.query_knn``) one shot and at
+     query_chunk=262,144 (byte for byte equal, one launch a chunk, at most
+     two host round trips) and ``backend='oracle'`` (the engine that
+     answered printed); every exact route's ids equal the adaptive scatter
+     solve's (the kd-tree's within the tie band); the class kernels' mode
+     (b) on the legacy pack held to its plain version and timed with the
+     gather epilogue; and at a budget of 0.5 x the card's free memory the
+     clustered cloud's legacy pack refused in ``prepare`` before it is
+     allocated;
   4b. runs the grid route's MXU tier (``KnnConfig(scorer='mxu')``,
      ``mxu.scorer.grid_class_topk``, plain torch): (a) 300k blue noise at
      k=50, f32, recall_target=1.0, 1 cold + 2 warm solves, ids and d2
@@ -227,13 +240,14 @@ def quiet(fn):
     from cuda_knearests_tpu_torch.mxu import kernel as mk
     from cuda_knearests_tpu_torch.ops import cuda_solve as cs
 
-    saved = (cs.launches, cs.blocked_launches, mk.launches,
-             mk.launches_bf16, mk.split_launches, mk.prep_launches,
-             mk.prep_launches_f32)
+    saved = (cs.launches, cs.blocked_launches, cs.launches_b,
+             cs.blocked_launches_b, mk.launches, mk.launches_bf16,
+             mk.split_launches, mk.prep_launches, mk.prep_launches_f32)
     try:
         return fn()
     finally:
-        (cs.launches, cs.blocked_launches, mk.launches, mk.launches_bf16,
+        (cs.launches, cs.blocked_launches, cs.launches_b,
+         cs.blocked_launches_b, mk.launches, mk.launches_bf16,
          mk.split_launches, mk.prep_launches, mk.prep_launches_f32) = saved
 
 
@@ -1136,6 +1150,341 @@ def device_breakdown(name: str, what: str, run, launches: int,
 def solve_breakdown(name: str, prob) -> None:
     """Device time by kernel of one warm solve (:func:`device_breakdown`)."""
     device_breakdown(name, "solve", prob.solve, len(prob.aplan.classes))
+
+
+# -- phase 4a: the legacy route and the gather epilogue -----------------------
+
+LEGACY_QUERY_CHUNK = 262_144
+
+
+def legacy_solves(name: str, prob, runs: int, want: np.ndarray) -> dict:
+    """Solve a prepared problem 1 + ``runs`` times with every class-kernel
+    count set to 0 just before and read just after; each solve in at most
+    two host round trips, its ids after the fallback equal to ``want``
+    (the adaptive scatter solve's).  Returns the counts and times."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    counters = ("launches", "launches_b", "blocked_launches",
+                "blocked_launches_b")
+    for c in counters:
+        setattr(cs, c, 0)
+    times, syncs = [], 0
+    for i in range(1 + runs):
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        res = prob.solve()
+        dt = time.perf_counter() - t0
+        syncs = max(syncs, dispatch.stats().host_syncs)
+        if i or not runs:
+            times.append(dt)
+    counts = {c: getattr(cs, c) for c in counters}
+    require(syncs <= dispatch.SYNC_BUDGET,
+            f"{name}: a solve made {syncs} host round trips")
+    require(bool(np.asarray(res.certified).all()),
+            f"{name}: rows left uncertified after the fallback")
+    got = prob.get_knearests_original()
+    differ = int((got != want).any(axis=1).sum())
+    require(differ == 0, f"{name}: {differ} rows' ids differ from the "
+                         f"adaptive scatter solve's")
+    med = float(np.median(times))
+    n = prob.grid.n_points
+    print(f"  {name}: route {prob._route_name()}"
+          f"{'/' + prob.backend if prob.backend else ''}; solve median of "
+          f"{runs} {med * 1e3:.3f} ms = {n / med:,.0f} queries/s (runs ms "
+          f"{[round(t * 1e3, 3) for t in times]}); fallback rows "
+          f"{int(res.uncert_count)}; launches {counts}; host round trips "
+          f"{syncs}; ids equal to the adaptive scatter solve's", flush=True)
+    return {"median_ms": med * 1e3, "runs_ms": [t * 1e3 for t in times],
+            "fallback_rows": int(res.uncert_count), **counts}
+
+
+def mode_b_timing(name: str, pack, k: int, m: int = 0) -> dict:
+    """The class kernel's mode (b) over a legacy pack (``m`` > 0: the
+    blocked kernel) against its plain version and a cdist + topk
+    yardstick, with the bound (inputs once and the raw (S, k, qcap)
+    output once over the HBM rate, 8 f32 operations a real pair over the
+    f32 rate), and the gather epilogue's time on the kernel's output;
+    outputs equal to the plain version's."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    args = pack.pk.args()
+    if m:
+        def run(plain=False):
+            fn = cs.blocked_topk_plain if plain else cs.blocked_topk
+            return fn(*args, k, m, True)
+    else:
+        def run(plain=False):
+            fn = cs.supercell_topk_plain if plain else cs.supercell_topk
+            return fn(*args, k, True)
+    out = []
+
+    def kernel():
+        out[:] = [run()]
+
+    def gather():
+        out[1:] = [cs.gather_rows(out[0], pack.inv_flat, pack.inv_sc,
+                                  pack.qcap, k)]
+
+    ms = quiet(lambda: cuda_ms(kernel, 20))
+    plain_out = run(plain=True)
+    plain_ms = cuda_ms(lambda: run(plain=True), 3)
+    err = require_equal(f"{name} mode (b) (timed)", out[0], plain_out)
+    gather_ms = cuda_ms(gather, 20)
+    require_equal(f"{name} gathered rows", out[1], cs.gather_rows(
+        plain_out, pack.inv_flat, pack.inv_sc, pack.qcap, k))
+    q = torch.stack([pack.pk.qx, pack.pk.qy, pack.pk.qz], dim=-1)
+    c = torch.stack([pack.pk.cx, pack.pk.cy, pack.pk.cz], dim=-1)
+    step = max(1, (1 << 26) // (pack.qcap * pack.ccap))
+
+    def library():
+        for s0 in range(0, q.shape[0], step):
+            d = torch.cdist(q[s0:s0 + step], c[s0:s0 + step])
+            torch.topk(d, k, dim=-1, largest=False)
+
+    library_ms = cuda_ms(library, 3)
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    out_bytes = pack.s_total * k * pack.qcap * 8
+    pairs = int(((pack.pk.qid >= 0).sum(1).long()
+                 * (pack.pk.cid >= 0).sum(1).long()).sum())
+    t_bytes = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
+    t_ops = 8 * pairs / PEAK_F32_FLOPS * 1e3
+    g_bytes = (pack.inv_flat.numel() * 8 + 2 * pack.inv_flat.numel() * k * 8)
+    print(f"  {name} mode (b): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"cdist+topk {library_ms:.4f} ms; bytes {in_bytes + out_bytes} -> "
+          f"{t_bytes:.4f} ms; pairs {pairs} -> {t_ops:.4f} ms at 67 TFLOP/s; "
+          f"gather epilogue {gather_ms:.4f} ms ({g_bytes} bytes read and "
+          f"written -> {g_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms); outputs "
+          f"equal the plain version's", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gather_ms": gather_ms,
+            "gather_bound_ms": g_bytes / PEAK_HBM_BYTES * 1e3}, err
+
+
+def legacy_queries(prob, chunked, queries: np.ndarray, want) -> dict:
+    """1M queries through the legacy pipeline (``ops.query.query_knn``),
+    one shot on ``prob`` and in chunks on ``chunked``: byte for byte equal,
+    ids equal to the adaptive route's (``want``), each call one kernel
+    launch a chunk and at most two host round trips."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops import query as pq
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    m = queries.shape[0]
+    out, facts = {}, {}
+    for name, p in (("one shot", prob), ("chunked", chunked)):
+        chunks = -(-m // (p.config.resolved_query_chunk() or m))
+        times = []
+        cs.launches = cs.launches_b = 0
+        brute = pq.route_queries["brute"]
+        for i in range(2):
+            dispatch.reset_stats()
+            t0 = time.perf_counter()
+            out[name] = p.query(queries)
+            times.append(time.perf_counter() - t0)
+            syncs = dispatch.stats().host_syncs
+            require(syncs <= dispatch.SYNC_BUDGET,
+                    f"legacy queries ({name}): {syncs} host round trips")
+        require(cs.launches == 2 * chunks and pq.route_queries["brute"]
+                == brute, f"legacy queries ({name}): {cs.launches} kernel "
+                f"launches for 2 calls of {chunks} chunks, or a brute route")
+        facts[name] = {"ms": times[-1] * 1e3, "queries_per_s":
+                       m / times[-1], "launches": cs.launches,
+                       "launches_b": cs.launches_b, "chunks": chunks,
+                       "syncs": syncs}
+    for a, b in zip(out["chunked"], out["one shot"]):
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                "legacy queries: the chunked rows differ from the one shot")
+    differ = int((out["one shot"][0] != want).any(axis=1).sum())
+    require(differ == 0, f"legacy queries: {differ} rows' ids differ from "
+                         f"the adaptive route's")
+    print(f"  legacy queries, m={m}: {json.dumps(facts)}; chunked rows byte "
+          f"for byte the one shot's; ids equal to the adaptive route's",
+          flush=True)
+    return facts
+
+
+def oracle_run(points: np.ndarray, want: np.ndarray, k: int) -> dict:
+    """backend='oracle' on the cloud: the C++ kd-tree of ``oracle/``
+    (built here from its sources; a build or load failure fails the
+    phase), its build and solve seconds, every row certified with no
+    device round trip, and its ids against the adaptive solve's (equal,
+    or where they differ, the same distances tie-aware: the kd-tree rounds
+    its own sums)."""
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch import oracle
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    t0 = time.perf_counter()
+    native = oracle.native_available()
+    lib_s = time.perf_counter() - t0
+    require(native, "oracle: the kd-tree library of oracle/ did not build "
+                    "or load (the numpy engine would answer instead)")
+    t0 = time.perf_counter()
+    prob = pt.KnnProblem.prepare(points, pt.KnnConfig(k=k, backend="oracle"),
+                                 device=DEV)
+    build_s = time.perf_counter() - t0
+    dispatch.reset_stats()
+    t0 = time.perf_counter()
+    res = prob.solve()
+    solve_s = time.perf_counter() - t0
+    require(dispatch.stats().host_syncs == 0 and res.certified.all(),
+            "oracle: a device round trip, or an uncertified row")
+    got = prob.get_knearests_original()
+    rows = np.nonzero((got != want).any(axis=1))[0]
+    if rows.size:
+        pts64 = points.astype(np.float64)
+        d_got = ((pts64[got[rows]] - pts64[rows, None]) ** 2).sum(-1)
+        d_want = ((pts64[want[rows]] - pts64[rows, None]) ** 2).sum(-1)
+        require(bool(np.allclose(np.sort(d_got, 1), np.sort(d_want, 1),
+                                 rtol=RTOL, atol=ATOL)),
+                "oracle: rows whose distances differ from the grid's")
+    print(f"  oracle: engine C++ kd-tree (oracle.native_available() = "
+          f"{native}; library built and loaded in {lib_s:.3f} s, "
+          f"build {oracle.build_kind!r}); n={points.shape[0]}; "
+          f"tree build {build_s:.3f} s, solve {solve_s:.3f} s = "
+          f"{points.shape[0] / solve_s:,.0f} queries/s; every row certified, "
+          f"0 device round trips; {rows.size} rows' ids differ from the "
+          f"adaptive solve's, all within the tie band", flush=True)
+    return {"native": native, "lib": oracle.build_kind,
+            "n": int(points.shape[0]), "lib_s": lib_s, "build_s": build_s,
+            "solve_s": solve_s, "rows_differing": int(rows.size)}
+
+
+def budget_refusal(points: np.ndarray, k_choices=(10, 50, 100, 200)) -> dict:
+    """The memory budget at 0.5 x the card's free memory on a skewed cloud
+    under ``adaptive=False``: one global ccap makes every supercell as
+    wide as the densest.  Prints the plan's (qcap, ccap) and modeled
+    bytes at each k, and requires the smallest k whose legacy pack (gather
+    epilogue) exceeds the budget to be refused in prepare under
+    backend='auto' (no scan stands in for the kernel), with the
+    card's peak allocation during the refused prepare far below the
+    pack."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops import gridhash, solve as ps
+    from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
+
+    free, _ = torch.cuda.mem_get_info()
+    budget = int(0.5 * free)
+    grid = gridhash.build_grid(torch.as_tensor(points, device=DEV))
+    rows = []
+    for k in k_choices:
+        cfg = pt.KnnConfig(k=k, ring_radius=1, adaptive=False,
+                           epilogue="gather", hbm_budget_bytes=budget)
+        plan = ps.build_plan(grid, cfg)
+        need = cs.legacy_pack_bytes(grid.n_points, plan.n_chunks * plan.batch,
+                                    plan.qcap, plan.ccap, k, "gather")
+        rows.append((k, plan.qcap, plan.ccap, need))
+        if need > budget:
+            break
+    del grid, plan
+    k, qcap, ccap, need = rows[-1]
+    require(need > budget, f"budget: no k in {k_choices} exceeds "
+                           f"{budget} bytes")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        pt.KnnProblem.prepare(points, pt.KnnConfig(
+            k=k, ring_radius=1, adaptive=False, epilogue="gather",
+            hbm_budget_bytes=budget), device=DEV)
+        refused = None
+    except LaunchBudgetError as e:
+        refused = (e.requested, e.budget, e.site)
+    peak = torch.cuda.max_memory_allocated() - base
+    require(refused is not None and refused[0] == need,
+            f"budget: the legacy pack of {need} bytes at k={k} was not "
+            f"refused at a {budget}-byte budget ({refused})")
+    require(peak < need // 10, f"budget: the refused prepare allocated "
+                               f"{peak} bytes on the card")
+    print(f"  budget 0.5 x free = {budget} bytes: legacy (k, qcap, ccap, "
+          f"modeled bytes) {rows}; k={k} refused in {refused[2]} "
+          f"(requested {refused[0]}), peak allocation during the refused "
+          f"prepare {peak} bytes", flush=True)
+    return {"budget": budget, "plans": rows, "refused_k": k,
+            "requested": refused[0], "peak_bytes": peak}
+
+
+def legacy_phase(pts900: np.ndarray, prob10, pts_cl: np.ndarray) -> dict:
+    """The legacy single-schedule route and the gather epilogue on the
+    900k blue cube (k=10), every exact route's ids equal to the adaptive
+    scatter solve's: adaptive=False under scatter and gather (1 + 3
+    solves each), adaptive=True and kernel='blocked' under gather (1 + 3),
+    backend='xla' (one solve); 1M uniform queries through the legacy
+    pipeline one shot and at query_chunk=262,144; backend='oracle'; the
+    mode (b) kernels and the gather epilogue timed on the legacy pack;
+    and the budget's refusal on the clustered cloud."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.config import blocked_topm
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    want = prob10.get_knearests_original()
+    k = 10
+    out = {}
+    for name, kw, runs in (
+            ("legacy scatter", dict(adaptive=False), 3),
+            ("legacy gather", dict(adaptive=False, epilogue="gather"), 3),
+            ("adaptive gather", dict(epilogue="gather"), 3),
+            ("adaptive blocked gather", dict(kernel="blocked",
+                                             epilogue="gather"), 3),
+            ("legacy xla", dict(adaptive=False, backend="xla"), 0)):
+        prob, prep_s = prepared(pts900, pt.KnnConfig(k=k, **kw))
+        if prob.plan is not None:
+            plan = prob.plan
+            s_total = plan.n_chunks * plan.batch
+            need = cs.legacy_pack_bytes(prob.grid.n_points, s_total,
+                                        plan.qcap, plan.ccap, k,
+                                        prob.config.resolved_epilogue())
+            lanes = None if prob.pack is None else prob.pack.qcap
+            print(f"  {name}: plan (qcap, ccap, supercells, chunks x batch) "
+                  f"({plan.qcap}, {plan.ccap}, {s_total}, {plan.n_chunks} x "
+                  f"{plan.batch}); pack {lanes} lanes, modeled bytes {need}; "
+                  f"prepare {prep_s:.3f} s", flush=True)
+        out[name] = legacy_solves(name, prob, runs, want)
+        if name == "legacy gather":
+            legacy = prob
+        del prob
+    require(out["legacy gather"]["launches_b"] == 4
+            and out["adaptive gather"]["launches_b"] == 4
+            * len(prob10.aplan.classes)
+            and out["adaptive blocked gather"]["blocked_launches_b"] > 0
+            and out["legacy scatter"]["launches"] == 4
+            and out["legacy scatter"]["launches_b"] == 0
+            and out["legacy xla"]["launches"] == 0,
+            f"legacy phase: launches miscounted {out}")
+    timing, err = mode_b_timing("900k/k=10 legacy pack", legacy.pack, k)
+    m = blocked_topm(k, legacy.pack.ccap)
+    blocked, err_b = mode_b_timing(f"900k/k=10 legacy pack blocked m={m}",
+                                   legacy.pack, k, m)
+    queries = generate_uniform(1_000_000, seed=901)
+    q_want = prob10.query(queries)[0]
+    chunked = pt.KnnProblem.prepare(pts900, pt.KnnConfig(
+        k=k, adaptive=False, epilogue="gather",
+        query_chunk=LEGACY_QUERY_CHUNK), device=DEV)
+    out["queries"] = legacy_queries(legacy, chunked, queries, q_want)
+    del legacy, chunked, queries
+    torch.cuda.empty_cache()
+    out["oracle"] = oracle_run(pts900, want, k)
+    out["budget"] = budget_refusal(pts_cl)
+    out["mode_b"], out["mode_b_blocked"] = timing, blocked
+    out["launches_b"] = (out["legacy gather"]["launches_b"]
+                         + out["adaptive gather"]["launches_b"]
+                         + out["queries"]["one shot"]["launches_b"]
+                         + out["queries"]["chunked"]["launches_b"])
+    out["blocked_launches_b"] = out["adaptive blocked gather"][
+        "blocked_launches_b"]
+    out["max_abs_err"], out["max_abs_err_blocked"] = err, err_b
+    return out
 
 
 # -- phase 4b: the grid route's MXU tier --------------------------------------
@@ -3317,6 +3666,9 @@ def main() -> int:
     solve_breakdown("900k/k=10", prob10)
     solve_breakdown("300k/k=50", prob50)
 
+    phase("the legacy route and the gather epilogue")
+    legacy = legacy_phase(pts900, prob10, pts_cl)
+
     phase("the grid route's MXU tier")
     mxu_tier = mxu_phase(pts300, prob50, pts_cl)
 
@@ -3412,6 +3764,18 @@ def main() -> int:
              query_launches=query["blocked_launches"],
              query_ms=query["blocked"]["kernel"]["ms"],
              query_bound_ms=query["blocked"]["kernel"]["bound_ms"]),
+        dict(name="supercell_topk_mode_b", route="cuda",
+             source=CSRC + "supercell_topk.cu",
+             replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
+             launches=legacy["launches_b"],
+             max_abs_err=legacy["max_abs_err"],
+             shape="900k/k=10 legacy pack", **legacy["mode_b"]),
+        dict(name="blocked_topk_mode_b", route="cuda",
+             source=CSRC + "blocked_topk.cu",
+             replaces=REPLACES["blocked_topk"],
+             launches=legacy["blocked_launches_b"],
+             max_abs_err=legacy["max_abs_err_blocked"],
+             shape="900k/k=10 legacy pack", **legacy["mode_b_blocked"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],
@@ -3437,6 +3801,7 @@ def main() -> int:
     print(f"  plane feed: {json.dumps(planes)}", flush=True)
     print(f"  serving: {json.dumps(serve)}", flush=True)
     print(f"  MXU tier: {json.dumps(mxu_tier)}", flush=True)
+    print(f"  legacy route: {json.dumps(legacy)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

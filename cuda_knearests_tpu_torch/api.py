@@ -14,6 +14,15 @@ and ``load_problem`` checkpoint the prepared grid.  The Voronoi plane feed
 (``KnnConfig.plane_feed``, ``get_planes``, ``query(planes=True)``) is a
 host epilogue over the fetched rows (``cluster/planes.py``).
 
+Three routes, chosen at prepare as the reference chooses them
+(``_route_name``): 'oracle' (``backend='oracle'``: the kd-tree of
+``oracle.py`` on the host, every row certified), 'adaptive' (the class
+plan, ``KnnConfig.adaptive_eligible()``), else 'legacy' (one global
+schedule, ``ops/solve.py``: the class kernel over one pack of every
+supercell, or with ``backend='xla'`` the plain-torch scan; its queries
+through ``ops.query.query_knn``).  ``print_stats``/``stats`` report the
+grid, the plan and the certificate margins (``utils/stats.py``).
+
 Everything runs on the GPU unless ``device='cpu'`` is passed.
 """
 
@@ -32,18 +41,35 @@ from .io import validate_or_raise
 from .ops.adaptive import (AdaptivePlan, build_adaptive_plan, query_adaptive,
                            solve_adaptive)
 from .ops.gridhash import GridHash, build_grid
-from .ops.solve import KnnResult, brute_force_by_index
+from .ops.query import query_knn
+from .ops.solve import (KnnResult, SolvePlan, brute_force_by_index,
+                        build_plan, prepare_pack, resolve_backend)
+from .ops.solve import solve as solve_legacy
+from .oracle import KdTreeOracle
 from .runtime import dispatch
+from .utils import stats as _stats
 from .utils.memory import InvalidConfigError, InvalidKError
 from .utils.platform import resolve_device
 
 # Fields of KnnConfig that tune how the reference package runs on its own
-# hardware and cannot change an answer; load_problem drops them from a
-# checkpoint's configuration, so a checkpoint written under any value of
+# hardware and that the port does not honour; load_problem drops them from
+# a checkpoint's configuration, so a checkpoint written under any value of
 # them reads back (KnnConfig itself refuses a value it does not honour).
-_REFERENCE_RUNTIME_KNOBS = frozenset({
-    "sc_batch", "interpret", "stream_tile", "epilogue", "query_chunk",
-    "hbm_budget_bytes"})
+_REFERENCE_RUNTIME_KNOBS = frozenset({"interpret", "stream_tile"})
+
+
+def _check_scorer_route(config: KnnConfig) -> None:
+    """The reference's fail-fast resolution at prepare: the scorer knobs'
+    ValueErrors, and the MXU scorer refused off the adaptive route."""
+    config.resolved_precision()
+    if config.resolved_scorer() == "mxu" and not config.adaptive_eligible():
+        raise InvalidConfigError(
+            f"scorer='mxu' (recall_target={config.recall_target}) needs the "
+            f"adaptive grid route (adaptive=True, dist_method='diff', "
+            f"backend 'auto' or 'pallas'); this config would route to the "
+            f"legacy path and silently score elementwise -- use the "
+            f"brute/MXU route (cuda_knearests_tpu_torch.mxu.solve_general) "
+            f"for plan-free scoring")
 
 
 def radius_mask_from_knn(ids: np.ndarray, d2: np.ndarray, radius: float,
@@ -83,6 +109,14 @@ class KnnProblem:
     config: KnnConfig
     aplan: Optional[AdaptivePlan] = None
     result: Optional[KnnResult] = None
+    # the legacy route's schedule, its backend ('pallas' or 'xla') and, on
+    # 'pallas', its pack (ops.cuda_solve.LegacyPack)
+    plan: Optional[SolvePlan] = None
+    backend: Optional[str] = None
+    pack: Optional[object] = None
+    # the kd-tree of backend='oracle', over the sorted points
+    _oracle: Optional[KdTreeOracle] = dataclasses.field(default=None,
+                                                        repr=False)
     # the stored cloud in original order on the host: the validated input
     # array, kept by reference by prepare; None on a problem resumed from
     # a checkpoint until the plane feed first needs it (_host_original)
@@ -103,9 +137,13 @@ class KnnProblem:
         only casts to float32, for callers that validated already.  The
         scorer knobs are resolved first, as the reference resolves them:
         ValueError on an unknown scorer or tier, a recall_target outside
-        (0, 1], or 'elementwise' with recall_target < 1 or 'bf16'."""
+        (0, 1], or 'elementwise' with recall_target < 1 or 'bf16'; and
+        ``InvalidConfigError`` for the MXU scorer off the adaptive route.
+        The legacy route packs here, after its preflight
+        (``ops.solve.prepare_pack``) refuses what the launch gate or the
+        memory budget cannot take."""
         config = config or KnnConfig()
-        config.resolved_precision()
+        _check_scorer_route(config)
         device = resolve_device(device)
         points = (validate_or_raise(points, k=config.k) if validate
                   else np.ascontiguousarray(points, np.float32))
@@ -127,25 +165,52 @@ class KnnProblem:
                  cell_counts_host: np.ndarray | None = None
                  ) -> "KnnProblem":
         problem = cls(grid=grid, config=config)
-        if grid.n_points:
+        if not grid.n_points:
+            return problem
+        if config.backend == "oracle":
+            problem._oracle = KdTreeOracle(grid.points.cpu().numpy())
+        elif config.adaptive_eligible():
             problem.aplan = build_adaptive_plan(grid, config,
                                                 cell_counts_host)
+        else:
+            problem.plan = build_plan(grid, config, cell_counts_host)
+            problem.backend = resolve_backend(config, problem.plan)
+            problem.pack = prepare_pack(grid, config, problem.plan,
+                                        problem.backend)
         return problem
+
+    def _route_name(self) -> str:
+        """'oracle', 'adaptive' or 'legacy': the route solve and query
+        take."""
+        if self.config.backend == "oracle":
+            return "oracle"
+        return "adaptive" if self.config.adaptive_eligible() else "legacy"
 
     def solve(self) -> KnnResult:
         """Run the grid solve, then resolve uncertified rows exactly (with
         ``fallback='brute'``).  At most two host round trips.  With
         ``config.plane_feed`` the result carries the plane feed
         (``planes``)."""
+        cfg = self.config
         if self.grid.n_points == 0:
-            k = self.config.k
             self.result = KnnResult(
-                neighbors=np.empty((0, k), np.int32),
-                dists_sq=np.empty((0, k), np.float32),
+                neighbors=np.empty((0, cfg.k), np.int32),
+                dists_sq=np.empty((0, cfg.k), np.float32),
                 certified=np.empty((0,), bool), uncert_count=np.int32(0))
+        elif self._oracle is not None:
+            # the kd-tree answers on the host: no device round trip
+            ids, d2 = (self._oracle.knn_all_points(cfg.k) if cfg.exclude_self
+                       else self._oracle.knn(self._oracle.points, cfg.k))
+            self.result = KnnResult(
+                neighbors=ids, dists_sq=d2,
+                certified=np.ones((self.grid.n_points,), bool),
+                uncert_count=np.int32(0))
+        elif self.aplan is not None:
+            self.result = self._finalize(
+                solve_adaptive(self.grid, cfg, self.aplan))
         else:
-            res = solve_adaptive(self.grid, self.config, self.aplan)
-            self.result = self._finalize(res)
+            self.result = self._finalize(solve_legacy(
+                self.grid, cfg, self.plan, self.pack, self.backend))
         return self._with_plane_feed()
 
     def _finalize(self, res: KnnResult) -> KnnResult:
@@ -199,12 +264,23 @@ class KnnProblem:
     def _query_ids(self, queries: np.ndarray, k: int):
         """query()'s route (validated inputs): ((m, k) ids in original
         indexing, (m, k) d2)."""
+        cfg = self.config
         if self.grid.n_points == 0:
             # no stored points: every row is all -1/inf
             return (np.full((queries.shape[0], k), -1, np.int32),
                     np.full((queries.shape[0], k), np.inf, np.float32))
-        return query_adaptive(self.grid, self.config, self.aplan, queries, k,
-                              self.config.fallback)
+        if self._oracle is not None:
+            # sorted-index rows from the tree over sorted storage
+            ids, d2 = self._oracle.knn(queries, k)
+            perm = self.get_permutation()
+            return (np.where(ids >= 0, perm[np.clip(ids, 0, None)],
+                             ids).astype(np.int32), d2)
+        if self.aplan is not None:
+            return query_adaptive(self.grid, cfg, self.aplan, queries, k,
+                                  cfg.fallback)
+        return query_knn(self.grid, self.plan, self.pack, queries, k,
+                         cfg.supercell, cfg.fallback, cfg.resolved_epilogue(),
+                         chunk=cfg.resolved_query_chunk())
 
     def query_radius(self, queries, radius: float,
                      max_neighbors: int | None = None):
@@ -299,6 +375,16 @@ class KnnProblem:
         self._require_solved()
         return edges_from_neighbors(self.get_knearests_original(), symmetric)
 
+    def print_stats(self) -> dict:
+        """Print occupancy, plan, certification and memory
+        (``utils.stats.print_stats``); returns :meth:`stats`."""
+        return _stats.print_stats(self)
+
+    def stats(self) -> dict:
+        """The problem's statistics as a dict, with the reference's keys
+        (``utils.stats.problem_stats``)."""
+        return _stats.problem_stats(self)
+
     def _require_solved(self) -> None:
         if self.result is None:
             raise RuntimeError("call solve() first")
@@ -340,7 +426,9 @@ def load_problem(path: str, device=None) -> KnnProblem:
     """Resume a prepared problem from the ``.npz`` checkpoint the reference
     package's ``save_problem`` writes (points, permutation, cell starts and
     counts, dim, domain, config): the grid goes to ``device`` as saved and
-    the class plan is rebuilt from it."""
+    the route's plan (or kd-tree) is rebuilt from it, as ``prepare``
+    builds it.  The config keeps every honoured knob; ``interpret`` and
+    ``stream_tile``, which the port does not honour, are dropped."""
     device = resolve_device(device)
     with np.load(_npz_path(path)) as z:
         saved = json.loads(bytes(z["config_json"]).decode())
@@ -352,7 +440,7 @@ def load_problem(path: str, device=None) -> KnnProblem:
                 f"{sorted(unknown)}")
         cfg = KnnConfig(**{key: v for key, v in saved.items()
                            if key not in _REFERENCE_RUNTIME_KNOBS})
-        cfg.resolved_precision()
+        _check_scorer_route(cfg)
         counts = z["cell_counts"].astype(np.int32)
         grid = GridHash(
             points=torch.as_tensor(z["points"].astype(np.float32),

@@ -1,18 +1,18 @@
 """Runtime configuration of the PyTorch/CUDA kNN engine.
 
 Counterpart of ``cuda_knearests_tpu/config.py``: the same grid constants,
-the fields of ``KnnConfig`` that the grid route reads, and the resolution
-rules of the scorer, precision and kernel knobs.  Every field of the
-reference package's ``KnnConfig`` exists here.  Fields the grid route does
-not honour are accepted at their default value (or at the value that
-means what this port does) and any other value raises
-:class:`InvalidConfigError` at construction: a knob is never silently
-ignored.  The scorer knobs (``scorer``, ``recall_target``, ``precision``)
-are checked where the reference checks them, when a problem is prepared
-(``resolved_scorer``/``resolved_precision``).  ``load_problem`` drops the
-reference's runtime knobs (the last six fields below) from a checkpoint's
-configuration before it builds one, since they tune how the reference
-runs on its hardware and cannot change an answer.
+every field of the reference package's ``KnnConfig`` and the resolution
+rules of the scorer, precision, kernel and epilogue knobs.  Two fields
+the port does not honour, ``interpret`` and ``stream_tile``, are accepted
+at their defaults and any other value raises :class:`InvalidConfigError`
+at construction, as does an unknown value of a field with a fixed set of
+choices: a knob is never silently ignored.  The scorer knobs (``scorer``,
+``recall_target``, ``precision``) are checked where the reference checks
+them, when a problem is prepared (``resolved_scorer``/
+``resolved_precision``).  ``load_problem`` drops ``interpret`` and
+``stream_tile`` from a checkpoint's configuration before it builds one,
+since they tune how the reference runs on its hardware and cannot change
+an answer.
 """
 
 from __future__ import annotations
@@ -47,33 +47,26 @@ def default_ring_radius(k: int, density: float = DEFAULT_CELL_DENSITY) -> int:
     return max(1, int(math.ceil(r_expect)) + 1)
 
 
-# Reference-package fields the grid route does not honour, with the
-# values each accepts (the reference's default, or the value meaning
-# "exact grid route").  Anything else is refused with the reason.
+# Reference-package fields the port does not honour, with the values each
+# accepts (the reference's default).  Anything else is refused with the
+# reason.
 _UNSUPPORTED = {
-    "backend": (("auto",), "only the grid engine with the CUDA kernel is "
-                           "ported ('oracle' and 'xla' are not)"),
-    "kernel": (("kpass", "auto", "blocked"), "unknown kernel"),
-    "plane_feed": ((False, True), "plane_feed is a bool"),
-    "adaptive": ((True,), "only the adaptive class schedule is ported"),
-    "dist_method": (("diff",), "only 'diff' distance arithmetic is ported"),
-    # the reference's runtime knobs
-    "sc_batch": ((64,), "the reference's supercells per Pallas grid step; "
-                        "the CUDA kernels launch a block per supercell"),
     "interpret": ((False,), "the reference's Pallas interpret mode has no "
                             "counterpart: on the CPU the port runs its "
                             "kernels' plain versions"),
     "stream_tile": ((2048,), "the reference's streamed-route tile; the "
                              "port's streamed route sizes its own steps"),
-    "hbm_budget_bytes": ((None,), "a configured memory budget is not "
-                                  "honoured yet: the port plans against "
-                                  "0.8 x the card's free memory"),
-    "epilogue": (("auto", "scatter"), "the port's kernels scatter rows to "
-                                      "their destination (mode (a)); the "
-                                      "gather epilogue is not ported yet"),
-    "query_chunk": ((None,), "the chunked query pipeline of the "
-                             "reference's legacy query route is not "
-                             "ported"),
+}
+
+# Fields that take one of a fixed set of values.
+_CHOICES = {
+    "backend": ("auto", "pallas", "xla", "oracle"),
+    "kernel": ("kpass", "auto", "blocked"),
+    "dist_method": ("diff", "dot"),
+    "epilogue": ("auto", "scatter", "gather"),
+    "plane_feed": (False, True),
+    "adaptive": (False, True),
+    "fallback": ("brute", "none"),
 }
 
 
@@ -86,7 +79,8 @@ class KnnConfig:
       density: grid sizing target, average points per cell.
       ring_radius: candidate dilation radius in cells around each
         supercell.  None -> per-supercell radii from local ring occupancy
-        (``ops.adaptive.select_radii``).
+        (``ops.adaptive.select_radii``) on the adaptive route, and
+        ``default_ring_radius(k, density)`` on the legacy route.
       supercell: query-tile side length in cells.
       exclude_self: drop the query point itself by storage index
         (coordinate duplicates of the query are still reported).
@@ -108,9 +102,40 @@ class KnnConfig:
         exact fallback unless ``fallback='none'``.
       precision: the MXU scorer's scoring tier, 'f32', 'bf16' or 'auto'
         (f32).  Solvers read ``resolved_precision()``.
-
-    The remaining fields exist so that configurations of the reference
-    package read back; each accepts only the values this port honours.
+      adaptive: the per-radius capacity classes (``ops/adaptive.py``).
+        False, or ``dist_method='dot'``, or ``backend='xla'``, takes the
+        legacy single-schedule route: one global (qcap, ccap) over every
+        supercell (``ops/solve.py``).
+      backend: 'auto' and 'pallas' (the reference's name for its kernel
+        route) run the class kernels (``ops/cuda_solve.py``), launched on
+        the card and their plain versions on the CPU; 'xla' runs the
+        legacy route's supercell scan in plain torch
+        (``ops.solve.chunk_best``); 'oracle' answers through the kd-tree
+        of ``oracle/`` on the host (``oracle.KdTreeOracle``), every row
+        certified.
+      dist_method: 'diff' sums (a - b)^2 over x, y, z, each op rounded on
+        its own; 'dot' computes |a|^2 + |b|^2 - 2 a.b with a torch matmul
+        (no TF32), on the 'xla' scan only (it may order near-ties
+        differently).
+      sc_batch: supercells a step of the legacy schedule (the 'xla'
+        scan's chunk; the kernel route packs every supercell at once).
+      hbm_budget_bytes: device bytes one plan may commit (its packs and
+        outputs).  None -> the ``KNTPU_HBM_BUDGET_BYTES`` environment
+        variable, else 0.8 x the card's free memory, else (on the CPU)
+        unbounded; <= 0 means unbounded (``cuda_solve.hbm_budget_bytes``).
+      epilogue: how the kernel's rows reach the (n, k) output.  'scatter'
+        (mode (a)): the kernel writes each row at its destination;
+        'gather' (mode (b)): the kernel writes its (S, k, Q) layout and
+        one gather through the prepare-time inverse map reads the rows.
+        The answers are equal.  'auto' is 'scatter' on both devices (the
+        reference picks 'gather' off its kernel platforms, a gate the
+        port does not have).  Solvers read ``resolved_epilogue()``.
+      query_chunk: queries a chunk of the legacy route's external-query
+        pipeline (None: one shot); the chunks launch back to back and
+        are read back in one fetch.  Solvers read
+        ``resolved_query_chunk()``.
+      interpret, stream_tile: the reference's; accepted at their defaults
+        only.
     """
 
     k: int = DEFAULT_K
@@ -142,21 +167,42 @@ class KnnConfig:
                 raise InvalidConfigError(
                     f"{name}={value!r} is not supported by the PyTorch/CUDA "
                     f"port: {why} (accepted: {allowed})")
-        if self.fallback not in ("brute", "none"):
-            raise InvalidConfigError(
-                f"unknown fallback {self.fallback!r}: expected 'brute' or "
-                f"'none'")
-        if int(self.supercell) < 1 or int(self.max_classes) < 1:
-            raise InvalidConfigError(
-                f"supercell and max_classes must be >= 1, got "
-                f"supercell={self.supercell} max_classes={self.max_classes}")
+        for name, allowed in _CHOICES.items():
+            value = getattr(self, name)
+            if value not in allowed:
+                raise InvalidConfigError(
+                    f"unknown {name} {value!r}: expected one of {allowed}")
+        for name in ("supercell", "max_classes", "sc_batch"):
+            value = getattr(self, name)
+            if isinstance(value, bool) or int(value) < 1:
+                raise InvalidConfigError(
+                    f"{name} must be an integer >= 1, got {value!r}")
+        for name in ("hbm_budget_bytes", "query_chunk"):
+            value = getattr(self, name)
+            if value is not None and (isinstance(value, bool)
+                                      or not isinstance(value, int)):
+                raise InvalidConfigError(
+                    f"{name} must be None or an integer, got {value!r}")
+
+    def resolved_ring_radius(self) -> int:
+        """The legacy route's one global radius: ``ring_radius`` (at
+        least 1), else :func:`default_ring_radius`."""
+        if self.ring_radius is not None:
+            return max(1, int(self.ring_radius))
+        return default_ring_radius(self.k, self.density)
+
+    def adaptive_eligible(self) -> bool:
+        """Whether a problem takes the adaptive class route: ``adaptive``,
+        'diff' arithmetic and a kernel backend ('auto' or 'pallas').  The
+        reference takes 'pallas' there only on its kernel platforms; the
+        port's kernel route runs on both devices."""
+        return (self.adaptive and self.dist_method == "diff"
+                and self.backend in ("auto", "pallas"))
 
     def resolved_scorer(self) -> str:
         """:func:`resolve_scorer` of this config (ValueError on an unknown
         scorer, a recall_target outside (0, 1], or 'elementwise' below
-        1.0).  The reference also requires its adaptive route for 'mxu';
-        here ``adaptive``, ``dist_method`` and ``backend`` take only their
-        adaptive values, so every accepted config is on it."""
+        1.0)."""
         return resolve_scorer(self.scorer, self.recall_target, self.precision)
 
     def resolved_precision(self) -> str:
@@ -164,6 +210,17 @@ class KnnConfig:
         scorer (ValueError on an unknown tier, or 'bf16' with the
         elementwise scorer)."""
         return resolve_precision(self.precision, self.resolved_scorer())
+
+    def resolved_epilogue(self) -> str:
+        """:func:`resolve_epilogue` of this config: 'auto' is 'scatter'
+        on both devices."""
+        return resolve_epilogue(self.epilogue)
+
+    def resolved_query_chunk(self) -> Optional[int]:
+        """Queries a chunk of the legacy query pipeline; None (one shot)
+        for None or a value <= 0."""
+        q = self.query_chunk
+        return int(q) if q is not None and int(q) > 0 else None
 
     def effective_kernel(self) -> str:
         """The kernel string solvers resolve from.  fallback='none' pins
@@ -173,6 +230,19 @@ class KnnConfig:
         if self.fallback == "none" and self.kernel in ("blocked", "auto"):
             return "kpass"
         return self.kernel
+
+
+def resolve_epilogue(epilogue: str) -> str:
+    """'auto' -> 'scatter'; 'scatter' and 'gather' pass through; anything
+    else is the reference's ``ValueError``.  The reference resolves 'auto'
+    to 'gather' off its kernel platforms (no TPU and no interpret mode),
+    because its host routes had no fused scatter; the port's kernels and
+    their plain versions fuse it on both devices."""
+    if epilogue not in ("auto", "scatter", "gather"):
+        raise ValueError(
+            f"unknown epilogue {epilogue!r}: expected 'auto', 'scatter' or "
+            f"'gather'")
+    return "scatter" if epilogue == "auto" else epilogue
 
 
 def resolve_scorer(scorer: str, recall_target: float,

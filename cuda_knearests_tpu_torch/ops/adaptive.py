@@ -13,9 +13,10 @@ time, on the host:
      (:func:`build_class_specs`) -- the same partition as the reference
      package, which the tests hold equal;
   3. each class is packed once into kernel inputs, and the slot partition
-     is inverted into per-class forward row maps (``ClassPlan.tgt``) and a
-     per-point supercell map (``AdaptivePlan.inv_box``) for the
-     certificate.
+     is inverted into per-class forward row maps (``ClassPlan.tgt``), a
+     per-point row map into the classes' concatenated rows
+     (``AdaptivePlan.inv_row``, for the gather epilogue) and a per-point
+     supercell map (``AdaptivePlan.inv_box``) for the certificate.
 
 Each class takes one of three routes, chosen in the plan as the reference
 chooses it (``cuda_knearests_tpu/ops/adaptive.py:185-224``):
@@ -35,8 +36,11 @@ chooses it (``cuda_knearests_tpu/ops/adaptive.py:185-224``):
     above.
 
 A class never falls back after a kernel fails: the route is fixed when the
-plan is built.  Every row then gets its box-margin certificate, and
-non-finite entries become (inf, -1).
+plan is built.  Under ``epilogue='scatter'`` (and 'auto') every class
+writes its rows at their destinations; under 'gather' each kernel class
+launches mode (b), every class's rows are concatenated and one gather
+through ``inv_row`` reads the (n, k) rows.  Every row then gets its
+box-margin certificate, and non-finite entries become (inf, -1).
 
 External queries (:func:`query_adaptive`) reuse the plan: each query takes
 its supercell's class, the class's candidate pack and its route, and a
@@ -60,9 +64,8 @@ from ..config import (KnnConfig, blocked_topm, default_ring_radius,
 from ..mxu.scorer import class_eligible, class_rows_chunk, grid_class_topk
 from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
-from .cuda_solve import (_PAD_Q, ClassPack, blocked_topk, hbm_budget_bytes,
-                         pack_bytes, pack_inputs, pick_q_tile,
-                         supercell_topk)
+from .cuda_solve import (_PAD_Q, ClassPack, hbm_budget_bytes, launch_class,
+                         pack_bytes, pack_inputs, pick_q_tile)
 from .gridhash import GridHash, cell_coords_host
 from .query import brute_force_by_coords
 from .rings import ring_occupancy
@@ -221,7 +224,12 @@ class ClassPlan:
 class AdaptivePlan:
     """Class schedules plus ``inv_box``: (n,) int32 index of each stored
     point's supercell in the concatenation of the classes' supercell axes
-    (for the per-row certificate boxes).
+    (for the per-row certificate boxes), and ``inv_row``: (n,) int32 row
+    of each stored point in the row-major concatenation of every class's
+    (Sc * qcap, k) rows, row_off + supercell * qcap + slot (the gather
+    epilogue's map, built only under that epilogue, else None; equal to
+    the reference's where its classes lay rows out at the same qcap, i.e.
+    off its kernel platforms).
 
     ``class_of_sc`` / ``row_of_sc`` are (n_sc_global,) int32 host arrays,
     equal to the reference's: the class of each supercell of the grid (-1
@@ -232,6 +240,7 @@ class AdaptivePlan:
 
     classes: Tuple[ClassPlan, ...]
     inv_box: torch.Tensor
+    inv_row: Optional[torch.Tensor]
     n_points: int
     class_of_sc: np.ndarray
     row_of_sc: np.ndarray
@@ -327,13 +336,23 @@ def kernel_extra_bytes(sp: ClassSpec, cfg: KnnConfig) -> int:
                                  cfg.supercell + 2 * sp.radius))
 
 
+def gather_bytes(specs, k: int) -> int:
+    """Device bytes the gather epilogue adds: every class's (Sc * qcap, k)
+    rows three times over (a kernel class's raw output, its row-major
+    copy, the concatenation)."""
+    return 3 * 8 * k * sum(sp.rows.size * sp.qcap for sp in specs)
+
+
 def streamed_plan_bytes(specs, cfg: KnnConfig, n: int) -> int:
     """Device bytes of the plan with every class one supercell a step, the
     'mxu' classes on their route and every other class streamed: the
     (n + 1, k) outputs and the per-point supercell map, every class's
-    tables (:func:`table_bytes`), and the largest one-supercell step
-    (:func:`step_bytes`)."""
-    return ((n + 1) * cfg.k * 8 + n * 4
+    tables (:func:`table_bytes`), the largest one-supercell step
+    (:func:`step_bytes`), and under the gather epilogue its per-point row
+    map and :func:`gather_bytes`."""
+    gather = (n * 4 + gather_bytes(specs, cfg.k)
+              if cfg.resolved_epilogue() == "gather" else 0)
+    return ((n + 1) * cfg.k * 8 + n * 4 + gather
             + sum(table_bytes(sp, cfg) for sp in specs)
             + max(step_bytes(sp, cfg.k) for sp in specs))
 
@@ -402,7 +421,7 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
               else grid.cell_counts.cpu().numpy())
     sc, specs = plan_class_specs(counts, dim, cfg)
     specs, step_rows = _preflight(specs, cfg, grid.n_points,
-                                  hbm_budget_bytes(device))
+                                  hbm_budget_bytes(device, cfg))
 
     w = grid.domain / dim
     classes = []
@@ -436,47 +455,57 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
             pk=pk, cand=cand, step_rows=rows, tgt=None,
             own=own if spec.route == "mxu" else None))
 
-    inv_box, tgts = _invert_partition(classes, grid.n_points, device)
+    inv_box, inv_row, tgts = _invert_partition(
+        classes, grid.n_points, device, cfg.resolved_epilogue() == "gather")
     classes = [dataclasses.replace(cp, tgt=t)
                for cp, t in zip(classes, tgts)]
     return AdaptivePlan(classes=tuple(classes), inv_box=inv_box,
-                        n_points=grid.n_points, class_of_sc=class_of,
-                        row_of_sc=row_of)
+                        inv_row=inv_row, n_points=grid.n_points,
+                        class_of_sc=class_of, row_of_sc=row_of)
 
 
-def _class_inverse_update(inv_box: torch.Tensor, cp: ClassPlan,
+def _class_inverse_update(inv_box: torch.Tensor,
+                          inv_row: Optional[torch.Tensor], cp: ClassPlan,
                           sentinel: int, row_off: int, box_off: int):
-    """Scatter one class into the per-point supercell map and return the
-    class's forward row map ``tgt`` (slot -> stored point, ``sentinel`` on
-    pad slots).  Both directions come from the packed query ids, so they
-    cannot drift apart from the kernel's input.  ``inv_box`` has one spare
-    slot at index ``sentinel`` that absorbs pad writes."""
+    """Scatter one class into the per-point supercell and row maps and
+    return the class's forward row map ``tgt`` (slot -> stored point,
+    ``sentinel`` on pad slots).  All three come from the packed query ids,
+    so they cannot drift apart from the kernel's input.  ``inv_box`` and
+    ``inv_row`` (None: not kept) have one spare slot at index ``sentinel``
+    that absorbs pad writes."""
     qid = cp.qid
-    safe = torch.where(qid >= 0, qid, sentinel).long()
+    safe = torch.where(qid >= 0, qid, sentinel).long().reshape(-1)
     rows = torch.arange(cp.n_sc, dtype=torch.int32,
                         device=qid.device)[:, None].expand(qid.shape)
-    inv_box[safe.reshape(-1)] = (box_off + rows).reshape(-1)
-    row_off += cp.n_sc * cp.qcap
-    box_off += cp.n_sc
+    inv_box[safe] = (box_off + rows).reshape(-1)
+    end = row_off + cp.n_sc * cp.qcap
     # past int32 row indexing a wrapped index would place wrong-yet-
     # certifiable rows; refuse loudly
-    if row_off > 2**31 - 1:
+    if end > 2**31 - 1:
         raise ValueError(
-            f"solver output exceeds int32 row indexing ({row_off} rows): "
+            f"solver output exceeds int32 row indexing ({end} rows): "
             f"shard the problem")
-    return row_off, box_off, safe.reshape(-1).to(torch.int32)
+    if inv_row is not None:
+        inv_row[safe] = torch.arange(row_off, end, dtype=torch.int32,
+                                     device=qid.device)
+    return end, box_off + cp.n_sc, safe.to(torch.int32)
 
 
-def _invert_partition(classes, n: int, device: torch.device):
-    """Prepare-time inversion: (inv_box, per-class forward row maps)."""
+def _invert_partition(classes, n: int, device: torch.device,
+                      with_rows: bool):
+    """Prepare-time inversion: (inv_box, inv_row -- None without
+    ``with_rows`` --, per-class forward row maps)."""
     inv_box = torch.zeros((n + 1,), dtype=torch.int32, device=device)
+    inv_row = (torch.zeros((n + 1,), dtype=torch.int32, device=device)
+               if with_rows else None)
     row_off = box_off = 0
     tgts = []
     for cp in classes:
         row_off, box_off, tgt = _class_inverse_update(
-            inv_box, cp, n, row_off, box_off)
+            inv_box, inv_row, cp, n, row_off, box_off)
         tgts.append(tgt)
-    return inv_box[:n], tuple(tgts)
+    return (inv_box[:n], None if inv_row is None else inv_row[:n],
+            tuple(tgts))
 
 
 def streamed_topk(points: torch.Tensor, starts: torch.Tensor,
@@ -534,74 +563,101 @@ def streamed_topk(points: torch.Tensor, starts: torch.Tensor,
 
 
 def launch_kernel_class(cfg: KnnConfig, ccap: int, pk: ClassPack,
-                        tgt: torch.Tensor, k: int, exclude_self: bool,
-                        out: Tuple[torch.Tensor, torch.Tensor]) -> None:
-    """One 'kernel' class's mode (a) launch into ``out`` through the
-    forward map ``tgt``: ``blocked_topk`` where the class of candidate
-    capacity ``ccap`` runs the blocked kernel at ``k``
-    (:func:`class_blocked_m`), else ``supercell_topk``."""
-    m = class_blocked_m(cfg, ccap, k)
-    if m:
-        blocked_topk(*pk.args(), k, m, exclude_self, tgt=tgt, out=out)
-    else:
-        supercell_topk(*pk.args(), k, exclude_self, tgt=tgt, out=out)
+                        tgt: Optional[torch.Tensor], k: int,
+                        exclude_self: bool,
+                        out: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    """One 'kernel' class's launch: ``blocked_topk`` where the class of
+    candidate capacity ``ccap`` runs the blocked kernel at ``k``
+    (:func:`class_blocked_m`), else ``supercell_topk``; in mode (a) into
+    ``out`` through the forward map ``tgt``, or without them in mode (b).
+    Returns the kernel's output."""
+    return launch_class(pk, k, class_blocked_m(cfg, ccap, k), exclude_self,
+                        tgt, out)
 
 
 def _streamed_class(grid: GridHash, cp: ClassPlan, k: int,
-                    exclude_self: bool, buf_d: torch.Tensor,
-                    buf_i: torch.Tensor) -> None:
-    """One streamed class, ``cp.step_rows`` supercells a step, its rows
-    scattered through the class's forward map into the (n + 1, k) buffers
-    (pad slots land in the spare row n)."""
+                    exclude_self: bool, out=None):
+    """One streamed class, ``cp.step_rows`` supercells a step: with
+    ``out``, the (n + 1, k) buffers, its rows scattered through the
+    class's forward map (pad slots land in the spare row n); without,
+    returned as new (Sc * qcap, k) rows."""
     q_ok = cp.qid >= 0
     q = grid.points[torch.where(q_ok, cp.qid, 0).long()]
     q_excl = cp.qid if exclude_self else torch.full_like(cp.qid, -2)
-    streamed_topk(grid.points, grid.cell_starts, grid.cell_counts, cp.cand,
-                  q, q_ok, q_excl, k, cp.ccap, stream_tile(cp.ccap),
-                  cp.step_rows, tgt=cp.tgt, out=(buf_d, buf_i))
+    return streamed_topk(grid.points, grid.cell_starts, grid.cell_counts,
+                         cp.cand, q, q_ok, q_excl, k, cp.ccap,
+                         stream_tile(cp.ccap), cp.step_rows,
+                         tgt=None if out is None else cp.tgt, out=out)
 
 
-def _mxu_class(grid: GridHash, cfg: KnnConfig, cp: ClassPlan,
-               buf_d: torch.Tensor, buf_i: torch.Tensor) -> None:
+def _mxu_class(grid: GridHash, cfg: KnnConfig, cp: ClassPlan, out=None):
     """One 'mxu' class through ``grid_class_topk``, ``cp.step_rows``
-    supercells a step, its rows scattered through the class's forward map
-    into the (n + 1, k) buffers (pad slots land in the spare row n)."""
-    grid_class_topk(grid.points, grid.cell_starts, grid.cell_counts, cp.own,
-                    cp.cand, cp.qcap, cfg.k, cp.ccap, cfg.exclude_self,
-                    float(cfg.recall_target), cfg.resolved_precision(),
-                    cp.step_rows, tgt=cp.tgt, out=(buf_d, buf_i))
+    supercells a step, into ``out`` as :func:`_streamed_class` does, or
+    returned as new rows."""
+    return grid_class_topk(grid.points, grid.cell_starts, grid.cell_counts,
+                           cp.own, cp.cand, cp.qcap, cfg.k, cp.ccap,
+                           cfg.exclude_self, float(cfg.recall_target),
+                           cfg.resolved_precision(), cp.step_rows,
+                           tgt=None if out is None else cp.tgt, out=out)
+
+
+def _gather_classes(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan):
+    """The gather epilogue: each class's rows as a row-major (Sc * qcap,
+    k) block -- a kernel class's mode (b) output transposed, a streamed or
+    'mxu' class's rows as they come -- concatenated, and the (n, k) rows
+    read by one gather through ``plan.inv_row``."""
+    k = cfg.k
+    blocks = []
+    for cp in plan.classes:
+        if cp.route == "streamed":
+            blocks.append(_streamed_class(grid, cp, k, cfg.exclude_self))
+        elif cp.route == "mxu":
+            blocks.append(_mxu_class(grid, cfg, cp))
+        else:
+            raw = launch_kernel_class(cfg, cp.ccap, cp.pk, None, k,
+                                      cfg.exclude_self, None)
+            blocks.append(tuple(a.transpose(1, 2).reshape(-1, k)
+                                for a in raw))
+    idx = plan.inv_row.long()
+    return (torch.cat([b[0] for b in blocks])[idx],
+            torch.cat([b[1] for b in blocks])[idx])
 
 
 def solve_adaptive(grid: GridHash, cfg: KnnConfig,
                    plan: AdaptivePlan | None = None) -> KnnResult:
-    """All-points kNN over the class schedule: one kernel launch per
-    'kernel' class (rows land in their final place), :func:`streamed_topk`
-    per 'streamed' class and ``grid_class_topk`` per 'mxu' class (rows
-    scattered through its forward map), then the certificate of every row
-    from its raw k-th distance -- a blocked deficit row's or an
-    uncertified 'mxu' row's NaN there fails it (NaN <= margin is false)
-    -- and non-finite entries become (inf, -1).  Results stay on the
-    device, in sorted indexing; uncertified rows are left for the api's
-    exact fallback."""
+    """All-points kNN over the class schedule, by ``cfg.resolved_epilogue()``:
+    'scatter', one kernel launch per 'kernel' class (rows land in their
+    final place), :func:`streamed_topk` per 'streamed' class and
+    ``grid_class_topk`` per 'mxu' class (rows scattered through its
+    forward map); 'gather', :func:`_gather_classes`.  Then the
+    certificate of every row from its raw k-th distance -- a blocked
+    deficit row's or an uncertified 'mxu' row's NaN there fails it (NaN <=
+    margin is false) -- and non-finite entries become (inf, -1).  Results
+    stay on the device, in sorted indexing; uncertified rows are left for
+    the api's exact fallback."""
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
     n, k = plan.n_points, cfg.k
     device = grid.device
-    # one spare row past the n real ones absorbs the streamed classes' pad
-    # slots (their forward map sends them to row n)
-    buf_d = torch.full((n + 1, k), float("inf"), dtype=torch.float32,
-                       device=device)
-    buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
-                       device=device)
-    out_d, out_i = buf_d[:n], buf_i[:n]
-    for cp in plan.classes:
-        if cp.route == "streamed":
-            _streamed_class(grid, cp, k, cfg.exclude_self, buf_d, buf_i)
-        elif cp.route == "mxu":
-            _mxu_class(grid, cfg, cp, buf_d, buf_i)
-        else:
-            launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
-                                cfg.exclude_self, (out_d, out_i))
+    if cfg.resolved_epilogue() == "gather":
+        out_d, out_i = _gather_classes(grid, cfg, plan)
+    else:
+        # one spare row past the n real ones absorbs the streamed classes'
+        # pad slots (their forward map sends them to row n)
+        buf_d = torch.full((n + 1, k), float("inf"), dtype=torch.float32,
+                           device=device)
+        buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
+                           device=device)
+        out_d, out_i = buf_d[:n], buf_i[:n]
+        for cp in plan.classes:
+            if cp.route == "streamed":
+                _streamed_class(grid, cp, k, cfg.exclude_self,
+                                (buf_d, buf_i))
+            elif cp.route == "mxu":
+                _mxu_class(grid, cfg, cp, (buf_d, buf_i))
+            else:
+                launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
+                                    cfg.exclude_self, (out_d, out_i))
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)
@@ -849,7 +905,7 @@ def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
     device = grid.device
     qcls, qrow = bucket_queries(grid, cfg, plan, queries)
     buckets = plan_queries(cfg, plan, qcls, qrow, k,
-                           hbm_budget_bytes(device))
+                           hbm_budget_bytes(device, cfg))
     q_dev = dispatch.stage(queries, device)
     buf_d = torch.full((m + 1, k), float("inf"), dtype=torch.float32,
                        device=device)

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
+import sys
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -37,7 +39,7 @@ import torch
 from ..utils.memory import LaunchBudgetError
 from . import _build
 from .solve import pack_cells
-from .topk import pack_key, smallest_keys, unpack_key
+from .topk import INVALID_ID, pack_key, smallest_keys, unpack_key
 
 # Sentinel ids of pad query / candidate slots.  Distinct negatives, so a
 # pad query never "self-excludes" a pad candidate.
@@ -76,9 +78,11 @@ _HBM_BUDGET_FRACTION = 0.8
 _PLAIN_CHUNK_PAIRS = 1 << 24
 
 # Kernel launches made by supercell_topk and by blocked_topk (CUDA tensors
-# only).
+# only), and of them the mode (b) launches.
 launches = 0
 blocked_launches = 0
+launches_b = 0
+blocked_launches_b = 0
 
 
 class KernelLaunchError(RuntimeError):
@@ -206,9 +210,28 @@ def pack_bytes(n_sc: int, qcap: int, ccap: int) -> int:
     return 4 * n_sc * (4 * qcap + 4 * ccap + qcap)
 
 
-def hbm_budget_bytes(device: torch.device) -> Optional[int]:
-    """The memory one solve may commit on ``device``: a fraction of what
-    CUDA reports free; None (unbounded) on the CPU."""
+_HBM_BUDGET_ENV = "KNTPU_HBM_BUDGET_BYTES"
+
+
+def hbm_budget_bytes(device: torch.device, cfg=None) -> Optional[int]:
+    """The device bytes one plan may commit, or None for unbounded, as the
+    reference resolves it: the config's ``hbm_budget_bytes`` wins (<= 0:
+    unbounded); then the ``KNTPU_HBM_BUDGET_BYTES`` environment variable
+    (<= 0: unbounded; a malformed value is ignored with a line on stderr
+    and leaves the budget unbounded); then a fraction of what CUDA
+    reports free on ``device``; on the CPU, unbounded."""
+    explicit = None if cfg is None else cfg.hbm_budget_bytes
+    if explicit is not None:
+        return int(explicit) if explicit > 0 else None
+    raw = os.environ.get(_HBM_BUDGET_ENV)
+    if raw is not None:
+        try:
+            value = int(float(raw))
+        except (ValueError, OverflowError):
+            print(f"ignoring malformed {_HBM_BUDGET_ENV}={raw!r}",
+                  file=sys.stderr, flush=True)
+            return None
+        return value if value > 0 else None
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
@@ -383,11 +406,6 @@ def _launch(name: str, args, s_total: int, qcap: int, ccap: int, k: int,
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {device}")
     if tgt is None:
-        if s_total * k * qcap > 2**31 - 1:
-            raise ValueError(
-                f"raw kernel output exceeds int32 indexing "
-                f"({s_total * k * qcap} elements): shard the problem or "
-                f"reduce k")
         out = (torch.empty((s_total, k, qcap), dtype=torch.float32,
                            device=device),
                torch.empty((s_total, k, qcap), dtype=torch.int32,
@@ -427,16 +445,19 @@ def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback."""
-    global launches
+    global launches, launches_b
     args = (qx, qy, qz, qid, cx, cy, cz, cid)
     s_total, qcap, ccap = _check(*args, k)
     k = int(k)
     plan = topk_plan(k, qcap, ccap)
+    if tgt is None:
+        check_raw_indexing(s_total, k, qcap)
     if qx.device.type == "cpu":
         return supercell_topk_plain(*args, k, exclude_self, tgt, out)
     out, launched = _launch("supercell_topk", args, s_total, qcap, ccap, k,
                             (), exclude_self, tgt, out, plan)
     launches += launched
+    launches_b += launched and tgt is None
     return out
 
 
@@ -451,15 +472,193 @@ def blocked_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
     CPU tensors run the plain version.  CUDA tensors launch
     ``csrc/blocked_topk.cu`` on the current stream, or raise: there is no
     fallback."""
-    global blocked_launches
+    global blocked_launches, blocked_launches_b
     args = (qx, qy, qz, qid, cx, cy, cz, cid)
     s_total, qcap, ccap = _check(*args, k)
     _check_blocked(ccap, m)
     k, m = int(k), int(m)
     plan = topk_plan(k, qcap, ccap, m)
+    if tgt is None:
+        check_raw_indexing(s_total, k, qcap)
     if qx.device.type == "cpu":
         return blocked_topk_plain(*args, k, m, exclude_self, tgt, out)
     out, launched = _launch("blocked_topk", args, s_total, qcap, ccap, k,
                             (m,), exclude_self, tgt, out, plan)
     blocked_launches += launched
+    blocked_launches_b += launched and tgt is None
     return out
+
+
+# -- the legacy single-schedule route -----------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LegacyPack:
+    """The legacy route's kernel inputs, packed once at prepare time: the
+    counterpart of the reference's ``PallasPack``.
+
+    ``pk`` packs every supercell of the plan (those past the grid's edge
+    are all pads) at ``qcap``, the plan's query capacity rounded up to 128
+    as the reference lays out its lanes, and ``ccap`` candidate slots;
+    ``lo``/``hi`` are the (S, 3) f32 dilated-box corners.  ``inv_flat``
+    (n,) is the inverse of the slot partition: stored point r lives in
+    flat slot ``inv_flat[r]`` of the (S * qcap) slot axis, in supercell
+    ``inv_sc[r] = inv_flat[r] // qcap``.  ``tgt`` (S * qcap,) is the
+    forward map, each slot's stored point (n on pads), built from the same
+    packed ids, so the two directions cannot drift apart."""
+
+    pk: ClassPack
+    lo: torch.Tensor
+    hi: torch.Tensor
+    inv_flat: torch.Tensor
+    inv_sc: torch.Tensor
+    tgt: torch.Tensor
+    qcap: int
+    ccap: int
+    s_total: int
+
+
+def legacy_pack_bytes(n: int, s_total: int, qcap: int, ccap: int, k: int,
+                      epilogue: str) -> int:
+    """Device bytes of the legacy pack and one solve's outputs: per
+    supercell its packed slots and forward map (:func:`pack_bytes`, qcap
+    rounded up to 128) and its box; per stored point ``inv_flat``,
+    ``inv_sc`` and the (n, k) rows; under 'gather' also the kernel's raw
+    (S, k, qcap) output."""
+    q = -(-qcap // 128) * 128
+    need = pack_bytes(s_total, q, ccap) + 24 * s_total + 8 * n + 8 * n * k
+    if epilogue == "gather":
+        need += 8 * s_total * k * q
+    return need
+
+
+def preflight_launch(qcap: int, ccap: int, k: int, s_total: int, n: int, *,
+                     m: int = 0, epilogue: str = "scatter",
+                     site: str = "prepare_pack",
+                     budget: Optional[int] = None) -> None:
+    """Refuse a legacy launch before anything is allocated, with the same
+    :class:`LaunchBudgetError` (kind 'oom') as the adaptive plan's
+    preflight: when the class kernel's launch gate refuses k (m > 0: the
+    blocked kernel's k + m), or when :func:`legacy_pack_bytes` exceeds
+    ``budget`` (None: unbounded).  backend='xla' runs the plain scan
+    instead, on request only."""
+    try:
+        topk_plan(k, -(-qcap // 128) * 128, ccap, m)
+    except LaunchBudgetError as e:
+        raise LaunchBudgetError(
+            f"{site}: the class kernel's launch gate refuses the legacy "
+            f"pack: {e}; pass backend='xla' for the plain scan",
+            requested=e.requested, budget=e.budget, site=site) from e
+    if budget is None:
+        return
+    need = legacy_pack_bytes(n, s_total, qcap, ccap, k, epilogue)
+    if need > budget:
+        raise LaunchBudgetError(
+            f"{site}: the legacy pack and its outputs need {need} bytes "
+            f"(qcap={qcap}, ccap={ccap}, k={k}, supercells={s_total}, "
+            f"epilogue={epilogue!r}), above the {budget}-byte budget; use "
+            f"the adaptive route, lower config.supercell, or raise "
+            f"config.hbm_budget_bytes / {_HBM_BUDGET_ENV}",
+            requested=need, budget=budget, site=site)
+
+
+def build_pack(points: torch.Tensor, starts: torch.Tensor,
+               counts: torch.Tensor, plan) -> LegacyPack:
+    """Pack every supercell of a legacy ``SolvePlan`` (``ops.solve``) with
+    :func:`pack_inputs`, and invert its slot partition."""
+    s_total = plan.n_chunks * plan.batch
+    qcap = -(-plan.qcap // 128) * 128
+    pk = pack_inputs(points, starts, counts,
+                     plan.own_cells.reshape(s_total, -1),
+                     plan.cand_cells.reshape(s_total, -1), qcap, plan.ccap)
+    n = points.shape[0]
+    tgt = torch.where(pk.qid >= 0, pk.qid, n).reshape(-1)
+    inv = torch.zeros((n + 1,), dtype=torch.int32, device=points.device)
+    inv[tgt.long()] = torch.arange(s_total * qcap, dtype=torch.int32,
+                                   device=points.device)
+    inv_flat = inv[:n]
+    return LegacyPack(pk=pk, lo=plan.box_lo.reshape(s_total, 3),
+                      hi=plan.box_hi.reshape(s_total, 3), inv_flat=inv_flat,
+                      inv_sc=inv_flat // qcap, tgt=tgt.to(torch.int32),
+                      qcap=qcap, ccap=int(plan.ccap), s_total=s_total)
+
+
+def check_raw_indexing(s_total: int, k: int, qcap: int) -> None:
+    """The reference's refusal of a raw (S, k, qcap) output past int32
+    indexing, where its gather index would wrap: checked by both wrappers
+    before a mode (b) launch, on either device."""
+    if s_total * k * qcap > 2**31 - 1:
+        raise ValueError(
+            f"raw kernel output exceeds int32 indexing "
+            f"({s_total * k * qcap} elements): shard the problem or "
+            f"reduce k")
+
+
+def launch_class(pk: ClassPack, k: int, m: int, exclude_self: bool,
+                 tgt: Optional[torch.Tensor] = None,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One class-kernel launch over a pack: :func:`blocked_topk` at kept
+    count ``m`` when m > 0, else :func:`supercell_topk`; mode (a) into
+    ``out`` through ``tgt``, or mode (b) without them.  Returns the
+    kernel's output."""
+    if m:
+        return blocked_topk(*pk.args(), k, m, exclude_self, tgt=tgt, out=out)
+    return supercell_topk(*pk.args(), k, exclude_self, tgt=tgt, out=out)
+
+
+def gather_rows(out: Tuple[torch.Tensor, torch.Tensor], inv_flat, inv_sc,
+                qcap: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather epilogue: (rows, k) d2 and ids read straight from mode
+    (b)'s raw (S, k, qcap) output, row r at supercell ``inv_sc[r]``, lane
+    ``inv_flat[r] % qcap``: one gather at the composed flat index
+    ``inv_sc * k * qcap + lane + j * qcap``."""
+    base = inv_sc.long() * (k * qcap) + (inv_flat % qcap).long()
+    idx = base[:, None] + torch.arange(k, device=base.device) * qcap
+    return out[0].reshape(-1)[idx], out[1].reshape(-1)[idx]
+
+
+def pack_rows(pk: ClassPack, k: int, m: int, exclude_self: bool,
+              epilogue: str, tgt: torch.Tensor, inv_flat: torch.Tensor,
+              inv_sc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pack's (rows, k) d2 and ids, a row per entry of ``inv_flat``,
+    by ``epilogue`` (:func:`launch_class` picks the kernel):
+    'scatter', mode (a) into new (inf, -1) rows through the forward map
+    ``tgt`` (slot -> row; pads point past the rows and are skipped);
+    'gather', mode (b), then :func:`gather_rows` through the inverse maps
+    ``inv_flat`` / ``inv_sc``.  The two are equal bit for bit."""
+    if epilogue == "gather":
+        return gather_rows(launch_class(pk, k, m, exclude_self), inv_flat,
+                           inv_sc, int(pk.qx.shape[1]), k)
+    rows, device = inv_flat.shape[0], pk.qx.device
+    out = (torch.full((rows, k), float("inf"), dtype=torch.float32,
+                      device=device),
+           torch.full((rows, k), INVALID_ID, dtype=torch.int32,
+                      device=device))
+    return launch_class(pk, k, m, exclude_self, tgt, out)
+
+
+def solve_packed(pack: LegacyPack, points: torch.Tensor, k: int,
+                 exclude_self: bool, domain: float, kernel: str = "kpass",
+                 epilogue: str = "scatter"):
+    """The legacy route's solve over a prepared pack: one class-kernel
+    launch (``blocked_topk`` when ``kernel`` is 'blocked', else
+    ``supercell_topk``) by ``epilogue`` (:func:`pack_rows`: 'scatter'
+    through ``tgt``, 'gather' through ``inv_flat``/``inv_sc``, equal bit
+    for bit), then the certificates.  Returns ((n, k) ids, (n, k) d2,
+    (n,) certified, the uncertified count), sorted indexing, on the
+    pack's device.  The certificate reads each row's raw k-th d2 before
+    non-finite entries become (-1, inf): a blocked deficit row's NaN
+    fails it even where the margin is infinite."""
+    from .solve import _margin_sq
+    from ..config import blocked_topm
+
+    m = blocked_topm(k, pack.ccap) if kernel == "blocked" else 0
+    row_d, row_i = pack_rows(pack.pk, k, m, exclude_self, epilogue,
+                             pack.tgt, pack.inv_flat, pack.inv_sc)
+    raw_kth = row_d[:, k - 1]
+    ok = torch.isfinite(row_d)
+    row_i = torch.where(ok, row_i, INVALID_ID)
+    row_d = torch.where(ok, row_d, float("inf"))
+    inv_sc = pack.inv_sc.long()
+    cert = raw_kth <= _margin_sq(points, pack.lo[inv_sc], pack.hi[inv_sc],
+                                 domain)
+    return row_i, row_d, cert, (~cert).sum().to(torch.int32)

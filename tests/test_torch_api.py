@@ -10,6 +10,7 @@ packages because XLA's CPU backend contracts multiply-adds.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -118,11 +119,22 @@ def test_load_problem_refuses_unknown_config_fields(tmp_path):
     ck.save_problem(jp, path)
     loaded = pt.load_problem(path, device="cpu")
     assert loaded.config.k == 5
-    jp_bad = dataclasses.replace(jp, config=ck.KnnConfig(k=5,
-                                                         backend="oracle"))
-    ck.save_problem(jp_bad, path)
-    with pytest.raises(InvalidConfigError, match="backend"):
-        pt.load_problem(path, device="cpu")
+    # a field no KnnConfig has, and a value of a known field the port
+    # does not know
+    with np.load(path + ".npz") as z:
+        arrays = dict(z)
+    for extra, match in (({"warp_drive": 9}, "warp_drive"),
+                         ({"backend": "tpu"}, "backend")):
+        saved = dict(json.loads(bytes(arrays["config_json"]).decode()),
+                     **extra)
+        np.savez_compressed(path, **dict(arrays, config_json=np.bytes_(
+            json.dumps(saved).encode())))
+        with pytest.raises(InvalidConfigError, match=match):
+            pt.load_problem(path, device="cpu")
+    # backend='oracle' now reads back, on its own route
+    ck.save_problem(dataclasses.replace(
+        jp, config=ck.KnnConfig(k=5, backend="oracle")), path)
+    assert pt.load_problem(path, device="cpu")._route_name() == "oracle"
 
 
 def test_knn_and_degraded_modes_match_jax():
@@ -180,10 +192,10 @@ def test_topk_keys_order_lexicographically():
 
 
 REFUSED = [dict(scorer="bogus"), dict(recall_target=1.5),
-           dict(backend="oracle"), dict(kernel="fast"),
+           dict(backend="tpu"), dict(kernel="fast"),
            dict(precision="bf16", scorer="elementwise"),
-           dict(plane_feed="yes"), dict(adaptive=False),
-           dict(dist_method="dot"), dict(fallback="maybe")]
+           dict(plane_feed="yes"), dict(adaptive="yes"),
+           dict(dist_method="cosine"), dict(fallback="maybe")]
 # The scorer knobs construct and are refused when a problem is prepared,
 # as the reference refuses them (it refuses bf16 with the elementwise
 # scorer later, at solve).
@@ -242,7 +254,7 @@ def test_plan_over_device_budget_is_refused(monkeypatch):
     for budget, route in ((need, "streamed"), (pack - 1, "streamed"),
                           (pack + 1, "streamed"), (need + extra, "kernel")):
         monkeypatch.setattr(adaptive, "hbm_budget_bytes",
-                            lambda device: budget)
+                            lambda device, cfg=None: budget)
         p = pt.KnnProblem.prepare(pts, cfg, device="cpu")
         assert [c.route for c in p.aplan.classes] == [route], budget
         np.testing.assert_array_equal(p.solve().neighbors, want)
@@ -250,7 +262,7 @@ def test_plan_over_device_budget_is_refused(monkeypatch):
     # needs with its class streamed one supercell a step
     for budget in (need - 1, 10_000):
         monkeypatch.setattr(adaptive, "hbm_budget_bytes",
-                            lambda device: budget)
+                            lambda device, cfg=None: budget)
         with pytest.raises(LaunchBudgetError,
                            match="no route can hold") as e:
             pt.KnnProblem.prepare(pts, cfg, device="cpu")

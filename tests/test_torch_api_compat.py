@@ -1,10 +1,11 @@
 """The port's API surface against the JAX package's, call for call:
 ``KnnProblem.prepare``'s positional order ``(points, config, dim,
 validate)`` with ``device`` keyword-only, ``with_points(validate=)``, and
-every field of the reference ``KnnConfig`` (accepted at the reference's
-default, refused otherwise with ``InvalidConfigError`` naming the field).
-The JAX side runs its Pallas kernels in interpret mode, as its own tests
-do on the CPU.
+every field of the reference ``KnnConfig``: the honoured knobs give the
+reference's answers, ``interpret`` and ``stream_tile`` are accepted at the
+reference's default and refused otherwise with ``InvalidConfigError``
+naming the field.  The JAX side runs its Pallas kernels in interpret mode,
+as its own tests do on the CPU.
 """
 
 import dataclasses
@@ -109,9 +110,7 @@ def test_runtime_knob_accepted_at_its_default(name):
     assert getattr(pt.KnnConfig(**{name: default}), name) == default
 
 
-REFUSED_KNOBS = [("hbm_budget_bytes", 1 << 30), ("stream_tile", 1024),
-                 ("query_chunk", 256), ("epilogue", "gather"),
-                 ("sc_batch", 8), ("interpret", True)]
+REFUSED_KNOBS = [("stream_tile", 1024), ("interpret", True)]
 
 
 @pytest.mark.parametrize("name,value", REFUSED_KNOBS,
@@ -122,16 +121,60 @@ def test_runtime_knob_refused_elsewhere(name, value):
         pt.KnnConfig(**{name: value})
 
 
+# Knobs the port honours, each with the rest of a config that reaches the
+# route it tunes, run through both packages.
+HONOURED_KNOBS = [
+    ("hbm_budget_bytes", 1 << 30, {}),
+    ("query_chunk", 256, dict(adaptive=False)),
+    ("epilogue", "gather", {}),
+    ("sc_batch", 8, dict(adaptive=False, backend="xla")),
+    ("adaptive", False, {}),
+    ("backend", "xla", {}),
+    ("backend", "oracle", {}),
+    ("dist_method", "dot", {}),
+]
+
+
+@pytest.mark.parametrize("name,value,rest", HONOURED_KNOBS,
+                         ids=[f"{n}={v}" for n, v, _ in HONOURED_KNOBS])
+def test_runtime_knob_honoured_like_jax(cloud, name, value, rest):
+    """A knob the reference honours gives its answers in the port: the
+    self-solve's ids and the queries' ids equal, d2 within the tie-aware
+    band (the 'dot' form's within its own rounding of |p|^2 ~ 3e6)."""
+    kw = dict(k=8, **{name: value}, **rest)
+    jp = ck.KnnProblem.prepare(cloud, ck.KnnConfig(interpret=True, **kw))
+    pp = pt.KnnProblem.prepare(cloud, pt.KnnConfig(**kw), device="cpu")
+    assert getattr(pp.config, name) == value
+    assert pp._route_name() == jp._route_name()
+    jp.solve()
+    pp.solve()
+    np.testing.assert_array_equal(pp.get_knearests_original(),
+                                  jp.get_knearests_original())
+    # the 'dot' form rounds terms of magnitude max |p|^2: a band of 16
+    # eps32 of it (as tests/test_torch_legacy.py holds it)
+    atol = (16 * float(np.finfo(np.float32).eps)
+            * float((cloud.astype(np.float64) ** 2).sum(1).max())
+            if value == "dot" else 1e-2)
+    np.testing.assert_allclose(pp.get_dists_sq(), jp.get_dists_sq(),
+                               rtol=1e-4, atol=atol)
+    queries = generate_uniform(300, seed=2)
+    (pi, pd), (ji, jd) = pp.query(queries), jp.query(queries)
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_allclose(pd, jd, rtol=1e-4, atol=1e-2)
+
+
 def test_epilogue_scatter_is_what_the_port_does():
     assert ck.KnnConfig(epilogue="scatter").epilogue == "scatter"
     assert pt.KnnConfig(epilogue="scatter").epilogue == "scatter"
+    assert pt.KnnConfig().resolved_epilogue() == "scatter"
+    assert pt.KnnConfig(epilogue="gather").resolved_epilogue() == "gather"
     with pytest.raises(InvalidConfigError, match="epilogue"):
         pt.KnnConfig(epilogue="fused")
 
 
 def test_checkpoint_with_runtime_knobs_reads_back(cloud, tmp_path):
-    """load_problem drops the reference's runtime knobs, whatever their
-    saved values."""
+    """load_problem keeps the honoured knobs and drops ``interpret`` and
+    ``stream_tile``, whatever their saved values."""
     cfg = ck.KnnConfig(k=6, interpret=True, hbm_budget_bytes=1 << 30,
                        stream_tile=1024, epilogue="gather", sc_batch=8,
                        query_chunk=256)
@@ -139,7 +182,9 @@ def test_checkpoint_with_runtime_knobs_reads_back(cloud, tmp_path):
     path = str(tmp_path / "knobs")
     ck.save_problem(jp, path)
     loaded = pt.load_problem(path, device="cpu")
-    assert loaded.config == pt.KnnConfig(k=6)
+    assert loaded.config == pt.KnnConfig(
+        k=6, hbm_budget_bytes=1 << 30, epilogue="gather", sc_batch=8,
+        query_chunk=256)
     jp.solve()
     loaded.solve()
     np.testing.assert_array_equal(loaded.get_knearests_original(),

@@ -394,7 +394,8 @@ def test_gpu_forced_budget_streams_one_class(cuda_device, monkeypatch):
     extra = [adaptive.kernel_extra_bytes(sp, cfg) for sp in specs]
     budget = (adaptive.streamed_plan_bytes(specs, cfg, free.grid.n_points)
               + min(extra))
-    monkeypatch.setattr(adaptive, "hbm_budget_bytes", lambda device: budget)
+    monkeypatch.setattr(adaptive, "hbm_budget_bytes",
+                        lambda device, cfg=None: budget)
     gpu, _ = _solve_pair(pts, cfg, cuda_device)
     routes = [cp.route for cp in gpu.aplan.classes]
     assert sorted(routes) == ["kernel", "streamed"]
@@ -775,7 +776,8 @@ def test_gpu_query_forced_streamed_equals_cpu(cuda_device, monkeypatch):
     _query_pair(gpu, cpu, q, "launches", 1)
     want = cpu.query(q)
     budget = b.pack_bytes + (q.shape[0] + 1) * 8 * 8 - 1
-    monkeypatch.setattr(adaptive, "hbm_budget_bytes", lambda device: budget)
+    monkeypatch.setattr(adaptive, "hbm_budget_bytes",
+                        lambda device, cfg=None: budget)
     (r,) = adaptive.plan_queries(cfg, gpu.aplan, qcls, qrow, 8, budget)
     assert r.route == "streamed" and r.step_rows < b.n_sc
     before = cs.launches
@@ -1094,3 +1096,117 @@ def test_mxu_grid_step_memory_within_its_model(cuda_device, cloud):
           f"peak {peak} bytes, model {model} ({peak / model:.3f}), "
           f"{peak / (rows * cp.qcap * cp.ccap):.2f} bytes a pair")
     assert peak <= model
+
+
+# (name, config): the legacy route and the gather epilogue; each runs the
+# class kernel named by its counter.
+LEGACY_GPU_CASES = {
+    "legacy-scatter": (dict(adaptive=False), "launches"),
+    "legacy-gather": (dict(adaptive=False, epilogue="gather"), "launches_b"),
+    "legacy-blocked-gather": (dict(adaptive=False, kernel="blocked",
+                                   epilogue="gather"), "blocked_launches_b"),
+    "legacy-xla": (dict(adaptive=False, backend="xla"), None),
+    "adaptive-gather": (dict(epilogue="gather"), "launches_b"),
+    "adaptive-blocked-gather": (dict(kernel="blocked", epilogue="gather"),
+                                "blocked_launches_b"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LEGACY_GPU_CASES))
+def test_gpu_legacy_and_gather_equal_cpu(cuda_device, case):
+    """The legacy route and the gather epilogue on the card: the kernel
+    launched in the mode its counter names (none on the 'xla' scan), the
+    raw solve (before the fallback) and the final rows and queries equal
+    the CPU's bit for bit, and ids equal the adaptive scatter solve's."""
+    from cuda_knearests_tpu_torch.ops import adaptive, solve as psolve
+
+    kw, counter = LEGACY_GPU_CASES[case]
+    # radius 1 leaves rows for the fallback (565 of 20,000)
+    pts = generate_blue_noise(20_000, seed=3)
+    cfg = pt.KnnConfig(k=10, ring_radius=1, **kw)
+    gpu = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    cpu = pt.KnnProblem.prepare(pts, cfg, device="cpu")
+    base = pt.KnnProblem.prepare(pts, pt.KnnConfig(k=10, ring_radius=1),
+                                 device="cpu")
+
+    def raw(p):
+        if p.aplan is not None:
+            return adaptive.solve_adaptive(p.grid, p.config, p.aplan)
+        return psolve.solve(p.grid, p.config, p.plan, p.pack, p.backend)
+
+    total = cs.launches + cs.blocked_launches
+    before = getattr(cs, counter) if counter else 0
+    g, c = raw(gpu), raw(cpu)
+    if counter:
+        assert getattr(cs, counter) > before
+    else:
+        assert cs.launches + cs.blocked_launches == total
+    for name in ("neighbors", "dists_sq", "certified", "uncert_count"):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        assert _equal_nan(a, b) if a.is_floating_point() else torch.equal(
+            a, b), name
+    assert int(c.uncert_count) > 0
+    g, c = gpu.solve(), cpu.solve()
+    np.testing.assert_array_equal(g.neighbors, c.neighbors)
+    np.testing.assert_array_equal(g.dists_sq, c.dists_sq)
+    base.solve()
+    np.testing.assert_array_equal(gpu.get_knearests_original(),
+                                  base.get_knearests_original())
+    q = generate_uniform(5000, seed=4)
+    for a, b in zip(gpu.query(q), cpu.query(q)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["scatter", "gather"])
+def test_gpu_legacy_query_chunks_equal_single_shot(cuda_device, epilogue):
+    """Legacy queries on the card at query_chunk in {1000, 2,048}: byte
+    for byte the single shot's and the CPU's, one launch a chunk, at most
+    two host round trips."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    pts = generate_blue_noise(20_000, seed=41)
+    q = generate_uniform(5000, seed=42)
+    want = pt.KnnProblem.prepare(pts, pt.KnnConfig(
+        k=10, adaptive=False, epilogue=epilogue), device="cpu").query(q)
+    for chunk in (None, 1000, 2048):
+        gpu = pt.KnnProblem.prepare(pts, pt.KnnConfig(
+            k=10, adaptive=False, epilogue=epilogue, query_chunk=chunk),
+            device=cuda_device)
+        before = cs.launches
+        dispatch.reset_stats()
+        got = gpu.query(q)
+        assert dispatch.stats().host_syncs <= dispatch.SYNC_BUDGET
+        assert cs.launches - before == -(-5000 // (chunk or 5000))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gpu_legacy_budget_refused_before_the_pack(cuda_device):
+    """A configured budget one byte under the legacy pack's modeled bytes
+    is refused in prepare before the pack is allocated; at the modeled
+    bytes the pack fits and the problem solves."""
+    from cuda_knearests_tpu_torch.ops import gridhash, solve as psolve
+    from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
+
+    pts = generate_blue_noise(50_000, seed=7)
+    kw = dict(k=10, adaptive=False, backend="pallas", epilogue="gather")
+    grid = gridhash.build_grid(torch.as_tensor(pts, device=cuda_device))
+    plan = psolve.build_plan(grid, pt.KnnConfig(**kw))
+    need = cs.legacy_pack_bytes(grid.n_points, plan.n_chunks * plan.batch,
+                                plan.qcap, plan.ccap, 10, "gather")
+    del grid, plan
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with pytest.raises(LaunchBudgetError) as e:
+        pt.KnnProblem.prepare(pts, pt.KnnConfig(hbm_budget_bytes=need - 1,
+                                                **kw), device=cuda_device)
+    assert e.value.requested == need and e.value.site == "prepare_pack"
+    assert torch.cuda.max_memory_allocated() - base < need // 4
+    prob = pt.KnnProblem.prepare(pts, pt.KnnConfig(hbm_budget_bytes=need,
+                                                   **kw), device=cuda_device)
+    assert prob.pack is not None
+    assert bool(np.asarray(prob.solve().certified).all())

@@ -24,7 +24,7 @@ from cuda_knearests_tpu.ops.gridhash import cell_coords as jcell_coords
 from cuda_knearests_tpu.ops.gridhash import \
     cell_coords_host as jcell_coords_host
 import cuda_knearests_tpu_torch as pt
-from cuda_knearests_tpu_torch.ops import adaptive
+from cuda_knearests_tpu_torch.ops import adaptive, cuda_solve
 from cuda_knearests_tpu_torch.ops.gridhash import cell_coords, cell_coords_host
 from cuda_knearests_tpu_torch.ops.topk import translate_ids
 from cuda_knearests_tpu_torch.runtime import dispatch
@@ -220,8 +220,8 @@ def test_fallback_none_shows_kernel_answers(monkeypatch):
         calls.append(a[0].shape)
         return real(*a, **kw)
 
-    real = adaptive.supercell_topk
-    monkeypatch.setattr(adaptive, "supercell_topk", counted)
+    real = cuda_solve.supercell_topk
+    monkeypatch.setattr(cuda_solve, "supercell_topk", counted)
     dispatch.reset_stats()
     ids, d2 = pp.query(q)
     assert dispatch.stats().host_syncs == 1
@@ -260,7 +260,7 @@ def test_forced_streamed_class_gives_the_same_answer(problems, monkeypatch):
     for budget, rows in ((b.pack_bytes + out_bytes - 1, None),
                          (fixed + 3 * per_row, 3)):
         monkeypatch.setattr(adaptive, "hbm_budget_bytes",
-                            lambda device: budget)
+                            lambda device, cfg=None: budget)
         (r,) = adaptive.plan_queries(pp.config, pp.aplan, qcls, qrow, k,
                                      budget)
         assert r.route == "streamed" and r.q2cap == q2cap
@@ -272,7 +272,7 @@ def test_forced_streamed_class_gives_the_same_answer(problems, monkeypatch):
         np.testing.assert_array_equal(got[1], want[1])
     _agree(pts, q, got, jp.query(q), k)
     monkeypatch.setattr(adaptive, "hbm_budget_bytes",
-                        lambda device: fixed + per_row - 1)
+                        lambda device, cfg=None: fixed + per_row - 1)
     with pytest.raises(LaunchBudgetError, match="reduce the query batch"):
         pp.query(q)
 

@@ -159,7 +159,8 @@ def test_forced_small_budget_streams_one_class_and_matches_jax(monkeypatch):
     assert [cp.route for cp in free.aplan.classes] == ["kernel"] * 2
     # the all-streamed plan and one class's packs: that class keeps the
     # kernel, the other streams
-    monkeypatch.setattr(padapt, "hbm_budget_bytes", lambda device: budget)
+    monkeypatch.setattr(padapt, "hbm_budget_bytes",
+                        lambda device, cfg=None: budget)
     pp, p_cert, p_fin, j_cert, j_fin = _solve_both(pts, kw)
     routes = [cp.route for cp in pp.aplan.classes]
     assert sorted(routes) == ["kernel", "streamed"]
@@ -208,7 +209,8 @@ def test_stream_rows_fit_what_the_budget_leaves():
 
 
 def test_a_plan_no_route_can_hold_is_refused(monkeypatch):
-    monkeypatch.setattr(padapt, "hbm_budget_bytes", lambda device: 300_000)
+    monkeypatch.setattr(padapt, "hbm_budget_bytes",
+                        lambda device, cfg=None: 300_000)
     with pytest.raises(LaunchBudgetError, match="no route can hold") as e:
         pt.KnnProblem.prepare(generate_blue_noise(3000, seed=1),
                               pt.KnnConfig(k=10), device="cpu")
