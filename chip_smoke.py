@@ -149,6 +149,29 @@ H100: the kernels target sm_90a).  It imports only the port
      900k daemon refused as one typed oom failure, the daemon still
      serving; and a FoF session on pts300K.xyz whose labels equal
      ``fof_labels`` of the mutated cloud, a repeat a memo hit;
+ 10b. runs the multi-GPU z-slab solve (``parallel.ShardedKnnProblem``) on
+     the reference bench's ``sharded_10m_k10`` cloud
+     (``generate_uniform(10_000_000, seed=10)``, k=10): (a) 4 slabs on
+     cuda:0 (and, with two or more cards, one slab per card): prepare split
+     into validation, halo depth, host partition, per-slab build and
+     exchange (to the counts readback) and planning, the ``ShardMeta``,
+     per slab its points, classes, resident bytes, kernel ms by CUDA
+     events (slab 1's held bit for bit to the plain version) and its
+     whole slab solve; 1 + 3 solves split into the slabs' solves, the
+     batched fetch, host placement and the kd-tree fallback, each at most
+     two host round trips and one class-kernel launch per kernel class of
+     every slab; peak allocation against the single-device problem's;
+     (b) the rows equal a single-device ``KnnProblem`` solve of the same
+     cloud on the card bit for bit on every row both certify, and 20,000
+     sampled rows exact against cKDTree; (c) 1M ``generate_uniform(seed=
+     901)`` queries equal to the single-device ``query`` bit for bit and
+     exact on sampled rows; (d) on 200k points at 4 slabs the card's
+     slab rows equal the CPU run's bit for bit under 'scatter' and
+     'gather'; (e) 2 processes x 2 slabs on 1M points
+     (``python -m cuda_knearests_tpu_torch.parallel``; gloo, both on
+     cuda:0, on a one-card host; NCCL, a card each, on two), each slab's
+     rows equal the single-process 4-slab run's bit for bit, the backend
+     printed;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -3601,6 +3624,463 @@ def serve_phase(points: np.ndarray, prob) -> dict:
             "blocked_launches": cs.blocked_launches, "launch_parts": parts}
 
 
+# -- phase 10b: the multi-GPU z-slab solve -----------------------------------
+
+SHARDED_N = 10_000_000
+SHARDED_SLABS = 4
+SHARDED_CPU_N = 200_000
+SHARDED_MP_N = 1_000_000
+SHARDED_WARM = 3
+SHARDED_QUERIES = 1_000_000
+SHARDED_DEVICE = "cuda:0"
+
+
+def storage_bytes(*trees) -> int:
+    """Bytes of the distinct device storages reachable from ``trees``
+    (dataclasses, tuples, lists, dicts; views counted once)."""
+    import dataclasses
+
+    import torch
+
+    seen, total, stack = set(), 0, list(trees)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return total
+
+
+def sharded_solve(sp) -> tuple:
+    """One sharded solve, split: the slabs' solves (``solve_device`` up to
+    a synchronize of the card), then ``solve(device_out=...)``: its
+    batched fetch, the host placement and the kd-tree fallback (the
+    engine's spans).  Returns (the solve's result, the split in ms, host
+    round trips, class-kernel launches)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.obs import spans
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    before = cs.launches + cs.blocked_launches
+    dispatch.reset_stats()
+    with spans.capture() as events:
+        t0 = time.perf_counter()
+        outs = sp.solve_device()
+        for dv in {sl.device for sl in sp.mesh}:
+            torch.cuda.synchronize(dv)
+        t1 = time.perf_counter()
+        res = sp.solve(device_out=outs)
+        t2 = time.perf_counter()
+    span = {e["name"].rsplit(".", 1)[-1]: e["dur_ms"] for e in events}
+    split = {"total_ms": (t2 - t0) * 1e3, "slabs_ms": (t1 - t0) * 1e3,
+             "fetch_ms": span["fetch"], "place_ms": span["place"],
+             "fallback_ms": span.get("fallback", 0.0)}
+    return (res, split, dispatch.stats().host_syncs,
+            cs.launches + cs.blocked_launches - before)
+
+
+def slab_kernel_timing(sp, d: int, cfg, check_plain: bool) -> dict:
+    """Slab ``d``'s class-kernel launches (mode (a), every 'kernel' class,
+    as its solve makes them) by CUDA events, their bound (bytes of the
+    packs, forward maps and (pcap, k) rows over 3.35 TB/s; 8 f32 ops a
+    real pair over 67 TFLOP/s) and, with ``check_plain``, the same
+    launches against the plain version on the same packs, equal bit for
+    bit."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.ops.adaptive import class_blocked_m
+
+    ready = sp._chip_ready(d)
+    device = ready.window.device
+    k, pcap = cfg.k, sp.meta.pcap
+    classes = [cp for cp in ready.plan.classes if cp.route == "kernel"]
+
+    def bufs():
+        return (torch.full((pcap, k), float("inf"), device=device),
+                torch.full((pcap, k), -1, dtype=torch.int32, device=device))
+
+    out, plain_out = bufs(), bufs()
+
+    def run(target, plain=False):
+        for cp in classes:
+            m = class_blocked_m(cfg, cp.ccap)
+            args = (*cp.pk.args(), k)
+            if m:
+                fn = cs.blocked_topk_plain if plain else cs.blocked_topk
+                fn(*args, m, cfg.exclude_self, tgt=cp.tgt, out=target)
+            else:
+                fn = cs.supercell_topk_plain if plain else cs.supercell_topk
+                fn(*args, cfg.exclude_self, tgt=cp.tgt, out=target)
+
+    ms = quiet(lambda: cuda_ms(lambda: run(out), 5))
+    res = {"ms": ms, "kernel_classes": len(classes)}
+    if check_plain:
+        res["plain_ms"] = cuda_ms(lambda: run(plain_out, plain=True), 1)
+        res["max_abs_err"] = require_equal(f"sharded slab {d} rows", out,
+                                           plain_out)
+    in_bytes = sum(a.numel() * a.element_size()
+                   for cp in classes for a in (*cp.pk.args(), cp.tgt))
+    pairs = sum(int(((cp.pk.qid >= 0).sum(1).long()
+                     * (cp.pk.cid >= 0).sum(1).long()).sum())
+                for cp in classes)
+    t_bytes = (in_bytes + pcap * k * 8) / PEAK_HBM_BYTES * 1e3
+    t_ops = 8 * pairs / PEAK_F32_FLOPS * 1e3
+    res.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return res
+
+
+def sharded_rows_equal(what: str, got, want, rows: np.ndarray) -> None:
+    """Original-order (ids, d2) tables equal bit for bit on ``rows``."""
+    for name, a, b in (("ids", got[0], want[0]), ("d2", got[1], want[1])):
+        bad = np.nonzero((a[rows] != b[rows]).any(axis=1))[0]
+        require(bad.size == 0,
+                f"{what}: {bad.size} of {rows.size} rows differ in {name} "
+                f"(first: row {rows[bad[:1]]})")
+
+
+def sharded_main(pts: np.ndarray, cfg, devices, tree, single) -> dict:
+    """(a) and (b) on one mesh: prepare (split), ShardMeta, per slab its
+    points, classes and resident bytes, 1 + SHARDED_WARM solves (split,
+    round trips, launches), per-slab kernel ms, then the rows against the
+    single-device solve on the card (bit for bit where both certify) and
+    cKDTree on SAMPLE_ROWS sampled rows."""
+    import dataclasses
+
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+    from cuda_knearests_tpu_torch.parallel.sharded import _chip_solve
+
+    label = f"{len(devices)} slabs on {sorted({str(d) for d in devices})}"
+    n = pts.shape[0]
+    base = {}
+    for dv in set(devices):
+        torch.cuda.synchronize(dv)
+        base[dv] = torch.cuda.memory_allocated(dv)
+        torch.cuda.reset_peak_memory_stats(dv)
+    t0 = time.perf_counter()
+    sp = ShardedKnnProblem.prepare(pts, config=cfg, devices=devices)
+    prep_s = time.perf_counter() - t0
+    m = sp.meta
+    print(f"  sharded 10M/k={cfg.k}, {label}: prepare {prep_s:.3f} s = "
+          + ", ".join(f"{key} {v:.3f}" for key, v in
+                      sp.prepare_seconds.items())
+          + f" s\n    ShardMeta dim={m.dim} zcap={m.zcap} radius={m.radius} "
+          f"pcap={m.pcap} hcap={m.hcap}", flush=True)
+    n_kernel = sum(cp.route == "kernel" for p in sp.chip_plans
+                   for cp in p.classes)
+    require(n_kernel > 0, "the sharded plan has no kernel class")
+    cs.launches = cs.blocked_launches = 0
+    runs, launches, syncs = [], 0, 0
+    for i in range(1 + SHARDED_WARM):
+        res, split, s, done = sharded_solve(sp)
+        require(done == n_kernel,
+                f"sharded solve made {done} class-kernel launches for "
+                f"{n_kernel} kernel classes")
+        require(s <= 2, f"sharded solve made {s} host round trips")
+        syncs = max(syncs, s)
+        launches += done
+        runs.append(split)
+        if i == 0:
+            print(f"    first solve (with every slab's ready state) "
+                  f"{split['total_ms']:.3f} ms", flush=True)
+    main_launches = cs.launches + cs.blocked_launches
+    require(main_launches == launches, "sharded launch counts disagree")
+    warm = runs[1:]
+    med = float(np.median([r["total_ms"] for r in warm]))
+    # above what the card held before prepare (the single-device problem)
+    peak = max(torch.cuda.max_memory_allocated(dv) - base[dv]
+               for dv in set(devices))
+    ids, d2, cert = res
+    unc = int(sp.fallback_rows.size)
+    print(f"    solve median of {SHARDED_WARM} {med:.3f} ms = "
+          f"{n / med * 1e3:,.0f} queries/s; splits (ms) "
+          + "; ".join(", ".join(f"{key[:-3]} {v:.3f}" for key, v in r.items())
+                      for r in warm)
+          + f"\n    host round trips {syncs} per solve; class-kernel "
+          f"launches {n_kernel} per solve ({launches} over "
+          f"{1 + SHARDED_WARM}); certified fraction {1 - unc / n:.6f} "
+          f"({unc} kd-tree rows); peak allocated {peak:,} bytes",
+          flush=True)
+    slabs = []
+    for d in range(m.ndev):
+        plan = sp.chip_plans[d]
+        row = {"slab": d, "device": str(sp.mesh[d].device),
+               "points": int(sp.dev[d]["counts"].sum()),
+               "classes": [(c.radius, c.qcap, c.ccap, c.route, c.n_sc)
+                           for c in plan.classes],
+               "resident_bytes": storage_bytes(sp.dev[d],
+                                               sp._ready_cache.get(d))}
+        if plan.classes:
+            row.update(slab_kernel_timing(sp, d, cfg, check_plain=(d == 1)))
+            row["slab_solve_ms"] = quiet(lambda: cuda_ms(
+                lambda: _chip_solve(sp._chip_ready(d), cfg), 3))
+        slabs.append(row)
+        print(f"    slab {d}: {json.dumps(row)}", flush=True)
+    kernel_ms = sum(r.get("ms", 0.0) for r in slabs)
+
+    # (b) against the single-device solve on the card and cKDTree
+    s_peak, s_ids, s_d2, s_cert = single
+    both = s_cert & cert
+    both[sp.fallback_rows] = False
+    rows = np.nonzero(both)[0]
+    sharded_rows_equal(f"sharded ({label}) vs single-device", (ids, d2),
+                       (s_ids, s_d2), rows)
+    rng = np.random.default_rng(17)
+    take = sp.fallback_rows[rng.permutation(unc)[:2000]].astype(np.int64)
+    sample = np.unique(np.concatenate(
+        [take, rng.permutation(n)[: SAMPLE_ROWS - take.size]]))
+    t0 = time.perf_counter()
+    check_exact(pts, ids, sample, cfg.k, tree)
+    print(f"    rows equal the single-device solve's bit for bit on {rows.size:,} "
+          f"rows both certify ({n - rows.size} left out: fallback rows); "
+          f"exact vs cKDTree on {sample.size} sampled rows "
+          f"({take.size} kd-tree rows), checked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"sp": sp, "label": label, "prepare_s": prep_s,
+            "prepare_split_s": dict(sp.prepare_seconds),
+            "meta": dataclasses.asdict(m), "solve_median_ms": med,
+            "queries_per_s": n / med * 1e3, "warm_splits": warm,
+            "host_round_trips": syncs, "launches": launches,
+            "kernel_classes": n_kernel, "kernel_ms": kernel_ms,
+            "bound_ms": sum(r.get("bound_ms", 0.0) for r in slabs),
+            "certified_fraction": 1 - unc / n, "peak_allocated": peak,
+            "single_peak_allocated": s_peak, "slabs": slabs}
+
+
+def sharded_queries(sp, s_prob, queries: np.ndarray, tree, pts) -> dict:
+    """(c): the queries through the sharded problem, 1 + 1 calls, equal
+    bit for bit to the single-device ``query`` and exact against cKDTree
+    on sampled rows; one batched fetch a call."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    times = []
+    before = cs.launches + cs.blocked_launches
+    for _ in range(2):
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        ids, d2 = sp.query(queries)
+        times.append(time.perf_counter() - t0)
+        require(dispatch.stats().host_syncs <= 2,
+                f"sharded query made {dispatch.stats().host_syncs} round "
+                f"trips")
+    launches = cs.launches + cs.blocked_launches - before
+    t0 = time.perf_counter()
+    s_ids, s_d2 = quiet(lambda: s_prob.query(queries))
+    s_ms = (time.perf_counter() - t0) * 1e3
+    sharded_rows_equal("sharded queries vs single-device", (ids, d2),
+                       (s_ids, s_d2), np.arange(queries.shape[0]))
+    rows = np.random.default_rng(19).permutation(queries.shape[0])[
+        :SAMPLE_ROWS]
+    check_queries_exact("sharded queries", pts, queries, ids, rows,
+                        sp.config.k, tree)
+    m = queries.shape[0]
+    print(f"  sharded queries: {m:,} in {times[0] * 1e3:.3f} ms (first) / "
+          f"{times[1] * 1e3:.3f} ms = {m / times[1]:,.0f} queries/s; "
+          f"class-kernel launches {launches}; equal to the single-device "
+          f"query bit for bit (single-device call {s_ms:.3f} ms)",
+          flush=True)
+    return {"first_ms": times[0] * 1e3, "warm_ms": times[1] * 1e3,
+            "queries_per_s": m / times[1], "launches": launches,
+            "single_ms": s_ms}
+
+
+def sharded_card_equals_cpu(cfg_kw: dict) -> None:
+    """(d): on SHARDED_CPU_N points at 4 slabs, the card's sharded solve
+    equals the CPU run bit for bit (ids, d2, certificates of every slab),
+    under 'scatter' and 'gather'."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+
+    pts = generate_uniform(SHARDED_CPU_N, seed=10)
+    for epilogue in ("scatter", "gather"):
+        cfg = pt.KnnConfig(**cfg_kw, epilogue=epilogue)
+        t0 = time.perf_counter()
+        got = {}
+        for dev in (SHARDED_DEVICE, "cpu"):
+            sp = ShardedKnnProblem.prepare(pts, config=cfg,
+                                           devices=[dev] * SHARDED_SLABS)
+            outs = quiet(sp.solve_device)
+            got[dev] = {d: [t.cpu() for t in o] for d, o in outs.items()
+                        if o is not None}
+        for d, want in got["cpu"].items():
+            for name, a, b in zip(("ids", "d2", "cert"),
+                                  got[SHARDED_DEVICE][d], want):
+                require(torch.equal(a, b), f"sharded {epilogue}: slab {d} "
+                                           f"{name} differ card vs CPU")
+        print(f"  sharded card = CPU: {SHARDED_CPU_N:,} points, "
+              f"{SHARDED_SLABS} slabs, {epilogue}: every slab's ids, d2 and "
+              f"certificates equal bit for bit "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def sharded_processes(cfg_k: int) -> dict:
+    """(e): 2 processes x 2 slabs on SHARDED_MP_N points
+    (``python -m cuda_knearests_tpu_torch.parallel``): gloo with both on
+    cuda:0 on a one-card host (NCCL refuses two ranks on one card), NCCL
+    with one card each where there are two.  Each process's slab rows must
+    equal the single-process 4-slab run's bit for bit."""
+    import socket
+    import tempfile
+
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="sharded_mp_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {key: v for key, v in os.environ.items()
+           if key not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
+                          "LOCAL_RANK")}
+    env["PYTHONPATH"] = root
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cuda_knearests_tpu_torch.parallel",
+         "--rank", str(r), "--world", "2", "--address", f"localhost:{port}",
+         "--out", out_dir, "--n", str(SHARDED_MP_N), "--seed", "10",
+         "--k", str(cfg_k), "--slabs", "2",
+         "--device", f"cuda:{r}" if two else SHARDED_DEVICE,
+         "--backend", backend,
+         "--timeout", "120"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=root) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-2:]:
+            print(f"    {line}", flush=True)
+        require(p.returncode == 0 and f"WORKER_OK {r}" in out
+                and f"backend={backend}" in out,
+                f"multi-process rank {r} failed (rc {p.returncode}):\n"
+                f"{out[-3000:]}")
+    pts = generate_uniform(SHARDED_MP_N, seed=10)
+    sp = ShardedKnnProblem.prepare(pts, config=pt.KnnConfig(k=cfg_k),
+                                   devices=[SHARDED_DEVICE] * 4)
+    want = quiet(sp.solve_device)
+    seen = np.zeros((SHARDED_MP_N,), np.int32)
+    for d in range(4):
+        z = np.load(os.path.join(out_dir, f"rank{d // 2}_slab{d}.npz"))
+        sids = sp.dev[d]["sids"].cpu().numpy()
+        real = sids >= 0
+        require(np.array_equal(z["sids"], sids[real]),
+                f"multi-process slab {d}: ids differ")
+        for name, t in zip(("nbr", "d2", "cert"), want[d]):
+            require(np.array_equal(z[name], t.cpu().numpy()[real]),
+                    f"multi-process slab {d}: {name} differ from the "
+                    f"single-process run")
+        seen[z["sids"]] += 1
+    require(bool((seen == 1).all()), "multi-process rows not covered once")
+    print(f"  sharded multi-process: 2 processes x 2 slabs on "
+          f"{SHARDED_MP_N:,} points over {backend}, in {wall:.1f} s; every "
+          f"slab's rows equal the single-process 4-slab run's bit for bit",
+          flush=True)
+    return {"backend": backend, "wall_s": wall}
+
+
+def sharded_phase() -> dict:
+    """Phase 10b: the multi-GPU z-slab solve (``parallel.sharded``) on the
+    reference bench's ``sharded_10m_k10`` cloud (a)-(c), card = CPU (d) and
+    two processes (e)."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.ops.adaptive import solve_adaptive
+
+    t_phase = time.perf_counter()
+    cfg = pt.KnnConfig(k=10)
+    pts = generate_uniform(SHARDED_N, seed=10)
+    n = pts.shape[0]
+    # the single-device solve it is held to, and its peak allocation
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s_prob = quiet(lambda: pt.KnnProblem.prepare(pts, cfg, device=DEV))
+    quiet(s_prob.solve)
+    s_times = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        quiet(s_prob.solve)
+        s_times.append(time.perf_counter() - t1)
+    s_peak = torch.cuda.max_memory_allocated() - base
+    perm = s_prob.get_permutation()
+    t1 = time.perf_counter()
+    s_ids = s_prob.get_knearests_original()
+    # the single-device rows in original order: the same host scatter of
+    # n rows that the sharded solve's placement makes (for ids alone)
+    s_orig_ms = (time.perf_counter() - t1) * 1e3
+    s_d2 = np.empty_like(s_prob.get_dists_sq())
+    s_d2[perm] = s_prob.get_dists_sq()
+    s_cert = np.empty((n,), bool)
+    s_cert[perm] = quiet(lambda: solve_adaptive(
+        s_prob.grid, cfg, s_prob.aplan).certified.cpu().numpy())
+    s_med = float(np.median(s_times))
+    print(f"  single-device 10M/k=10 on the card: prepare+solve "
+          f"{time.perf_counter() - t0:.3f} s, warm solves "
+          f"{[round(t * 1e3, 3) for t in s_times]} ms; peak allocated "
+          f"{s_peak:,} bytes; get_knearests_original {s_orig_ms:.3f} ms",
+          flush=True)
+    t0 = time.perf_counter()
+    tree = cKDTree(pts.astype(np.float64))
+    print(f"  cKDTree over 10M points in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    single = (s_peak, s_ids, s_d2, s_cert)
+    main = sharded_main(pts, cfg, [SHARDED_DEVICE] * SHARDED_SLABS, tree,
+                        single)
+    per_card = None
+    if torch.cuda.device_count() >= 2:
+        per_card = sharded_main(
+            pts, cfg, [f"cuda:{i}" for i in range(torch.cuda.device_count())],
+            tree, single)
+        per_card.pop("sp")
+    queries = generate_uniform(SHARDED_QUERIES, seed=901)
+    query = sharded_queries(main["sp"], s_prob, queries, tree, pts)
+    main.pop("sp")
+    del s_prob, tree
+    sharded_card_equals_cpu({"k": 10})
+    procs = sharded_processes(10)
+    took = time.perf_counter() - t_phase
+    print(f"  sharded phase: {took:.1f} s", flush=True)
+    return {"main": main, "per_card": per_card, "queries": query,
+            "processes": procs, "single_solve_ms": s_med * 1e3,
+            "single_original_order_ms": s_orig_ms,
+            "phase_s": took}
+
+
 _T0 = time.perf_counter()
 
 
@@ -3720,6 +4200,9 @@ def main() -> int:
     phase("the serving daemon")
     serve = serve_phase(pts900, prob10)
 
+    phase("the multi-GPU z-slab solve")
+    sharded = sharded_phase()
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -3734,6 +4217,7 @@ def main() -> int:
              source=CSRC + "supercell_topk.cu",
              replaces=REPLACES["supercell_topk"], launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
+                             sharded["main"]["slabs"][1]["max_abs_err"],
                              query["uniform"]["kernel"]["max_abs_err"],
                              query["clustered"]["kernel"]["max_abs_err"]),
              **timing, query_launches=query["launches"],
@@ -3751,6 +4235,11 @@ def main() -> int:
              plane_feed_launches=planes["solve_launches"],
              plane_query_launches=planes["query_launches"],
              serve_launches=serve["launches"],
+             sharded_launches=sharded["main"]["launches"],
+             sharded_ms=sharded["main"]["kernel_ms"],
+             sharded_bound_ms=sharded["main"]["bound_ms"],
+             sharded_plain_ms_slab1=sharded["main"]["slabs"][1]["plain_ms"],
+             sharded_query_launches=sharded["queries"]["launches"],
              mxu_tier_launches=mxu_tier["launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
@@ -3802,6 +4291,7 @@ def main() -> int:
     print(f"  serving: {json.dumps(serve)}", flush=True)
     print(f"  MXU tier: {json.dumps(mxu_tier)}", flush=True)
     print(f"  legacy route: {json.dumps(legacy)}", flush=True)
+    print(f"  sharded: {json.dumps(sharded)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,7 +236,10 @@ class AdaptivePlan:
     for one that holds no stored point) and its row in that class (0
     where it has none).  External queries bucket through them on the host
     (:func:`query_adaptive`), so one plan serves the self-solve and
-    arbitrary query coordinates."""
+    arbitrary query coordinates.  ``cand_table`` (None: rebuilt from the
+    grid's supercells) gives a class's host (Sc, side^3) cell table, for
+    a plan whose grid is not the whole cubic grid (a slab's window,
+    ``parallel/sharded.py``)."""
 
     classes: Tuple[ClassPlan, ...]
     inv_box: torch.Tensor
@@ -244,6 +247,7 @@ class AdaptivePlan:
     n_points: int
     class_of_sc: np.ndarray
     row_of_sc: np.ndarray
+    cand_table: Optional[Callable[[int], np.ndarray]] = None
 
 
 def plan_class_specs(counts: np.ndarray, dim: int, cfg: KnnConfig):
@@ -601,14 +605,14 @@ def _mxu_class(grid: GridHash, cfg: KnnConfig, cp: ClassPlan, out=None):
                            tgt=None if out is None else cp.tgt, out=out)
 
 
-def _gather_classes(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan):
-    """The gather epilogue: each class's rows as a row-major (Sc * qcap,
-    k) block -- a kernel class's mode (b) output transposed, a streamed or
-    'mxu' class's rows as they come -- concatenated, and the (n, k) rows
-    read by one gather through ``plan.inv_row``."""
+def class_rows(grid: GridHash, cfg: KnnConfig, classes):
+    """Every class's rows as a row-major (Sc * qcap, k) block -- a kernel
+    class's mode (b) output transposed, a streamed or 'mxu' class's rows
+    as they come -- concatenated in class order: the rows the gather
+    epilogue reads."""
     k = cfg.k
     blocks = []
-    for cp in plan.classes:
+    for cp in classes:
         if cp.route == "streamed":
             blocks.append(_streamed_class(grid, cp, k, cfg.exclude_self))
         elif cp.route == "mxu":
@@ -618,9 +622,39 @@ def _gather_classes(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan):
                                       cfg.exclude_self, None)
             blocks.append(tuple(a.transpose(1, 2).reshape(-1, k)
                                 for a in raw))
+    return (torch.cat([b[0] for b in blocks]),
+            torch.cat([b[1] for b in blocks]))
+
+
+def _gather_classes(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan):
+    """The gather epilogue: :func:`class_rows`, and the (n, k) rows read
+    by one gather through ``plan.inv_row``."""
+    all_d, all_i = class_rows(grid, cfg, plan.classes)
     idx = plan.inv_row.long()
-    return (torch.cat([b[0] for b in blocks])[idx],
-            torch.cat([b[1] for b in blocks])[idx])
+    return all_d[idx], all_i[idx]
+
+
+def scatter_rows(grid: GridHash, cfg: KnnConfig, classes, n: int):
+    """The scatter epilogue: new (n, k) d2 and ids, (inf, -1) where no
+    slot writes, each class's rows placed through its forward map -- a
+    kernel class by its mode (a) launch, which skips slots mapped outside
+    [0, n); a streamed or 'mxu' class into buffers with one spare row n
+    that absorbs its pad slots."""
+    k = cfg.k
+    buf_d = torch.full((n + 1, k), float("inf"), dtype=torch.float32,
+                       device=grid.device)
+    buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
+                       device=grid.device)
+    out = (buf_d[:n], buf_i[:n])
+    for cp in classes:
+        if cp.route == "streamed":
+            _streamed_class(grid, cp, k, cfg.exclude_self, (buf_d, buf_i))
+        elif cp.route == "mxu":
+            _mxu_class(grid, cfg, cp, (buf_d, buf_i))
+        else:
+            launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
+                                cfg.exclude_self, out)
+    return out
 
 
 def solve_adaptive(grid: GridHash, cfg: KnnConfig,
@@ -637,27 +671,11 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
     the api's exact fallback."""
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
-    n, k = plan.n_points, cfg.k
-    device = grid.device
+    k = cfg.k
     if cfg.resolved_epilogue() == "gather":
         out_d, out_i = _gather_classes(grid, cfg, plan)
     else:
-        # one spare row past the n real ones absorbs the streamed classes'
-        # pad slots (their forward map sends them to row n)
-        buf_d = torch.full((n + 1, k), float("inf"), dtype=torch.float32,
-                           device=device)
-        buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
-                           device=device)
-        out_d, out_i = buf_d[:n], buf_i[:n]
-        for cp in plan.classes:
-            if cp.route == "streamed":
-                _streamed_class(grid, cp, k, cfg.exclude_self,
-                                (buf_d, buf_i))
-            elif cp.route == "mxu":
-                _mxu_class(grid, cfg, cp, (buf_d, buf_i))
-            else:
-                launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
-                                    cfg.exclude_self, (out_d, out_i))
+        out_d, out_i = scatter_rows(grid, cfg, plan.classes, plan.n_points)
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)
@@ -836,12 +854,15 @@ def _streamed_query_class(grid: GridHash, plan: AdaptivePlan,
     queries (steps without a query are skipped); rows land in the (m + 1,
     k) buffers through each step's forward map (pads in the spare row
     m).  A kernel class has no cell table: it is rebuilt from the class's
-    supercells, found in the plan's host maps."""
+    supercells, found in the plan's host maps, or taken from the plan's
+    ``cand_table``."""
     device = queries.device
     m = buf_d.shape[0] - 1
     cp = plan.classes[b.cls]
     cand = cp.cand
-    if cand is None:
+    if cand is None and plan.cand_table is not None:
+        cand = torch.as_tensor(plan.cand_table(b.cls), device=device)
+    elif cand is None:
         sids = np.nonzero(plan.class_of_sc == b.cls)[0]
         sids = sids[np.argsort(plan.row_of_sc[sids])]
         coords = _boxes_grid(-(-grid.dim // supercell))[sids]
@@ -874,36 +895,18 @@ def _streamed_query_class(grid: GridHash, plan: AdaptivePlan,
                       k, cp.ccap, tile, rows, tgt=tgt, out=(buf_d, buf_i))
 
 
-def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
-                   queries: np.ndarray, k: int, fallback: str = "brute"
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact kNN of arbitrary query coordinates through the plan prepare()
-    built: the external-query twin of :func:`solve_adaptive`, counterpart
-    of the reference's ``query_adaptive``
-    (``cuda_knearests_tpu/ops/adaptive.py:1011-1092``).
-
-    Queries bucket by supercell on the host (:func:`bucket_queries`) and
-    inherit their supercell's class: its radius, its candidate pack and
-    its route (:func:`plan_queries`).  Every class launches back to back
-    into device-resident (m + 1, k) buffers: a kernel class in one mode
-    (a) launch of ``supercell_topk`` (or ``blocked_topk``) over its query
-    pack, whose forward map places each row and skips pads; a streamed
-    class through :func:`streamed_topk`.  Each row is certified from its
-    raw k-th d2 against its supercell's dilated box (a blocked deficit
-    row's NaN fails), then non-finite entries become (-1, inf) and ids
-    translate to original indexing on the device, and one batched fetch
-    reads ids, d2 and certificates back.  Queries whose supercell holds no
-    stored point (no class) always resolve through
-    :func:`brute_force_by_coords`; uncertified rows do too under
-    ``fallback='brute'``, behind one more fetch: at most two host round
-    trips.  Returns ((m, k) ids in original indexing, ascending; (m, k)
-    d2), in query order."""
-    queries = np.ascontiguousarray(queries, np.float32)
+def query_device(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
+                 queries: np.ndarray, qcls: np.ndarray, qrow: np.ndarray,
+                 k: int):
+    """The device half of :func:`query_adaptive` over queries bucketed on
+    the host (``qcls``/``qrow``: each query's class, -1 for none, and its
+    row there): every class's launch back to back into (m + 1, k) buffers
+    on the grid's device, the certificates, and ids translated through
+    ``grid.permutation``.  No readback happens here.  Returns device
+    tensors: (m, k) ids, (m, k) d2 and (m,) certified, False where a
+    query has no class."""
     m = queries.shape[0]
-    if m == 0:
-        return np.empty((0, k), np.int32), np.empty((0, k), np.float32)
     device = grid.device
-    qcls, qrow = bucket_queries(grid, cfg, plan, queries)
     buckets = plan_queries(cfg, plan, qcls, qrow, k,
                            hbm_budget_bytes(device, cfg))
     q_dev = dispatch.stage(queries, device)
@@ -935,12 +938,45 @@ def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
     ok = torch.isfinite(out_d)
     ids = translate_ids(torch.where(ok, out_i, INVALID_ID), grid.permutation)
     d2 = torch.where(ok, out_d, float("inf"))
-    ids, d2, cert = dispatch.fetch(ids, d2, cert)
-    need = ~cert if fallback == "brute" else ~has
+    return ids, d2, cert
+
+
+def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
+                   queries: np.ndarray, k: int, fallback: str = "brute"
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact kNN of arbitrary query coordinates through the plan prepare()
+    built: the external-query twin of :func:`solve_adaptive`, counterpart
+    of the reference's ``query_adaptive``
+    (``cuda_knearests_tpu/ops/adaptive.py:1011-1092``).
+
+    Queries bucket by supercell on the host (:func:`bucket_queries`) and
+    inherit their supercell's class: its radius, its candidate pack and
+    its route (:func:`plan_queries`).  Every class launches back to back
+    into device-resident (m + 1, k) buffers (:func:`query_device`): a
+    kernel class in one mode (a) launch of ``supercell_topk`` (or
+    ``blocked_topk``) over its query pack, whose forward map places each
+    row and skips pads; a streamed class through :func:`streamed_topk`.
+    Each row is certified from its raw k-th d2 against its supercell's
+    dilated box (a blocked deficit row's NaN fails), then non-finite
+    entries become (-1, inf) and ids translate to original indexing on
+    the device, and one batched fetch reads ids, d2 and certificates back.
+    Queries whose supercell holds no stored point (no class) always
+    resolve through :func:`brute_force_by_coords`; uncertified rows do
+    too under ``fallback='brute'``, behind one more fetch: at most two
+    host round trips.  Returns ((m, k) ids in original indexing,
+    ascending; (m, k) d2), in query order."""
+    queries = np.ascontiguousarray(queries, np.float32)
+    m = queries.shape[0]
+    if m == 0:
+        return np.empty((0, k), np.int32), np.empty((0, k), np.float32)
+    qcls, qrow = bucket_queries(grid, cfg, plan, queries)
+    ids, d2, cert = dispatch.fetch(*query_device(grid, cfg, plan, queries,
+                                                 qcls, qrow, k))
+    need = ~cert if fallback == "brute" else qcls < 0
     if need.any():
         bad = np.nonzero(need)[0]
         b_i, b_d = brute_force_by_coords(
-            grid.points, dispatch.stage(queries[bad], device), k,
+            grid.points, dispatch.stage(queries[bad], grid.device), k,
             ids_map=grid.permutation)
         b_i, b_d = dispatch.fetch(b_i, b_d)
         ids[bad] = b_i

@@ -66,10 +66,13 @@ def kernel_stats() -> dict:
 
 def fetch(*tensors: torch.Tensor):
     """One batched readback: the tensors as host numpy arrays, in order.
+    Each CUDA tensor's copy is queued on the current stream of its own
+    device, so the host waits on that stream of every distinct device
+    among them (slabs of a sharded problem live on several cards).
     Counts one host round trip per call, on every device."""
     host = [t.to("cpu", non_blocking=True) for t in tensors]
-    if any(t.is_cuda for t in tensors):
-        torch.cuda.current_stream().synchronize()
+    for device in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.current_stream(device).synchronize()
     with _STATS_LOCK:
         _STATS.host_syncs += 1
     return [h.numpy() for h in host]

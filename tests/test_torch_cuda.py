@@ -1210,3 +1210,134 @@ def test_gpu_legacy_budget_refused_before_the_pack(cuda_device):
                                                    **kw), device=cuda_device)
     assert prob.pack is not None
     assert bool(np.asarray(prob.solve().certified).all())
+
+
+# -- the multi-GPU z-slab solve (parallel/sharded.py) --------------------------
+
+def _slab_rows(sp):
+    outs = sp.solve_device()
+    return {d: [t.cpu() for t in o] for d, o in outs.items() if o is not None}
+
+
+def _kernel_classes(sp):
+    return sum(cp.route == "kernel" for p in sp.chip_plans
+               for cp in p.classes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["scatter", "gather"])
+def test_sharded_card_equals_cpu(cuda_device, epilogue):
+    """Four slabs on one card against the same four slabs on the CPU: every
+    slab's ids, d2 and certificates, the assembled rows and external
+    queries bit for bit; one class-kernel launch per kernel class of every
+    slab, one host round trip a solve."""
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    pts = generate_uniform(60_000, seed=10)
+    cfg = pt.KnnConfig(k=10, epilogue=epilogue)
+    gpu = ShardedKnnProblem.prepare(pts, config=cfg,
+                                    devices=[cuda_device] * 4)
+    cpu = ShardedKnnProblem.prepare(pts, config=cfg,
+                                    devices=[torch.device("cpu")] * 4)
+    before = cs.launches + cs.blocked_launches
+    g = _slab_rows(gpu)
+    assert cs.launches + cs.blocked_launches - before == _kernel_classes(gpu)
+    c = _slab_rows(cpu)
+    assert g.keys() == c.keys()
+    for d in c:
+        for a, b in zip(g[d], c[d]):
+            assert torch.equal(a, b), f"slab {d}"
+    dispatch.reset_stats()
+    got = gpu.solve()
+    assert dispatch.stats().host_syncs == 1
+    for a, b in zip(got, cpu.solve()):
+        np.testing.assert_array_equal(a, b)
+    q = generate_uniform(20_000, seed=901)
+    for a, b in zip(gpu.query(q), cpu.query(q)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_blocked_and_clustered_card_equals_cpu(cuda_device):
+    """Several classes a slab (a clustered cloud) and the blocked kernel:
+    card = CPU bit for bit, and rows equal to the single-device solve on
+    the card wherever both certify."""
+    from cuda_knearests_tpu_torch.ops.adaptive import solve_adaptive
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+
+    pts = generate_clustered(20_000, seed=3)
+    for cfg in (pt.KnnConfig(k=10, ring_radius=1),
+                pt.KnnConfig(k=10, ring_radius=1, kernel="blocked")):
+        gpu = ShardedKnnProblem.prepare(pts, config=cfg,
+                                        devices=[cuda_device] * 4)
+        cpu = ShardedKnnProblem.prepare(pts, config=cfg,
+                                        devices=[torch.device("cpu")] * 4)
+        g, c = _slab_rows(gpu), _slab_rows(cpu)
+        for d in c:
+            for a, b in zip(g[d], c[d]):
+                assert torch.equal(a, b), f"slab {d}"
+        ids, d2, _ = gpu.solve()
+        single = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+        single.solve()
+        perm = single.get_permutation()
+        s_d2 = np.empty_like(single.get_dists_sq())
+        s_d2[perm] = single.get_dists_sq()
+        both = np.zeros((pts.shape[0],), bool)
+        both[perm] = solve_adaptive(single.grid, cfg,
+                                    single.aplan).certified.cpu().numpy()
+        both[gpu.fallback_rows] = False
+        np.testing.assert_array_equal(
+            ids[both], single.get_knearests_original()[both])
+        np.testing.assert_array_equal(d2[both], s_d2[both])
+
+
+@pytest.mark.cuda
+def test_sharded_default_mesh_and_distinct_cards(cuda_device):
+    """With no mesh, one slab per card; more slabs than cards need
+    devices=; with two or more cards, slabs on distinct cards equal the
+    same slabs on the CPU (the halo blocks cross between cards)."""
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+    from cuda_knearests_tpu_torch.utils.memory import InvalidConfigError
+
+    count = torch.cuda.device_count()
+    pts = generate_uniform(40_000, seed=12)
+    sp = ShardedKnnProblem.prepare(pts, config=pt.KnnConfig(k=10))
+    assert [sl.device for sl in sp.mesh] == [torch.device("cuda", i)
+                                            for i in range(count)]
+    with pytest.raises(InvalidConfigError, match="devices="):
+        ShardedKnnProblem.prepare(pts, n_devices=count + 1)
+    if count < 2:
+        pytest.skip("slabs on distinct cards need two GPUs; this host has "
+                    "one")
+    cpu = ShardedKnnProblem.prepare(pts, config=pt.KnnConfig(k=10),
+                                    devices=[torch.device("cpu")] * count)
+    g, c = _slab_rows(sp), _slab_rows(cpu)
+    for d in c:
+        assert g[d][0].device.type == "cpu"
+        for a, b in zip(g[d], c[d]):
+            assert torch.equal(a, b), f"slab {d}"
+
+
+@pytest.mark.cuda
+def test_fetch_waits_on_every_card(cuda_device):
+    """dispatch.fetch of a tensor computed on cuda:1 while cuda:0 is
+    current: the copy is queued on cuda:1's stream, which fetch must wait
+    on; one round trip."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second GPU (a tensor on cuda:1); this host has "
+                    "one")
+    dev1 = torch.device("cuda", 1)
+    want = np.arange(1 << 24, dtype=np.float32) * 3
+    with torch.cuda.device(0):
+        busy = torch.randn(4096, 4096, device=dev1)
+        for _ in range(20):  # keep cuda:1 busy past the copy's enqueue
+            busy = busy @ busy
+        a = torch.arange(1 << 24, device=dev1, dtype=torch.float32) * 3
+        dispatch.reset_stats()
+        got, one = dispatch.fetch(a, torch.ones(4, device="cuda:0"))
+    assert dispatch.stats().host_syncs == 1
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(one, np.ones(4, np.float32))
