@@ -3896,7 +3896,7 @@ def sharded_queries(sp, s_prob, queries: np.ndarray, tree, pts) -> dict:
           flush=True)
     return {"first_ms": times[0] * 1e3, "warm_ms": times[1] * 1e3,
             "queries_per_s": m / times[1], "launches": launches,
-            "single_ms": s_ms}
+            "single_ms": s_ms}, (s_ids, s_d2)
 
 
 def sharded_card_equals_cpu(cfg_kw: dict) -> None:
@@ -4068,17 +4068,453 @@ def sharded_phase() -> dict:
             tree, single)
         per_card.pop("sp")
     queries = generate_uniform(SHARDED_QUERIES, seed=901)
-    query = sharded_queries(main["sp"], s_prob, queries, tree, pts)
+    query, query_single = sharded_queries(main["sp"], s_prob, queries, tree,
+                                          pts)
     main.pop("sp")
-    del s_prob, tree
+    del s_prob
     sharded_card_equals_cpu({"k": 10})
     procs = sharded_processes(10)
     took = time.perf_counter() - t_phase
     print(f"  sharded phase: {took:.1f} s", flush=True)
+    # what phase 10c reuses: the cloud, its kd-tree, the single-device rows
+    # and peak, the queries and the single-device query rows
+    reuse = {"pts": pts, "tree": tree, "single": single, "queries": queries,
+             "query_single": query_single}
     return {"main": main, "per_card": per_card, "queries": query,
             "processes": procs, "single_solve_ms": s_med * 1e3,
             "single_original_order_ms": s_orig_ms,
-            "phase_s": took}
+            "phase_s": took}, reuse
+
+
+# -- phase 10c: the pod, the cell-partitioned index ---------------------------
+
+POD_CHIPS = 4
+# the plan of generate_uniform(10_000_000, seed=10), k=10, over 4 chips, as
+# the JAX package's build_pod_plan gives it
+POD_META = {"pcap": 2_500_088, "hcap": 291_040, "steps": 3,
+            "n_ext": 4_246_328}
+POD_HALO_BYTES = 83_819_520
+POD_WARM = 3
+POD_CPU_N = 200_000
+POD_BUDGET_N = 1_000_000
+POD_MXU_N = 4_000
+
+
+def pod_devices() -> list:
+    """Four chips: one a card where the runner has four, else four on
+    SHARDED_DEVICE."""
+    import torch
+
+    if torch.cuda.device_count() >= POD_CHIPS:
+        return [f"cuda:{i}" for i in range(POD_CHIPS)]
+    return [SHARDED_DEVICE] * POD_CHIPS
+
+
+def sync_chips(pp) -> None:
+    import torch
+
+    for dv in set(pp.mesh):
+        torch.cuda.synchronize(dv)
+
+
+def pod_solve(pp) -> tuple:
+    """One pod solve, split: the chips' solves (``solve_device`` up to a
+    synchronize), then ``solve(device_out=...)``: its batched fetch, the
+    host placement and the kd-tree fallback (the engine's spans).  Returns
+    (the solve's result, the split in ms, host round trips, ici bytes,
+    class-kernel launches)."""
+    from cuda_knearests_tpu_torch.obs import spans
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    before = cs.launches + cs.blocked_launches
+    dispatch.reset_stats()
+    with spans.capture() as events:
+        t0 = time.perf_counter()
+        outs = pp.solve_device()
+        sync_chips(pp)
+        t1 = time.perf_counter()
+        res = pp.solve(device_out=outs)
+        t2 = time.perf_counter()
+    span = {e["name"].rsplit(".", 1)[-1]: e["dur_ms"] for e in events}
+    split = {"total_ms": (t2 - t0) * 1e3, "chips_ms": (t1 - t0) * 1e3,
+             "fetch_ms": span["fetch"], "place_ms": span["place"],
+             "fallback_ms": span.get("fallback", 0.0)}
+    st = dispatch.stats()
+    return (res, split, st.host_syncs, st.ici_bytes,
+            cs.launches + cs.blocked_launches - before)
+
+
+def pod_chip_peaks(pp, cfg) -> list:
+    """Per chip: its ready state rebuilt and its solve run alone, the peak
+    allocation above what the card held before it (its staged share and
+    received blocks counted in), against ``stream.chip_hbm_model``."""
+    import torch
+
+    from cuda_knearests_tpu_torch.parallel.sharded import _chip_solve
+    from cuda_knearests_tpu_torch.pod.stream import chip_hbm_model
+
+    out = []
+    for d, plan in enumerate(pp.chip_plans):
+        pp.drop_ready(d)
+        dv = pp.mesh[d]
+        own = sum(t.untyped_storage().nbytes()
+                  for t in list(pp.dev[d].values()) + list(pp._halo[d]))
+        torch.cuda.synchronize(dv)
+        base = torch.cuda.memory_allocated(dv) - own
+        torch.cuda.reset_peak_memory_stats(dv)
+        res = quiet(lambda: _chip_solve(pp._chip_ready(d), cfg))
+        torch.cuda.synchronize(dv)
+        peak = torch.cuda.max_memory_allocated(dv) - base
+        del res
+        model = chip_hbm_model(pp.meta, plan, cfg)
+        require(peak <= model, f"pod chip {d}: peak {peak} bytes above its "
+                               f"model {model}")
+        out.append({"chip": d, "peak": peak, "model": model})
+    return out
+
+
+def rows_tie_aware(what: str, coords: np.ndarray, pts: np.ndarray, got,
+                   want, rows: np.ndarray) -> int:
+    """d2 equal bit for bit on ``rows``; where ids differ, the two id rows
+    must realize the same distances from ``coords`` (ties).  Returns the
+    rows whose ids differ."""
+    bad = rows[(got[1][rows] != want[1][rows]).any(axis=1)]
+    require(bad.size == 0, f"{what}: {bad.size} of {rows.size} rows differ "
+                           f"in d2 (first: row {bad[:1]})")
+    diff = rows[(got[0][rows] != want[0][rows]).any(axis=1)]
+    for r0 in range(0, diff.size, 100_000):
+        r = diff[r0:r0 + 100_000]
+        q = coords[r].astype(np.float64)[:, None, :]
+        da = ((pts[got[0][r]].astype(np.float64) - q) ** 2).sum(-1)
+        db = ((pts[want[0][r]].astype(np.float64) - q) ** 2).sum(-1)
+        require(bool(np.allclose(np.sort(da, 1), np.sort(db, 1),
+                                 rtol=RTOL, atol=ATOL)),
+                f"{what}: rows with other ids are not ties")
+    return int(diff.size)
+
+
+def pod_main(pts: np.ndarray, cfg, devices, tree, single) -> dict:
+    """The 10M pod: prepare (plan, stage), its meta against the JAX
+    package's integers, 1 + POD_WARM solves (split, round trips, ici bytes,
+    launches), the exchange and the ready states timed apart, each chip's
+    peak against its model and its class kernels by CUDA events, then the
+    rows against the single-device solve (d2 bit for bit where both
+    certify, ids tie-aware) and cKDTree on SAMPLE_ROWS rows."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.parallel.sharded import _chip_solve
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+    from cuda_knearests_tpu_torch.pod import halo
+
+    label = f"{len(devices)} chips on {sorted(set(devices))}"
+    n = pts.shape[0]
+    t0 = time.perf_counter()
+    pp = PodKnnProblem.prepare(pts, config=cfg, mesh=devices)
+    sync_chips(pp)
+    prep_s = time.perf_counter() - t0
+    m = pp.meta
+    got = {"pcap": m.pcap, "hcap": m.hcap, "steps": m.steps,
+           "n_ext": m.n_ext}
+    print(f"  pod 10M/k={cfg.k}, {label}: prepare {prep_s:.3f} s = "
+          + ", ".join(f"{key} {v:.3f}" for key, v in
+                      pp.prepare_seconds.items())
+          + f" s\n    PodMeta dim={m.dim} supercell={m.supercell} "
+          f"{json.dumps(got)} halo_bytes {m.halo_bytes()}; model high "
+          f"water {pp.hbm['hbm_high_water_bytes']:,}, full cloud "
+          f"{pp.hbm['hbm_full_cloud_bytes']:,} bytes", flush=True)
+    require(got == POD_META and m.halo_bytes() == POD_HALO_BYTES,
+            f"pod meta {got} (halo {m.halo_bytes()}) is not the JAX "
+            f"package's {POD_META} ({POD_HALO_BYTES})")
+    for d, c in enumerate(pp.chip_plans):
+        print(f"    chip {d}: {c.n_local:,} points, {c.sc_ids.size:,} "
+              f"supercells, {c.remote_cells:,} remote cells, "
+              f"{len(c.classes)} class(es): "
+              + "; ".join(f"{cl.n_sc:,} supercells r={cl.radius} qcap "
+                          f"{cl.qcap} ccap {cl.ccap} [{cl.route}]"
+                          for cl in c.classes), flush=True)
+    n_kernel = sum(cl.route == "kernel" for c in pp.chip_plans
+                   for cl in c.classes)
+    require(n_kernel > 0, "the pod's plan has no kernel class")
+    cs.launches = cs.blocked_launches = 0
+    runs, launches = [], 0
+    for i in range(1 + POD_WARM):
+        res, split, syncs, ici, done = pod_solve(pp)
+        want_ici = m.halo_bytes() if i == 0 else 0
+        require(done == n_kernel,
+                f"pod solve made {done} class-kernel launches for "
+                f"{n_kernel} kernel classes")
+        require(syncs == 1 and ici == want_ici,
+                f"pod solve {i}: {syncs} host round trips, {ici} ici bytes "
+                f"(want 1 and {want_ici})")
+        launches += done
+        runs.append(split)
+        if i == 0:
+            print(f"    first solve (the exchange and every chip's ready "
+                  f"state) {split['total_ms']:.3f} ms: 1 host round trip, "
+                  f"ici_bytes {ici:,} = halo_bytes", flush=True)
+    require(cs.launches + cs.blocked_launches == launches,
+            "pod launch counts disagree")
+    warm = runs[1:]
+    med = float(np.median([r["total_ms"] for r in warm]))
+    ids, d2, cert = res
+    unc = int(pp.fallback_rows.size)
+
+    ex_ms = []
+    for _ in range(3):
+        sync_chips(pp)
+        t1 = time.perf_counter()
+        halo.exchange(m, pp.dev, pp.mesh)
+        sync_chips(pp)
+        ex_ms.append((time.perf_counter() - t1) * 1e3)
+    ready_ms = []
+    for d in range(m.ndev):
+        pp.drop_ready(d)
+        sync_chips(pp)
+        t1 = time.perf_counter()
+        pp._chip_ready(d)
+        sync_chips(pp)
+        ready_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"    solve median of {POD_WARM} {med:.3f} ms = "
+          f"{n / med * 1e3:,.0f} queries/s; splits (ms) "
+          + "; ".join(", ".join(f"{key[:-3]} {v:.3f}" for key, v in r.items())
+                      for r in warm)
+          + f"\n    exchange alone {[round(x, 3) for x in ex_ms]} ms; ready "
+          f"states {[round(x, 3) for x in ready_ms]} ms; class-kernel "
+          f"launches {n_kernel} per solve ({launches} over {1 + POD_WARM})",
+          flush=True)
+    peaks = pod_chip_peaks(pp, cfg)
+    print(f"    per-chip peak above what the card held before it, against "
+          f"its model: {json.dumps(peaks)}", flush=True)
+    chips = []
+    for d in range(m.ndev):
+        row = {"chip": d, **slab_kernel_timing(pp, d, cfg,
+                                               check_plain=(d == 1))}
+        row["chip_solve_ms"] = quiet(lambda: cuda_ms(
+            lambda: _chip_solve(pp._chip_ready(d), cfg), 3))
+        chips.append(row)
+        print(f"    chip {d}: {json.dumps(row)}", flush=True)
+
+    s_peak, s_ids, s_d2, s_cert = single
+    both = s_cert & cert
+    both[pp.fallback_rows] = False
+    rows = np.nonzero(both)[0]
+    tied = rows_tie_aware("pod vs single-device", pts, pts, (ids, d2),
+                          (s_ids, s_d2), rows)
+    rng = np.random.default_rng(23)
+    sample = np.unique(np.concatenate([
+        pp.fallback_rows[rng.permutation(unc)[:2000]].astype(np.int64),
+        rng.permutation(n)[:SAMPLE_ROWS]]))[:SAMPLE_ROWS]
+    check_exact(pts, ids, sample, cfg.k, tree)
+    full = pp.hbm["hbm_full_cloud_bytes"]
+    require(full >= s_peak, f"the full-cloud model {full} is below the "
+                            f"single-device problem's peak {s_peak}")
+    print(f"    d2 equal to the single-device solve's bit for bit on "
+          f"{rows.size:,} rows both certify ({tied} with other ids, ties); "
+          f"certified fractions: pod {1 - unc / n:.6f} ({unc} kd-tree "
+          f"rows), single-device {float(s_cert.mean()):.6f}; exact vs "
+          f"cKDTree on {sample.size} sampled rows; full-cloud model "
+          f"{full:,} >= the single-device peak {s_peak:,} bytes",
+          flush=True)
+    return {"pp": pp, "label": label, "prepare_s": prep_s,
+            "prepare_split_s": dict(pp.prepare_seconds),
+            "exchange_ms": ex_ms, "ready_ms": ready_ms,
+            "meta": got, "halo_bytes": m.halo_bytes(),
+            "solve_median_ms": med, "queries_per_s": n / med * 1e3,
+            "warm_splits": warm, "launches": launches,
+            "kernel_classes": n_kernel,
+            "kernel_ms": sum(r["ms"] for r in chips),
+            "bound_ms": sum(r["bound_ms"] for r in chips),
+            "certified_fraction": 1 - unc / n,
+            "single_certified_fraction": float(s_cert.mean()),
+            "rows_tied": tied, "peaks": peaks, "full_model": full,
+            "single_peak": s_peak, "hbm": dict(pp.hbm), "chips": chips}
+
+
+def pod_queries(pp, queries: np.ndarray, query_single, tree,
+                pts: np.ndarray) -> dict:
+    """The 1M queries through the directory, 1 + 1 calls of one round
+    trip: d2 equal to the single-device query's bit for bit on the rows
+    the pod certified, ids tie-aware, sampled rows exact."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    times = []
+    before = cs.launches + cs.blocked_launches
+    for _ in range(2):
+        dispatch.reset_stats()
+        t0 = time.perf_counter()
+        ids, d2 = pp.query(queries)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(dispatch.stats().host_syncs == 1,
+                f"pod query made {dispatch.stats().host_syncs} round trips")
+    launches = cs.launches + cs.blocked_launches - before
+    m = queries.shape[0]
+    rows = np.setdiff1d(np.arange(m), pp.query_fallback_rows)
+    tied = rows_tie_aware("pod queries vs single-device", queries, pts,
+                          (ids, d2), query_single, rows)
+    sample = np.random.default_rng(29).permutation(m)[:SAMPLE_ROWS]
+    check_queries_exact("pod queries", pts, queries, ids, sample,
+                        pp.config.k, tree)
+    print(f"  pod queries: {m:,} in {times[0]:.3f} ms (first) / "
+          f"{times[1]:.3f} ms = {m / times[1] * 1e3:,.0f} queries/s; "
+          f"class-kernel launches {launches}; d2 equal to the single-device "
+          f"query bit for bit on {rows.size:,} rows ({tied} with other ids, "
+          f"ties; {pp.query_fallback_rows.size} kd-tree rows)", flush=True)
+    return {"first_ms": times[0], "warm_ms": times[1],
+            "queries_per_s": m / times[1] * 1e3, "launches": launches,
+            "fallback_rows": int(pp.query_fallback_rows.size)}
+
+
+def pod_card_equals_cpu(pts: np.ndarray) -> float:
+    """On a POD_CPU_N cut, the pod on four chips of the card equals the pod
+    on four CPU chips bit for bit: every chip's received blocks, ids, d2
+    and certificates."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+
+    t0 = time.perf_counter()
+    cut = np.ascontiguousarray(pts[:POD_CPU_N])
+    got = {}
+    for dev in (SHARDED_DEVICE, "cpu"):
+        pp = PodKnnProblem.prepare(cut, config=pt.KnnConfig(k=10),
+                                   mesh=[dev] * POD_CHIPS)
+        outs = quiet(pp.solve_device)
+        got[dev] = ({d: [t.cpu() for t in o] for d, o in outs.items()
+                     if o is not None},
+                    {d: [t.cpu() for t in h] for d, h in pp._halo.items()})
+    for part in (0, 1):
+        want = got["cpu"][part]
+        for d, ts in want.items():
+            for j, (a, b) in enumerate(zip(got[SHARDED_DEVICE][part][d],
+                                           ts)):
+                require(torch.equal(a, b),
+                        f"pod card vs CPU: chip {d} "
+                        f"{('rows', 'halo')[part]} tensor {j} differs")
+    took = time.perf_counter() - t0
+    print(f"  pod card = CPU: {POD_CPU_N:,} points, {POD_CHIPS} chips: every "
+          f"chip's received blocks, ids, d2 and certificates equal bit for "
+          f"bit ({took:.1f} s)", flush=True)
+    return took
+
+
+def pod_mxu(pts: np.ndarray, devices) -> dict:
+    """The MXU tier on a POD_MXU_N cut at recall targets 0.9 and 1.0: at
+    least one 'mxu' class, every row exact after the fallback."""
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+
+    cut = np.ascontiguousarray(pts[:POD_MXU_N])
+    tree = cKDTree(cut.astype(np.float64))
+    out = {}
+    for rt in (0.9, 1.0):
+        pm = PodKnnProblem.prepare(cut, config=pt.KnnConfig(
+            k=10, scorer="mxu", recall_target=rt), mesh=devices)
+        n_mxu = sum(cl.route == "mxu" for c in pm.chip_plans
+                    for cl in c.classes)
+        require(n_mxu > 0, f"pod MXU tier at {rt}: no 'mxu' class")
+        ids, _d2, cert = quiet(pm.solve)
+        require(bool(cert.all()), f"pod MXU tier at {rt}: open rows")
+        check_exact(cut, ids, np.arange(cut.shape[0]), 10, tree)
+        out[str(rt)] = {"mxu_classes": n_mxu,
+                        "kd_tree_rows": int(pm.fallback_rows.size)}
+    print(f"  pod MXU tier on {POD_MXU_N:,} points: {json.dumps(out)}; "
+          f"every row exact", flush=True)
+    return out
+
+
+def pod_budget(pts: np.ndarray, devices) -> dict:
+    """On a POD_BUDGET_N cut, budgets read from the cut's own plan: one
+    between the per-chip high water and the full-cloud model streams and
+    stays exact (high water <= budget < full); one an eighth of the high
+    water is refused (kind 'oom'); with n_devices=None and a budget just
+    below the least one chip can take (``stream.chip_floor_bytes`` of a
+    one-chip plan: every class streamed), the auto-splitter widens over
+    the pool."""
+    from scipy.spatial import cKDTree
+
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+    from cuda_knearests_tpu_torch.pod.partition import build_pod_plan
+    from cuda_knearests_tpu_torch.pod.stream import chip_floor_bytes
+    from cuda_knearests_tpu_torch.utils.memory import LaunchBudgetError
+
+    cut = np.ascontiguousarray(pts[:POD_BUDGET_N])
+    cfg = pt.KnnConfig(k=10)
+    base = PodKnnProblem.prepare(cut, config=cfg, mesh=devices)
+    high = base.hbm["hbm_high_water_bytes"]
+    full = base.hbm["hbm_full_cloud_bytes"]
+    require(high < full, f"pod budget: the high water {high} is not below "
+                         f"the full-cloud model {full}")
+    budget = (high + full) // 2
+    ps = PodKnnProblem.prepare(cut, config=pt.KnnConfig(
+        k=10, hbm_budget_bytes=budget), mesh=devices)
+    require(ps.hbm["streamed_prepare"]
+            and ps.hbm["hbm_high_water_bytes"] <= budget < full,
+            f"pod budget {budget}: {ps.hbm}")
+    want = quiet(base.solve)
+    got = quiet(ps.solve)
+    require(bool(np.array_equal(got[1], want[1])),
+            "pod under a budget: d2 differ from the unbounded pod's")
+    rows = np.random.default_rng(31).permutation(cut.shape[0])[:2000]
+    check_exact(cut, got[0], rows, 10, cKDTree(cut.astype(np.float64)))
+    try:
+        PodKnnProblem.prepare(cut, config=pt.KnnConfig(
+            k=10, hbm_budget_bytes=max(1, high // 8)), mesh=devices)
+        require(False, "pod: an undersized budget was not refused")
+    except LaunchBudgetError as e:
+        require(e.kind == "oom" and e.site == "pod-prepare",
+                f"pod refusal kind {e.kind}, site {e.site}")
+        refusal = str(e)
+    plan1 = build_pod_plan(cut, 1, cfg, base.meta.dim, True)
+    one = chip_floor_bytes(plan1.meta, plan1.chips[0], cfg)
+    b_w = one - 1
+    pa = PodKnnProblem.prepare(cut, config=pt.KnnConfig(
+        k=10, hbm_budget_bytes=b_w), devices=devices)
+    require(pa.meta.ndev > 1 and pa.hbm["hbm_high_water_bytes"] <= b_w,
+            f"pod auto-split under {b_w}: {pa.meta.ndev} chips, {pa.hbm}")
+    out = {"high_water": high, "full_cloud": full, "budget": budget,
+           "streamed_high_water": ps.hbm["hbm_high_water_bytes"],
+           "refused_at": max(1, high // 8), "one_chip_floor": one,
+           "widen_budget": b_w, "widened_to": pa.meta.ndev,
+           "widened_high_water": pa.hbm["hbm_high_water_bytes"]}
+    print(f"  pod budget on {POD_BUDGET_N:,} points: {json.dumps(out)}; "
+          f"streamed prepare exact; refusal: {refusal[:120]}...",
+          flush=True)
+    return out
+
+
+def pod_phase(reuse: dict) -> dict:
+    """Phase 10c: the pod (``pod/``) on phase 10b's 10M cloud over four
+    chips: the plan against the JAX package's integers, solves, the
+    exchange's bytes, memory against the models, rows against the
+    single-device solve, 1M queries, card = CPU, the MXU tier and the
+    budget cases."""
+    import torch
+
+    import cuda_knearests_tpu_torch as pt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    pts, tree = reuse["pts"], reuse["tree"]
+    devices = pod_devices()
+    main = pod_main(pts, pt.KnnConfig(k=10), devices, tree, reuse["single"])
+    queries = pod_queries(main["pp"], reuse["queries"],
+                          reuse["query_single"], tree, pts)
+    main.pop("pp")
+    torch.cuda.empty_cache()
+    card_cpu_s = pod_card_equals_cpu(pts)
+    mxu = pod_mxu(pts, devices)
+    budget = pod_budget(pts, devices)
+    took = time.perf_counter() - t_phase
+    print(f"  pod phase: {took:.1f} s", flush=True)
+    return {"main": main, "queries": queries, "card_equals_cpu_s": card_cpu_s,
+            "mxu": mxu, "budget": budget, "phase_s": took}
 
 
 _T0 = time.perf_counter()
@@ -4201,7 +4637,11 @@ def main() -> int:
     serve = serve_phase(pts900, prob10)
 
     phase("the multi-GPU z-slab solve")
-    sharded = sharded_phase()
+    sharded, reuse = sharded_phase()
+
+    phase("the pod: the cell-partitioned index")
+    pod = pod_phase(reuse)
+    del reuse
 
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
@@ -4218,6 +4658,7 @@ def main() -> int:
              replaces=REPLACES["supercell_topk"], launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
                              sharded["main"]["slabs"][1]["max_abs_err"],
+                             pod["main"]["chips"][1]["max_abs_err"],
                              query["uniform"]["kernel"]["max_abs_err"],
                              query["clustered"]["kernel"]["max_abs_err"]),
              **timing, query_launches=query["launches"],
@@ -4240,6 +4681,11 @@ def main() -> int:
              sharded_bound_ms=sharded["main"]["bound_ms"],
              sharded_plain_ms_slab1=sharded["main"]["slabs"][1]["plain_ms"],
              sharded_query_launches=sharded["queries"]["launches"],
+             pod_launches=pod["main"]["launches"],
+             pod_ms=pod["main"]["kernel_ms"],
+             pod_bound_ms=pod["main"]["bound_ms"],
+             pod_plain_ms_chip1=pod["main"]["chips"][1]["plain_ms"],
+             pod_query_launches=pod["queries"]["launches"],
              mxu_tier_launches=mxu_tier["launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
@@ -4292,6 +4738,7 @@ def main() -> int:
     print(f"  MXU tier: {json.dumps(mxu_tier)}", flush=True)
     print(f"  legacy route: {json.dumps(legacy)}", flush=True)
     print(f"  sharded: {json.dumps(sharded)}", flush=True)
+    print(f"  pod: {json.dumps(pod)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,9 @@ from .api import (KnnProblem, edges_from_neighbors, knn, load_problem,
                   radius_mask_from_knn, save_problem)
 from .config import (DEFAULT_CELL_DENSITY, DEFAULT_K, DOMAIN_SIZE, KnnConfig,
                      ServeConfig)
-from .ops.gridhash import GridHash, build_grid, cell_coords, cell_ids
-from .ops.solve import KnnResult, brute_force_by_index
+from .ops.gridhash import (GridHash, build_grid, cell_coords, cell_ids,
+                           unpermute_neighbors)
+from .ops.solve import KnnResult, brute_force_by_index, build_plan, solve
 from . import serve
 
 __version__ = "0.1.0"
@@ -27,6 +28,7 @@ __all__ = [
     "KnnProblem", "knn", "save_problem", "load_problem",
     "edges_from_neighbors", "radius_mask_from_knn",
     "KnnConfig", "ServeConfig", "KnnResult", "GridHash", "serve",
-    "build_grid", "brute_force_by_index", "cell_coords", "cell_ids",
+    "build_grid", "build_plan", "solve", "brute_force_by_index",
+    "cell_coords", "cell_ids", "unpermute_neighbors",
     "DOMAIN_SIZE", "DEFAULT_K", "DEFAULT_CELL_DENSITY",
 ]

@@ -40,6 +40,16 @@ def load_xyz(path: str) -> np.ndarray:
     return np.ascontiguousarray(data)
 
 
+def save_xyz(path: str, points: np.ndarray) -> None:
+    """Write points in the ``.xyz`` format :func:`load_xyz` reads: the
+    count on the first line, then one ``x y z`` row a point (``%.9g``,
+    which round-trips float32)."""
+    points = np.asarray(points, dtype=np.float32)
+    with open(path, "w") as f:
+        f.write(f"{points.shape[0]}\n")
+        np.savetxt(f, points, fmt="%.9g")
+
+
 def bbox(points: np.ndarray, pad_fraction: float = 0.001
          ) -> Tuple[np.ndarray, np.ndarray]:
     """Axis-aligned bounding box padded by ``pad_fraction`` of its largest

@@ -90,6 +90,27 @@ def build_grid(points: torch.Tensor, dim: int | None = None,
                     domain=float(domain))
 
 
+def unpermute_neighbors(grid: GridHash, neighbors_sorted: torch.Tensor,
+                        fill: int = -1) -> torch.Tensor:
+    """An (n, k) neighbour table in sorted indexing, rows and ids, as a
+    table in original indexing (counterpart of
+    ``cuda_knearests_tpu/ops/gridhash.py:189``): ids translate through the
+    grid permutation (``topk.translate_ids``; negative entries become
+    ``fill``) and row i moves to row ``permutation[i]``.  An empty grid's
+    table is returned unchanged."""
+    from .topk import INVALID_ID, translate_ids
+
+    if grid.n_points == 0:
+        return neighbors_sorted
+    mapped = translate_ids(neighbors_sorted, grid.permutation)
+    if fill != INVALID_ID:
+        mapped = torch.where(neighbors_sorted >= 0, mapped,
+                             torch.full_like(mapped, fill))
+    out = torch.empty_like(mapped)
+    out[grid.permutation.long()] = mapped
+    return out
+
+
 def delta_csr_host(points: np.ndarray, dim: int,
                    domain: float = DOMAIN_SIZE):
     """Host CSR layout of a delta point set on an existing grid's cells

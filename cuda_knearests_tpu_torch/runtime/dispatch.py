@@ -25,9 +25,11 @@ SYNC_BUDGET = 2
 @dataclasses.dataclass
 class DispatchStats:
     """Host-boundary counters of one measurement window: blocking
-    readbacks (``fetch`` calls)."""
+    readbacks (``fetch`` calls), and ``ici_bytes``, the bytes a pod's
+    halo exchange moved between chips (:func:`ici`; never a host sync)."""
 
     host_syncs: int = 0
+    ici_bytes: int = 0
 
 
 _STATS = DispatchStats()
@@ -38,6 +40,7 @@ def reset_stats() -> None:
     """Zero the counters (the start of a measurement window)."""
     with _STATS_LOCK:
         _STATS.host_syncs = 0
+        _STATS.ici_bytes = 0
 
 
 def stats() -> DispatchStats:
@@ -76,6 +79,14 @@ def fetch(*tensors: torch.Tensor):
     with _STATS_LOCK:
         _STATS.host_syncs += 1
     return [h.numpy() for h in host]
+
+
+def ici(nbytes: int) -> None:
+    """Record ``nbytes`` moved between chips by a device-to-device
+    exchange (``pod/halo.py``): it counts toward ``ici_bytes`` only, never
+    ``host_syncs``."""
+    with _STATS_LOCK:
+        _STATS.ici_bytes += int(nbytes)
 
 
 def stage(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1341,3 +1341,114 @@ def test_fetch_waits_on_every_card(cuda_device):
     assert dispatch.stats().host_syncs == 1
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(one, np.ones(4, np.float32))
+
+
+def _pod_chip_rows(pp):
+    return {d: [t.cpu() for t in o] for d, o in pp.solve_device().items()
+            if o is not None}
+
+
+@pytest.mark.cuda
+def test_pod_card_equals_cpu(cuda_device):
+    """The pod on four chips of one card against the same four chips on
+    the CPU, at 200k points: every received block and window, every chip's
+    ids, d2 and certificates, the assembled rows and external queries bit
+    for bit; the first solve moves ``halo_bytes`` between chips and the
+    second none, one host round trip each; one class-kernel launch per
+    kernel class of every chip."""
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    pts = generate_uniform(200_000, seed=10)
+    cfg = pt.KnnConfig(k=10)
+    gpu = PodKnnProblem.prepare(pts, config=cfg, mesh=[cuda_device] * 4)
+    cpu = PodKnnProblem.prepare(pts, config=cfg,
+                                mesh=[torch.device("cpu")] * 4)
+    assert gpu.meta == cpu.meta and gpu.meta.steps > 0
+    # a pool without n_devices: the default budget takes the fewest chips
+    auto = PodKnnProblem.prepare(pts, config=cfg, devices=[cuda_device] * 4)
+    assert auto.meta.ndev == 1 and not auto.hbm["streamed_prepare"]
+    dispatch.reset_stats()
+    before = cs.launches + cs.blocked_launches
+    got = gpu.solve()
+    first = dispatch.stats()
+    assert first.host_syncs == 1
+    assert first.ici_bytes == gpu.meta.halo_bytes() > 0
+    assert cs.launches + cs.blocked_launches - before == _kernel_classes(gpu)
+    for a, b in zip(got, cpu.solve()):
+        np.testing.assert_array_equal(a, b)
+    dispatch.reset_stats()
+    gpu.solve()
+    again = dispatch.stats()
+    assert again.host_syncs == 1 and again.ici_bytes == 0
+    for d in range(4):
+        for a, b in zip(gpu._halo[d], cpu._halo[d]):
+            assert torch.equal(a.cpu(), b), f"chip {d} halo"
+        gw, cw = gpu._chip_ready(d).window, cpu._chip_ready(d).window
+        for name in ("points", "permutation", "cell_starts", "cell_counts"):
+            assert torch.equal(getattr(gw, name).cpu(), getattr(cw, name)), \
+                f"chip {d} window {name}"
+    g, c = _pod_chip_rows(gpu), _pod_chip_rows(cpu)
+    assert g.keys() == c.keys()
+    for d in c:
+        for a, b in zip(g[d], c[d]):
+            assert torch.equal(a, b), f"chip {d}"
+    q = generate_uniform(20_000, seed=901)
+    dispatch.reset_stats()
+    gq = gpu.query(q)
+    assert dispatch.stats().host_syncs <= 2
+    for a, b in zip(gq, cpu.query(q)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pod_chip_memory_within_model(cuda_device):
+    """Each chip's peak allocation above what the card held before it (its
+    staged share counted in) stays within ``stream.chip_hbm_model``."""
+    from cuda_knearests_tpu_torch.parallel.sharded import _chip_solve
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+    from cuda_knearests_tpu_torch.pod.stream import chip_hbm_model
+
+    pts = generate_uniform(400_000, seed=10)
+    for cfg in (pt.KnnConfig(k=10), pt.KnnConfig(k=10, epilogue="gather")):
+        pp = PodKnnProblem.prepare(pts, config=cfg, mesh=[cuda_device] * 4)
+        pp._exchange()
+        for d, plan in enumerate(pp.chip_plans):
+            own = sum(t.untyped_storage().nbytes()
+                      for t in list(pp.dev[d].values()) + list(pp._halo[d]))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - own
+            torch.cuda.reset_peak_memory_stats()
+            out = _chip_solve(pp._chip_ready(d), cfg)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            model = chip_hbm_model(pp.meta, plan, cfg)
+            assert peak <= model, (d, peak, model)
+            del out
+            pp.drop_ready(d)
+
+
+@pytest.mark.cuda
+def test_pod_on_distinct_cards(cuda_device):
+    """With two or more cards, a pod with a chip on each card (the export
+    blocks cross between cards) equals the same chips on the CPU.  (With
+    neither n_devices nor a mesh, the default budget picks the fewest
+    cards that hold the cloud.)"""
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("chips on distinct cards need two GPUs; this host has "
+                    "one")
+    pts = generate_uniform(100_000, seed=12)
+    cfg = pt.KnnConfig(k=10)
+    gpu = PodKnnProblem.prepare(pts, n_devices=count, config=cfg)
+    assert gpu.mesh == [torch.device("cuda", i) for i in range(count)]
+    cpu = PodKnnProblem.prepare(pts, config=cfg,
+                                devices=[torch.device("cpu")] * count)
+    g, c = _pod_chip_rows(gpu), _pod_chip_rows(cpu)
+    for d in c:
+        for a, b in zip(g[d], c[d]):
+            assert torch.equal(a, b), f"chip {d}"
+    for a, b in zip(gpu.solve(), cpu.solve()):
+        np.testing.assert_array_equal(a, b)
