@@ -172,6 +172,23 @@ H100: the kernels target sm_90a).  It imports only the port
      cuda:0, on a one-card host; NCCL, a card each, on two), each slab's
      rows equal the single-process 4-slab run's bit for bit, the backend
      printed;
+ 10c. runs the pod (``pod.PodKnnProblem``) on 10b's 10M cloud over four
+     chips: the plan against the JAX package's integers, solves and their
+     exchange bytes, each chip's memory against its model, rows against
+     the single-device solve and cKDTree, the 1M queries, card = CPU, the
+     MXU tier and the budget cases;
+ 10d. mutates that pod (``pod.PodOverlay``): 100,000 deletes in 10
+     batches, each timed into its restage and halo re-exchange with 0
+     host round trips, at most 8 stages and 83,819,520 ici bytes per
+     re-exchange; an all-points solve (deleted rows invalid, no live row
+     holding a deleted id, 20,000 sampled rows exact against cKDTree over
+     the mutated cloud); 512 hotspot inserts, the 1M queries (every row
+     exact) and one more all-points solve split into the pod solve, the
+     filter, the pruning bound, the brute call and the merge; then the
+     elastic index (``pod.ElasticIndex``, 1M points, k=10, two shards):
+     200,000 hotspot inserts, ``force_rebalance`` and pumps to the
+     handover, a 64-row batch between pumps equal to the rebuild oracle
+     byte for byte, 0 kernel builds or loads outside its attributed work;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -4506,7 +4523,8 @@ def pod_phase(reuse: dict) -> dict:
     main = pod_main(pts, pt.KnnConfig(k=10), devices, tree, reuse["single"])
     queries = pod_queries(main["pp"], reuse["queries"],
                           reuse["query_single"], tree, pts)
-    main.pop("pp")
+    phase("the mutating pod: PodOverlay on the 10M pod")
+    overlay = reshard_overlay(main.pop("pp"), reuse)
     torch.cuda.empty_cache()
     card_cpu_s = pod_card_equals_cpu(pts)
     mxu = pod_mxu(pts, devices)
@@ -4514,7 +4532,417 @@ def pod_phase(reuse: dict) -> dict:
     took = time.perf_counter() - t_phase
     print(f"  pod phase: {took:.1f} s", flush=True)
     return {"main": main, "queries": queries, "card_equals_cpu_s": card_cpu_s,
-            "mxu": mxu, "budget": budget, "phase_s": took}
+            "mxu": mxu, "budget": budget, "overlay": overlay,
+            "phase_s": took}
+
+
+# -- phase 10d: the mutating pod and the elastic index -------------------------
+
+RESHARD_DELETES = 100_000
+RESHARD_BATCHES = 10
+RESHARD_INSERTS = 512
+ELASTIC_N = 1_000_000
+ELASTIC_INSERTS = 200_000
+ELASTIC_WARM = (1, 4, 16, 64)
+ELASTIC_CHUNK = 8192
+ELASTIC_BATCH = 64
+
+
+def hotspot(seed: int, n: int) -> np.ndarray:
+    """The reference bench's insert hotspot: n points in [5, 115]^3."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, 3)) * 110.0 + 5.0).astype(np.float32)
+
+
+def alive_reference(tree, pts: np.ndarray, q: np.ndarray, k: int,
+                    dead: np.ndarray, own=None, extra=None) -> tuple:
+    """Exact (f64) squared distances and stable ids of the k nearest alive
+    points of each query: the kd-tree over the original cloud ``pts``,
+    asked wide enough to pass over the ids ``dead`` marks (and ``own``,
+    each row's own id), merged with ``extra`` = (stable ids, coordinates)
+    by brute force."""
+    q64 = q.astype(np.float64)
+    kk = k + 9
+    while True:
+        _, ik = tree.query(q64, k=kk, workers=-1)
+        ok = ~dead[ik]
+        if own is not None:
+            ok &= ik != own[:, None]
+        if (ok.sum(axis=1) >= k).all():
+            break
+        kk *= 2
+    ik = np.take_along_axis(ik, np.argsort(~ok, axis=1, kind="stable")[:, :k],
+                            axis=1)
+    coords = pts
+    if extra is not None:
+        e_ids, e_pts = extra
+        near = np.empty((q.shape[0], k), np.int64)
+        for r0 in range(0, q.shape[0], 8192):
+            d = ((e_pts.astype(np.float64)[None]
+                  - q64[r0:r0 + 8192, None, :]) ** 2).sum(-1)
+            near[r0:r0 + 8192] = e_ids[np.argpartition(d, k - 1,
+                                                       axis=1)[:, :k]]
+        ik = np.concatenate([ik, near], axis=1)
+        coords = np.concatenate([pts, e_pts])
+    dk = ((coords[ik].astype(np.float64) - q64[:, None, :]) ** 2).sum(-1)
+    order = np.argsort(dk, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(dk, order, axis=1),
+            np.take_along_axis(ik, order, axis=1))
+
+
+def bulk_rows_exact(what: str, coords: np.ndarray, ids: np.ndarray,
+                    q: np.ndarray, dk: np.ndarray, ik: np.ndarray) -> None:
+    """``check_rows_exact`` over many rows at once: every id valid and
+    unique in its row, the distances it realizes equal to the reference's
+    as multisets, and every reference neighbour strictly inside the k-th
+    distance's band present."""
+    for r0 in range(0, ids.shape[0], 100_000):
+        i, d_k, i_k = (a[r0:r0 + 100_000] for a in (ids, dk, ik))
+        require(bool((i >= 0).all()), f"{what}: a row has missing "
+                                      f"neighbours")
+        require(not bool((np.diff(np.sort(i, axis=1), axis=1) == 0).any()),
+                f"{what}: a row repeats a neighbour")
+        dp = ((coords[i].astype(np.float64)
+               - q[r0:r0 + 100_000, None, :].astype(np.float64)) ** 2).sum(-1)
+        require(bool(np.allclose(np.sort(dp, axis=1), d_k, rtol=RTOL,
+                                 atol=ATOL)),
+                f"{what}: rows disagree with the reference's distances")
+        must = d_k < d_k[:, -1:] - (ATOL + RTOL * d_k[:, -1:])
+        present = (i_k[:, :, None] == i[:, None, :]).any(axis=-1)
+        require(not bool((must & ~present).any()),
+                f"{what}: a row misses a reference neighbour")
+
+
+def overlay_solve(ov, what: str) -> tuple:
+    """One ``PodOverlay.solve`` split by the engine's spans: the pod solve
+    (chip solves, fetch, placement, kd-tree fallback), the tombstone
+    filter, the pruning bound, the brute call (stage, launch and its
+    fetch) and the merge.  At most 2 host round trips."""
+    from cuda_knearests_tpu_torch.obs import spans
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    dispatch.reset_stats()
+    with spans.capture() as events:
+        t0 = time.perf_counter()
+        res = ov.solve()
+        total = (time.perf_counter() - t0) * 1e3
+    syncs = dispatch.stats().host_syncs
+    require(syncs <= 2, f"{what}: {syncs} host round trips")
+    split = {"total_ms": total}
+    for e in events:
+        key = e["name"].rsplit(".", 1)[-1] + "_ms"
+        split[key] = split.get(key, 0.0) + e["dur_ms"]
+    split["other_ms"] = total - sum(v for key, v in split.items()
+                                    if key != "total_ms")
+    print(f"    {what}: {total:.3f} ms, {syncs} host round trips = "
+          + ", ".join(f"{key[:-3]} {v:.3f}" for key, v in split.items()
+                      if key != "total_ms"), flush=True)
+    return res, split
+
+
+def overlay_deletes(ov, ids: np.ndarray) -> list:
+    """The deletes in RESHARD_BATCHES batches, each timed to a synchronize
+    and split into its restage and re-exchange (each also timed to a
+    synchronize): 0 host round trips, at most 2 * ndev stages, and
+    POD_HALO_BYTES of ici bytes per re-exchange."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    pp = ov.pp
+    times = {}
+
+    def timed(name, fn):
+        def run(*args):
+            sync_chips(pp)
+            t0 = time.perf_counter()
+            fn(*args)
+            sync_chips(pp)
+            times[name] = times.get(name, 0.0) \
+                + (time.perf_counter() - t0) * 1e3
+        return run
+
+    ov._restage = timed("restage", ov._restage)
+    ov._reexchange = timed("reexchange", ov._reexchange)
+    stages = []
+    real_stage = dispatch.stage
+
+    def counted(array, device):
+        stages.append(device)
+        return real_stage(array, device)
+
+    dispatch.stage = counted
+    out = []
+    try:
+        for batch in np.array_split(ids, RESHARD_BATCHES):
+            times.clear()
+            stages.clear()
+            before = dict(ov.stats)
+            dispatch.reset_stats()
+            sync_chips(pp)
+            t0 = time.perf_counter()
+            ov.delete(batch)
+            sync_chips(pp)
+            total = (time.perf_counter() - t0) * 1e3
+            st = dispatch.stats()
+            again = ov.stats["reexchanges"] - before["reexchanges"]
+            require(st.host_syncs == 0 and len(stages) <= 2 * pp.meta.ndev
+                    and st.ici_bytes == again * POD_HALO_BYTES,
+                    f"pod delete: {st.host_syncs} host round trips, "
+                    f"{len(stages)} stages, {st.ici_bytes} ici bytes for "
+                    f"{again} re-exchanges")
+            out.append({
+                "ms": total, "restage_ms": times.get("restage", 0.0),
+                "reexchange_ms": times.get("reexchange", 0.0),
+                "restaged_chips": ov.stats["restaged_chips"]
+                - before["restaged_chips"],
+                "reexchanges": again, "skips": ov.stats["reexchanges_skipped"]
+                - before["reexchanges_skipped"], "stages": len(stages),
+                "ici_bytes": st.ici_bytes})
+    finally:
+        dispatch.stage = real_stage
+        del ov._restage, ov._reexchange
+    return out
+
+
+def reshard_overlay(pp, reuse: dict) -> dict:
+    """Phase 10d (a): ``PodOverlay`` on phase 10c's 10M pod.  RESHARD_DELETES
+    base ids deleted in batches (restage, re-exchange, skips; 0 host round
+    trips each), an all-points solve (deleted rows invalid, no live row
+    holding a deleted id, SAMPLE_ROWS live rows exact against the kd-tree
+    over the mutated cloud), RESHARD_INSERTS hotspot inserts, the 1M
+    queries of phase 10c (every row exact), and one more all-points solve
+    split into its pieces.  Returns its numbers and its class-kernel
+    launches (supercell_topk mode (a))."""
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.pod import PodOverlay
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    t_phase = time.perf_counter()
+    pts, tree, queries = reuse["pts"], reuse["tree"], reuse["queries"]
+    n, k = pts.shape[0], pp.config.k
+    cs.launches = cs.blocked_launches = cs.launches_b = 0
+    cs.blocked_launches_b = 0
+    ov = PodOverlay(pp)
+    ids = np.random.default_rng(170).choice(n, RESHARD_DELETES,
+                                            replace=False)
+    batches = overlay_deletes(ov, ids)
+    print(f"  pod overlay, {n:,} points, k={k}: {RESHARD_DELETES:,} deletes in "
+          f"{RESHARD_BATCHES} batches (ms: total / restage / re-exchange): "
+          + "; ".join(f"{b['ms']:.3f} / {b['restage_ms']:.3f} / "
+                      f"{b['reexchange_ms']:.3f}" for b in batches)
+          + f"\n    per batch {batches[0]['restaged_chips']} chips restaged, "
+          f"{sum(b['reexchanges'] for b in batches)} re-exchanges of "
+          f"{POD_HALO_BYTES:,} bytes, {sum(b['skips'] for b in batches)} "
+          f"skipped, at most {max(b['stages'] for b in batches)} stages, 0 "
+          f"host round trips", flush=True)
+    dead = np.zeros((n + RESHARD_INSERTS,), bool)
+    dead[ids] = True
+    (nb, d2, cert), solve_del = overlay_solve(ov, "solve after the deletes")
+    require(bool((nb[ids] == -1).all() and np.isinf(d2[ids]).all()
+                  and not cert[ids].any()),
+            "pod overlay: a deleted row is not (-1, inf, uncertified)")
+    require(not bool(dead[np.clip(nb, 0, None)][nb >= 0].any()),
+            "pod overlay: a live row holds a deleted id")
+    live = np.nonzero(~dead[:n])[0]
+    rows = np.sort(np.random.default_rng(171).choice(live, SAMPLE_ROWS,
+                                                     replace=False))
+    dk, ik = alive_reference(tree, pts, pts[rows], k, dead, own=rows)
+    bulk_rows_exact("pod overlay solve", pts, nb[rows], pts[rows], dk, ik)
+
+    ins = hotspot(29, RESHARD_INSERTS)
+    new_ids = ov.insert(ins)
+    coords = np.concatenate([pts, ins])
+    extra = (new_ids.astype(np.int64), ins)
+    dispatch.reset_stats()
+    t0 = time.perf_counter()
+    qi, qd = ov.query(queries)
+    query_ms = (time.perf_counter() - t0) * 1e3
+    q_syncs = dispatch.stats().host_syncs
+    require(q_syncs <= 2, f"pod overlay query: {q_syncs} host round trips")
+    dk, ik = alive_reference(tree, pts, queries, k, dead, extra=extra)
+    bulk_rows_exact("pod overlay queries", coords, qi, queries, dk, ik)
+    hits = int((qi >= n).any(axis=1).sum())
+    print(f"    {RESHARD_INSERTS} hotspot inserts; {queries.shape[0]:,} "
+          f"queries in {query_ms:.3f} ms ({q_syncs} host round trips), "
+          f"every row exact against cKDTree over the mutated cloud "
+          f"({hits:,} rows hold an insert)", flush=True)
+    (nb, d2, cert), solve_ins = overlay_solve(ov, "solve after the inserts")
+    require(bool((nb[ids] == -1).all()) and not bool(
+        dead[np.clip(nb, 0, None)][nb >= 0].any()),
+        "pod overlay: deleted ids after the inserts")
+    dk, ik = alive_reference(tree, pts, pts[rows], k, dead, own=rows,
+                             extra=extra)
+    bulk_rows_exact("pod overlay solve with inserts", coords, nb[rows],
+                    pts[rows], dk, ik)
+    launches = cs.launches - cs.launches_b
+    require(launches > 0 and cs.blocked_launches == 0,
+            f"pod overlay: {launches} mode (a) launches, "
+            f"{cs.blocked_launches} blocked")
+    took = time.perf_counter() - t_phase
+    print(f"    exact against cKDTree on {rows.size:,} sampled rows of "
+          f"both solves; counters {json.dumps(ov.stats_dict())}; "
+          f"supercell_topk mode (a) launches {launches}; phase {took:.1f} s",
+          flush=True)
+    return {"deletes": batches, "solve_after_deletes": solve_del,
+            "query_ms": query_ms, "query_syncs": q_syncs,
+            "solve_after_inserts": solve_ins, "stats": ov.stats_dict(),
+            "launches": launches, "phase_s": took}
+
+
+def hotspot_kernel_check(el) -> dict:
+    """``supercell_topk`` against its plain version at the elastic index's
+    largest legacy caps: the densest supercell of the shard pack with the
+    most candidate slots, at its full qcap and ccap, both modes, bit for
+    bit; the kernel's mode (a) ms (CUDA events) and the plain version's."""
+    import torch
+
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    pack = max((s.overlay.base.pack for s in el.shards),
+               key=lambda p: p.ccap)
+    pk = pack.pk
+    sc = int((pk.cid != cs._PAD_C).sum(dim=1).argmax())
+    args = tuple(a[sc:sc + 1].contiguous() for a in pk.args())
+    qid = args[3].reshape(-1)
+    lanes = torch.arange(qid.numel(), dtype=torch.int32, device=qid.device)
+    tgt = torch.where(qid >= 0, lanes, qid.numel()).to(torch.int32)
+    n_rows, k = qid.numel(), el.k
+    err = compare_modes(f"elastic hotspot shard, supercell {sc}", args, tgt,
+                        n_rows, k, True)
+    out = row_buffers(n_rows, k)
+    ms = quiet(lambda: cuda_ms(lambda: cs.supercell_topk(
+        *args, k, True, tgt=tgt, out=out), 3))
+    plain_ms = cuda_ms(lambda: cs.supercell_topk_plain(
+        *args, k, True, tgt=tgt, out=out), 1)
+    real_q, real_c = int((qid >= 0).sum()), int((args[7] != cs._PAD_C).sum())
+    print(f"    at qcap {pack.qcap:,}, ccap {pack.ccap:,} ({real_q:,} real "
+          f"queries, {real_c:,} real candidates): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, max_abs_err {err}", flush=True)
+    return {"qcap": pack.qcap, "ccap": pack.ccap, "real_queries": real_q,
+            "real_candidates": real_c, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err}
+
+
+def elastic_phase() -> dict:
+    """Phase 10d (b): ``ElasticIndex`` on the card at ``ServeFleetConfig``'s
+    defaults (two shards, compaction at 512, skew threshold 3.0) over
+    ELASTIC_N uniform points, k=10: the batch shapes warmed,
+    ELASTIC_INSERTS hotspot inserts, ``force_rebalance`` and pumps to the
+    handover with a 64-row query between pumps, each equal to the rebuild
+    oracle byte for byte and exact against the kd-tree over the mutated
+    cloud, as is a batch inside the hotspot at the first pump and after
+    the handover; the kernel against its plain version at the hotspot
+    shard's caps; 0 kernel builds or loads outside the index's attributed
+    maintenance."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.pod import ElasticIndex
+    from cuda_knearests_tpu_torch.pod.reshard import _kernel_recompiles
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cs.launches = cs.blocked_launches = cs.launches_b = 0
+    cs.blocked_launches_b = 0
+    t0 = time.perf_counter()
+    el = ElasticIndex(generate_uniform(ELASTIC_N, seed=17), k=10, nshards=2,
+                      compact_threshold=512, skew_threshold=3.0,
+                      migration_chunk=ELASTIC_CHUNK)
+    build_s = time.perf_counter() - t0
+    for m in ELASTIC_WARM:
+        el.query(np.zeros((m, 3), np.float32), 10)
+    r0, a0 = _kernel_recompiles(), el.elastic_recompiles
+    t0 = time.perf_counter()
+    el.insert(hotspot(31, ELASTIC_INSERTS))
+    insert_s = time.perf_counter() - t0
+    pops = [s.n_points for s in el.shards]
+    hot = hotspot_kernel_check(el)
+    t0 = time.perf_counter()
+    cloud = el.mutated_points()
+    tree = cKDTree(cloud.astype(np.float64))
+    dead = np.zeros((cloud.shape[0],), bool)
+    tree_s = time.perf_counter() - t0
+    q = (np.random.default_rng(6).random((ELASTIC_BATCH, 3)) * 980.0
+         + 10.0).astype(np.float32)
+    q_hot = hotspot(7, ELASTIC_BATCH)
+
+    def exact(what, queries, ids):
+        dk, ik = alive_reference(tree, cloud, queries, 10, dead)
+        bulk_rows_exact(f"elastic: {what}", cloud, ids, queries, dk, ik)
+
+    rewarm_ms = []
+    rewarm = el._rewarm
+
+    def timed_rewarm():
+        t1 = time.perf_counter()
+        rewarm()
+        rewarm_ms.append((time.perf_counter() - t1) * 1e3)
+
+    el._rewarm = timed_rewarm
+    require(el.force_rebalance(), "elastic: force_rebalance started nothing")
+    mig = el.migration
+    query_ms, pump_ms, info, pumps = [], [], None, 0
+    try:
+        while True:
+            t0 = time.perf_counter()
+            got = el.query(q, 10)
+            query_ms.append((time.perf_counter() - t0) * 1e3)
+            want = quiet(lambda: el.rebuild_oracle_query(q, 10))
+            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                    f"elastic: pump {pumps} answers differ from the rebuild "
+                    f"oracle")
+            exact(f"pump {pumps}", q, got[0])
+            if pumps == 0 or info is not None:
+                exact(f"hotspot batch at pump {pumps}", q_hot,
+                      el.query(q_hot, 10)[0])
+            if info is not None:
+                break
+            t0 = time.perf_counter()
+            info = el.pump()
+            pump_ms.append((time.perf_counter() - t0) * 1e3)
+            pumps += 1
+            require(pumps < 1000, "elastic: the migration never handed over")
+    finally:
+        del el._rewarm
+    require(np.array_equal(el.mutated_points(), cloud),
+            "elastic: the migration changed the canonical cloud")
+    outside = (_kernel_recompiles() - r0) - (el.elastic_recompiles - a0)
+    require(outside == 0 and el.migrations_done == 1,
+            f"elastic: {outside} kernel builds or loads outside the "
+            f"attributed work")
+    launches = cs.launches - cs.launches_b
+    require(launches > 0, "elastic: no supercell_topk launch")
+    took = time.perf_counter() - t_phase
+    out = {"build_s": build_s, "insert_s": insert_s, "tree_s": tree_s,
+           "hotspot_kernel": hot, "rewarm_ms": rewarm_ms[-1],
+           "populations_before": pops, "moving": len(mig.queue),
+           "pumps": pumps, "records": info["records"], "handover": info,
+           "query_ms_median": float(np.median(query_ms)),
+           "query_ms_max": float(np.max(query_ms)),
+           "handover_ms": pump_ms[-1],
+           "pump_ms_median": float(np.median(pump_ms[:-1])),
+           "elastic_recompiles": el.elastic_recompiles,
+           "recompiles_outside": outside,
+           "populations_after": [s.n_points for s in el.shards],
+           "launches": launches, "phase_s": took}
+    print(f"  elastic index, {ELASTIC_N:,} points, k=10, 2 shards: built in "
+          f"{build_s:.3f} s, {ELASTIC_INSERTS:,} hotspot inserts in "
+          f"{insert_s:.3f} s -> {pops}; migration of {out['moving']:,} "
+          f"points: {pumps} pumps, {out['records']} records, query ms "
+          f"median {out['query_ms_median']:.3f} max "
+          f"{out['query_ms_max']:.3f}, pump ms median "
+          f"{out['pump_ms_median']:.3f}, handover (compaction and rewarm) "
+          f"{out['handover_ms']:.3f} ms, of which rewarm "
+          f"{out['rewarm_ms']:.3f} ms -> {out['populations_after']}; "
+          f"every pump's batch equal to the rebuild oracle byte for byte "
+          f"and exact against cKDTree over the mutated cloud (tree "
+          f"{tree_s:.3f} s), the hotspot batch at the first pump and after "
+          f"the handover too; "
+          f"elastic_recompiles {el.elastic_recompiles}, {outside} outside; "
+          f"supercell_topk mode (a) launches {launches}; phase {took:.1f} s",
+          flush=True)
+    return out
 
 
 _T0 = time.perf_counter()
@@ -4643,6 +5071,9 @@ def main() -> int:
     pod = pod_phase(reuse)
     del reuse
 
+    phase("the elastic index: Morton-range shards and a live migration")
+    elastic = elastic_phase()
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -4655,10 +5086,14 @@ def main() -> int:
     kernels = [
         dict(name="supercell_topk", route="cuda",
              source=CSRC + "supercell_topk.cu",
-             replaces=REPLACES["supercell_topk"], launches=launches,
+             replaces=REPLACES["supercell_topk"],
+             launches=(launches + pod["overlay"]["launches"]
+                       + elastic["launches"]),
+             grid_main_path_launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
                              sharded["main"]["slabs"][1]["max_abs_err"],
                              pod["main"]["chips"][1]["max_abs_err"],
+                             elastic["hotspot_kernel"]["max_abs_err"],
                              query["uniform"]["kernel"]["max_abs_err"],
                              query["clustered"]["kernel"]["max_abs_err"]),
              **timing, query_launches=query["launches"],
@@ -4686,6 +5121,10 @@ def main() -> int:
              pod_bound_ms=pod["main"]["bound_ms"],
              pod_plain_ms_chip1=pod["main"]["chips"][1]["plain_ms"],
              pod_query_launches=pod["queries"]["launches"],
+             pod_overlay_launches=pod["overlay"]["launches"],
+             elastic_launches=elastic["launches"],
+             elastic_hotspot_ms=elastic["hotspot_kernel"]["ms"],
+             elastic_hotspot_plain_ms=elastic["hotspot_kernel"]["plain_ms"],
              mxu_tier_launches=mxu_tier["launches"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
@@ -4739,6 +5178,7 @@ def main() -> int:
     print(f"  legacy route: {json.dumps(legacy)}", flush=True)
     print(f"  sharded: {json.dumps(sharded)}", flush=True)
     print(f"  pod: {json.dumps(pod)}", flush=True)
+    print(f"  elastic: {json.dumps(elastic)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

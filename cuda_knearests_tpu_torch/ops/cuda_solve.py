@@ -218,8 +218,13 @@ def hbm_budget_bytes(device: torch.device, cfg=None) -> Optional[int]:
     reference resolves it: the config's ``hbm_budget_bytes`` wins (<= 0:
     unbounded); then the ``KNTPU_HBM_BUDGET_BYTES`` environment variable
     (<= 0: unbounded; a malformed value is ignored with a line on stderr
-    and leaves the budget unbounded); then a fraction of what CUDA
-    reports free on ``device``; on the CPU, unbounded."""
+    and leaves the budget unbounded); then a fraction of the memory free
+    on ``device``: what CUDA reports free plus the cached segments of
+    torch's caching allocator that no tensor uses (a large allocation that
+    misses the cache releases them and retries, as the reference's budget
+    counts only live buffers), but not the free fragments of a segment a
+    live tensor still holds, which neither a large pack nor CUDA can take
+    back; on the CPU, unbounded."""
     explicit = None if cfg is None else cfg.hbm_budget_bytes
     if explicit is not None:
         return int(explicit) if explicit > 0 else None
@@ -235,7 +240,11 @@ def hbm_budget_bytes(device: torch.device, cfg=None) -> Optional[int]:
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
-    return int(free * _HBM_BUDGET_FRACTION)
+    pinned = torch.cuda.memory_stats(device).get(
+        "inactive_split_bytes.all.current", 0)
+    releasable = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device) - pinned)
+    return int((free + releasable) * _HBM_BUDGET_FRACTION)
 
 
 def _check(qx, qy, qz, qid, cx, cy, cz, cid, k):

@@ -12,11 +12,19 @@ refusing it.
 * :mod:`.halo`      -- staging and the exchange of export blocks.
 * :mod:`.stream`    -- the per-chip memory model and its budget gate.
 * :mod:`.solve`     -- :class:`PodKnnProblem`: prepare, solve, query.
+* :mod:`.reshard`   -- mutation under partitioning: :class:`PodOverlay`
+  (deletes tombstone bucket rows in place, only the dirty chips are
+  staged again, and the halo exchange runs again only when a dirty cell
+  is in its owner's export block; inserts ride a pruned host delta) and
+  :class:`ElasticIndex` (the serving tier's Morton-range shards, each a
+  legacy-route problem plus a delta overlay, with live boundary
+  migration under traffic).
 
 ``python -m cuda_knearests_tpu_torch.pod`` runs the smoke (``--device
 cpu`` on a host without a GPU).
 """
 
+from .reshard import ElasticIndex, PodOverlay
 from .solve import PodKnnProblem
 
-__all__ = ["PodKnnProblem"]
+__all__ = ["PodKnnProblem", "PodOverlay", "ElasticIndex"]

@@ -1452,3 +1452,114 @@ def test_pod_on_distinct_cards(cuda_device):
             assert torch.equal(a, b), f"chip {d}"
     for a, b in zip(gpu.solve(), cpu.solve()):
         np.testing.assert_array_equal(a, b)
+
+
+def _reshard_overlay_run(devices):
+    """A seeded delete / insert / delete-an-insert sequence on a 4,000-point
+    pod over ``devices``, then a solve and a query: every result host-side."""
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem, PodOverlay
+
+    pts = generate_uniform(4_000, seed=11)
+    pp = PodKnnProblem.prepare(pts, config=pt.KnnConfig(k=8), mesh=devices)
+    pp.solve()
+    ov = PodOverlay(pp)
+    rng = np.random.default_rng(170)
+    out = []
+    ov.delete(rng.choice(4_000, 60, replace=False))
+    out.append(ov.solve())
+    ov.insert((rng.random((40, 3)) * 110.0 + 5.0).astype(np.float32))
+    ov.delete(np.asarray([4_003, 4_011, 17]))
+    out.append(ov.solve())
+    q = (rng.random((500, 3)) * 1000.0).astype(np.float32)
+    out.append(ov.query(q))
+    return out, ov.stats_dict()
+
+
+@pytest.mark.cuda
+def test_reshard_overlay_card_equals_cpu(cuda_device):
+    """The mutating pod on four chips of the card equals the same run on
+    four CPU chips bit for bit: ids, d2, certificates and counters."""
+    gpu, g_stats = _reshard_overlay_run(["cuda:0"] * 4)
+    cpu, c_stats = _reshard_overlay_run(["cpu"] * 4)
+    assert g_stats == c_stats and g_stats["reexchanges"] > 0
+    for g, c in zip(gpu, cpu):
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+
+
+def _reshard_elastic_run(device):
+    """The live reshard of ``tests/test_pod.py`` on ``device``: the answers
+    at every pump, each equal to the rebuild oracle byte for byte."""
+    from cuda_knearests_tpu_torch.pod import ElasticIndex
+
+    el = ElasticIndex(generate_uniform(420, seed=21), k=6, nshards=2,
+                      compact_threshold=64, migration_chunk=8, device=device)
+    el.insert((np.random.default_rng(4).random((48, 3)) * 110.0
+               + 5.0).astype(np.float32))
+    q = (np.random.default_rng(6).random((20, 3)) * 980.0
+         + 10.0).astype(np.float32)
+    assert el.force_rebalance()
+    rows = []
+    while True:
+        got = el.query(q, 6)
+        want = el.rebuild_oracle_query(q, 6)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        rows.append(got)
+        if el.migration is None:
+            return rows, el.stats_dict()
+        el.pump()
+
+
+@pytest.mark.cuda
+def test_reshard_elastic_card_equals_cpu(cuda_device):
+    """The elastic migration on the card answers as on the CPU at every
+    pump, bit for bit, with the same shard state."""
+    gpu, g_stats = _reshard_elastic_run("cuda")
+    cpu, c_stats = _reshard_elastic_run("cpu")
+    assert len(gpu) == len(cpu) > 2
+    for g, c in zip(gpu, cpu):
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+    assert g_stats["elastic_migrations_done"] == 1
+    g_stats.pop("elastic_recompiles")
+    c_stats.pop("elastic_recompiles")
+    assert g_stats == c_stats
+
+
+@pytest.mark.cuda
+def test_default_budget_counts_the_allocator_cache(cuda_device):
+    """The default budget counts memory torch's caching allocator holds
+    unused as free: freeing a large tensor leaves the budget where it was
+    with the tensor never allocated (to within the card's own churn)."""
+    torch.cuda.empty_cache()
+    before = cs.hbm_budget_bytes(cuda_device)
+    big = torch.empty((1 << 30,), dtype=torch.uint8, device=cuda_device)
+    held = cs.hbm_budget_bytes(cuda_device)
+    del big
+    cached = cs.hbm_budget_bytes(cuda_device)
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    assert held < before - (1 << 29)
+    assert abs(cached - before) < (64 << 20)
+    assert cached > int(free * 0.8) + (1 << 29)
+
+
+@pytest.mark.cuda
+def test_default_budget_leaves_out_a_pinned_segment(cuda_device):
+    """A small live tensor carved from a cached 1 GiB segment pins it: the
+    segment's free part is neither releasable nor one block a large pack
+    could take, so the budget does not count it."""
+    torch.cuda.empty_cache()
+    before = cs.hbm_budget_bytes(cuda_device)
+    big = torch.empty((1 << 30,), dtype=torch.uint8, device=cuda_device)
+    del big
+    small = torch.empty((4 << 20,), dtype=torch.uint8, device=cuda_device)
+    split = torch.cuda.memory_stats(cuda_device)[
+        "inactive_split_bytes.all.current"]
+    assert split > (1 << 29)
+    pinned = cs.hbm_budget_bytes(cuda_device)
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    assert pinned < before - (1 << 29)
+    assert abs(pinned - int(free * 0.8)) < (64 << 20)
+    del small
+    torch.cuda.empty_cache()

@@ -1,6 +1,10 @@
 """The port's package surface against the JAX package's: the top-level
 exports, ``ops.gridhash.unpermute_neighbors`` and ``io.save_xyz``, on the
-cases of ``tests/test_gridhash.py`` and ``tests/test_io.py``."""
+cases of ``tests/test_gridhash.py`` and ``tests/test_io.py``; and the
+public methods and positional parameters of ``pod/reshard.py``'s classes
+and functions."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -70,3 +74,53 @@ def test_save_xyz_roundtrip_and_bytes_equal_jax(tmp_path, rng):
     np.testing.assert_array_equal(jax_load_xyz(mine), back)
     with open(mine, "rb") as a, open(theirs, "rb") as b:
         assert a.read() == b.read()
+
+
+# -- the mutating pod's surface -------------------------------------------------
+
+def _public_methods(cls):
+    return sorted(n for n, v in vars(cls).items()
+                  if not n.startswith("_")
+                  and (callable(v) or isinstance(v, property)))
+
+
+def _positional(fn):
+    """Names of the positional parameters of ``fn``, in order."""
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+
+
+RESHARD_CLASSES = ("PodOverlay", "ElasticIndex", "RangeShard", "Migration",
+                   "ShipRecord")
+
+
+@pytest.mark.parametrize("name", RESHARD_CLASSES)
+def test_reshard_class_surface_equals_jax(name):
+    """Each class of ``pod/reshard.py`` has the reference's public methods
+    and properties, each with the reference's positional parameters (the
+    port adds only keyword-only ones, such as ``device``)."""
+    from cuda_knearests_tpu.pod import reshard as jrs
+    from cuda_knearests_tpu_torch.pod import reshard as prs
+
+    want, got = getattr(jrs, name), getattr(prs, name)
+    assert _public_methods(got) == _public_methods(want)
+    for meth in ["__init__"] + _public_methods(want):
+        a, b = vars(want).get(meth), vars(got).get(meth)
+        if a is None or isinstance(a, property):
+            continue
+        fa = a.__func__ if isinstance(a, staticmethod) else a
+        fb = b.__func__ if isinstance(b, staticmethod) else b
+        assert _positional(fb) == _positional(fa), (name, meth)
+
+
+def test_reshard_functions_and_exports_equal_jax():
+    from cuda_knearests_tpu import pod as jpod
+    from cuda_knearests_tpu.pod import reshard as jrs
+    from cuda_knearests_tpu_torch import pod as ppod
+    from cuda_knearests_tpu_torch.pod import reshard as prs
+
+    assert ppod.__all__ == jpod.__all__
+    assert prs.__all__ == jrs.__all__
+    assert _positional(prs.morton_codes) == _positional(jrs.morton_codes)
+    assert inspect.signature(prs.morton_codes).parameters["domain"] \
+        .default == 1000.0
