@@ -189,6 +189,23 @@ H100: the kernels target sm_90a).  It imports only the port
      200,000 hotspot inserts, ``force_rebalance`` and pumps to the
      handover, a 64-row batch between pumps equal to the rebuild oracle
      byte for byte, 0 kernel builds or loads outside its attributed work;
+ 10e. runs the fuzz campaigns (``cuda_knearests_tpu_torch.fuzz``) on the
+     card: (a) the point campaign in-process, 48 zoo cases (all 12
+     generators 4 times over) through the four routes, each exact against
+     the kd-tree, then every case through the four routes and
+     ``kernel='blocked'``, ``epilogue='gather'`` and both, card rows equal
+     to the CPU run's bit for bit; (b) 6 cases under ``isolation='case'``
+     (one supervisor worker each, timed) and an abort drill: a SIGKILLed
+     worker's case banked as 'crash' with its flight-recorder tail, the
+     next case answered; (c) the approx (12 cases, f32 and bf16, plus
+     k=1,800 on quantized and coincident clouds: the split selection's
+     two arms), FoF (8), mutation (4 streams) and pod (8 cases, 4 chips on
+     the card) campaigns, all clean, every selection kernel launched; (d)
+     ``KNTPU_FUZZ_FAULT=drop-neighbor`` and ``KNTPU_MXU_FAULT=drop-block``
+     each detected, minimized and banked in a scratch directory (no
+     selection launch under the fault); (e) ``tests/corpus`` and
+     ``tests/corpus_torch`` replayed clean; each kernel's launches in the
+     phase printed;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -210,6 +227,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -229,8 +247,6 @@ PEAK_HBM_BYTES = 3.35e12
 SAMPLE_ROWS = 20_000
 DEV = "cuda"
 CSRC = "cuda_knearests_tpu_torch/csrc/"
-KERNELS = ("supercell_topk", "blocked_topk", "mxu_select", "mxu_select_bf16",
-           "mxu_select_split")
 REPLACES = {
     "supercell_topk": "cuda_knearests_tpu/ops/pallas_solve.py:480",
     "blocked_topk": "cuda_knearests_tpu/ops/pallas_solve.py:168",
@@ -4018,6 +4034,7 @@ def sharded_processes(cfg_k: int) -> dict:
                     f"multi-process slab {d}: {name} differ from the "
                     f"single-process run")
         seen[z["sids"]] += 1
+    shutil.rmtree(out_dir, ignore_errors=True)
     require(bool((seen == 1).all()), "multi-process rows not covered once")
     print(f"  sharded multi-process: 2 processes x 2 slabs on "
           f"{SHARDED_MP_N:,} points over {backend}, in {wall:.1f} s; every "
@@ -4945,6 +4962,266 @@ def elastic_phase() -> dict:
     return out
 
 
+FUZZ_CASES = 48
+FUZZ_SUPERVISED = 6
+FUZZ_APPROX = 12
+FUZZ_FOF = 8
+FUZZ_MUTATIONS = 4
+FUZZ_POD = 8
+FUZZ_POD_CHIPS = 4
+# Gate-refused k on zoo clouds: the split selection's two arms (m = 128 at
+# recall 1.0, the direct arm; m < 128 at 0.6, the pool arm) on exact ties.
+FUZZ_SPLIT = (("quantized-dups", 1.0, "f32"),
+              ("all-coincident", 0.6, "bf16"))
+FUZZ_SPLIT_N, FUZZ_SPLIT_K = 2048, 1800
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, by the name the kernels line uses."""
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    return {"supercell_topk": cs.launches - cs.launches_b,
+            "supercell_topk_mode_b": cs.launches_b,
+            "blocked_topk": cs.blocked_launches - cs.blocked_launches_b,
+            "blocked_topk_mode_b": cs.blocked_launches_b,
+            "mxu_select": mk.launches, "mxu_select_bf16": mk.launches_bf16,
+            "mxu_select_split": mk.split_launches}
+
+
+def zero_kernel_counts() -> None:
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    cs.launches = cs.blocked_launches = cs.launches_b = 0
+    cs.blocked_launches_b = 0
+    mk.launches = mk.launches_bf16 = mk.split_launches = 0
+    mk.prep_launches = mk.prep_launches_f32 = 0
+
+
+def fuzz_zoo_rows(n_cases: int) -> dict:
+    """Phase 12 (a), second half: every zoo case through the four routes
+    and ``campaign.CARD_CONFIGS`` on the card and on the CPU
+    (``campaign.check_card_rows``): card rows exact against the kd-tree
+    (tie-aware) and equal to the CPU's bit for bit."""
+    from cuda_knearests_tpu_torch.fuzz.campaign import check_card_rows
+    from cuda_knearests_tpu_torch.fuzz.generators import draw_cases
+
+    t0 = time.perf_counter()
+    checked, problems = 0, []
+    for spec in draw_cases(n_cases, 0):
+        runs, bad = check_card_rows(spec, DEV)
+        checked += runs
+        problems += bad
+    require(not problems, f"fuzz zoo rows: {len(problems)} disagreements, "
+                          f"first {problems[:3]}")
+    return {"cases": n_cases, "runs": checked,
+            "s": time.perf_counter() - t0}
+
+
+def fuzz_drill(scratch: str) -> dict:
+    """Phase 12 (b), the abort drill: one supervised worker is SIGKILLed
+    (``KNTPU_FAULT=abort:<label>``); its case must come back banked as a
+    'crash' with the worker's flight-recorder tail, and the next case runs
+    on a fresh worker of the same supervisor."""
+    from cuda_knearests_tpu_torch.fuzz.campaign import _run_one
+    from cuda_knearests_tpu_torch.fuzz.generators import draw_cases
+    from cuda_knearests_tpu_torch.fuzz.routes import ROUTE_NAMES
+    from cuda_knearests_tpu_torch.runtime.supervisor import Supervisor
+
+    killed, after = draw_cases(2, 1)
+    bank = os.path.join(scratch, "drill")
+    sup = Supervisor(timeout_s=240)
+    t0 = time.perf_counter()
+    os.environ["KNTPU_FAULT"] = f"abort:{killed.case_id()}"
+    try:
+        out = _run_one(killed, ROUTE_NAMES, bank, True, 2, sup, DEV)
+    finally:
+        del os.environ["KNTPU_FAULT"]
+    record = sup.quarantined.get(killed.case_id())
+    require(len(out) == 1 and out[0].kind == "crash" and record is not None
+            and record.signal == 9, f"abort drill: {out}")
+    require(bool(out[0].banked) and out[0].banked.startswith(bank)
+            and os.path.exists(out[0].banked),
+            f"abort drill: the killed case was not banked ({out[0]})")
+    require(len(record.flight_tail) > 0,
+            "abort drill: the killed worker left no flight-recorder tail")
+    require(_run_one(after, ROUTE_NAMES, bank, True, 2, sup, DEV) == [],
+            "abort drill: the next case failed")
+    return {"killed": killed.case_id(), "kind": out[0].kind,
+            "banked": os.path.basename(out[0].banked),
+            "flight_tail": [e["name"] for e in record.flight_tail],
+            "next": after.case_id(), "s": time.perf_counter() - t0}
+
+
+def fuzz_faults(scratch: str) -> dict:
+    """Phase 12 (d): the seeded faults on the card, each a minimized
+    failure banked under ``scratch`` (never in ``tests/corpus*``); under
+    ``KNTPU_MXU_FAULT`` the selection runs its plain version, so no
+    selection kernel launches."""
+    from cuda_knearests_tpu_torch.fuzz import approx, campaign
+    from cuda_knearests_tpu_torch.fuzz.generators import CaseSpec
+
+    out = {}
+    bank = os.path.join(scratch, "faults")
+    os.environ["KNTPU_FUZZ_FAULT"] = "drop-neighbor"
+    try:
+        got = campaign.run_case(CaseSpec("uniform", 77, 33, 4),
+                                routes=("adaptive",), bank_dir=bank,
+                                max_probes=16, device=DEV)
+    finally:
+        del os.environ["KNTPU_FUZZ_FAULT"]
+    require(len(got) == 1 and got[0].kind == "mismatch"
+            and got[0].minimized_n < got[0].original_n,
+            f"KNTPU_FUZZ_FAULT=drop-neighbor not detected: {got}")
+    out["drop-neighbor"] = got[0]
+    before = kernel_counts()
+    os.environ["KNTPU_MXU_FAULT"] = "drop-block"
+    try:
+        f = approx.run_approx_case(
+            approx.ApproxCaseSpec("block-aliased", 3, 2048, 10, 0.6),
+            bank_dir=bank, max_probes=8, device=DEV)
+    finally:
+        del os.environ["KNTPU_MXU_FAULT"]
+    require(f is not None and f.kind == "certified-unsound",
+            f"KNTPU_MXU_FAULT=drop-block not detected: {f}")
+    require(kernel_counts() == before,
+            "KNTPU_MXU_FAULT: a selection kernel launched under the fault")
+    out["drop-block"] = f
+    corpora = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", d) for d in ("corpus", "corpus_torch")]
+    for name, fail in out.items():
+        require(bool(fail.banked) and fail.banked.startswith(bank)
+                and os.path.exists(fail.banked)
+                and not any(fail.banked.startswith(c) for c in corpora),
+                f"{name}: banked at {fail.banked}")
+    return {name: {"kind": fail.kind, "original_n": fail.original_n,
+                   "minimized_n": fail.minimized_n,
+                   "banked": os.path.basename(fail.banked)}
+            for name, fail in out.items()}
+
+
+def fuzz_phase() -> dict:
+    """Phase 12: the fuzz campaigns on the card (``fuzz/``), with every
+    kernel's launches counted from 0 over the phase (in this process; a
+    supervised worker's launches are its own)."""
+    import tempfile
+
+    from cuda_knearests_tpu_torch import fuzz
+    from cuda_knearests_tpu_torch.fuzz import (approx, campaign, fof,
+                                               mutation, pod)
+    from cuda_knearests_tpu_torch.fuzz.generators import (CaseSpec,
+                                                          generate_case)
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-fuzz-")
+    saved_env = {k: os.environ.get(k) for k in ("BENCH_ROW_TIMEOUT_S",
+                                                "KNTPU_FAILURE_DIR")}
+    os.environ["BENCH_ROW_TIMEOUT_S"] = "240"
+    os.environ["KNTPU_FAILURE_DIR"] = scratch
+    zero_kernel_counts()
+    out, flavors = {}, {}
+
+    def flavor(name: str, manifest: dict, cases: int) -> None:
+        require(manifest["ok"] and manifest["completed_cases"] == cases,
+                f"fuzz {name}: {manifest['failures'][:2]} "
+                f"({manifest['completed_cases']}/{cases} cases)")
+        flavors[name] = {"cases": manifest["completed_cases"],
+                         "failures": len(manifest["failures"]),
+                         "s": manifest["elapsed_s"]}
+        print(f"  fuzz {name}: {manifest['completed_cases']} cases, "
+              f"{len(manifest['failures'])} failures, "
+              f"{manifest['elapsed_s']:.3f} s", flush=True)
+
+    def bank(name: str) -> str:
+        return os.path.join(scratch, name)
+
+    try:
+        # (a) the point campaign in-process, then card = CPU on its cases
+        flavor("point", campaign.run_campaign(
+            n_cases=FUZZ_CASES, isolation="none", bank_dir=bank("point"),
+            log=None, device=DEV), FUZZ_CASES)
+        out["zoo_rows"] = fuzz_zoo_rows(FUZZ_CASES)
+        print(f"  fuzz zoo rows: {out['zoo_rows']['runs']} route runs of "
+              f"{FUZZ_CASES} cases exact and card = CPU bit for bit "
+              f"(routes {', '.join(r for r, _ in campaign.CARD_CONFIGS)}"
+              f" too), "
+              f"{out['zoo_rows']['s']:.3f} s", flush=True)
+        # (b) supervised cases, then the abort drill
+        m = campaign.run_campaign(
+            n_cases=FUZZ_SUPERVISED, isolation="case",
+            bank_dir=bank("supervised"), log=None, device=DEV)
+        require(m["isolation"] == "case", "fuzz: isolation did not resolve "
+                                          "to 'case' on the card")
+        flavor("supervised", m, FUZZ_SUPERVISED)
+        out["supervised_case_s"] = m["elapsed_s"] / FUZZ_SUPERVISED
+        out["drill"] = fuzz_drill(scratch)
+        print(f"  fuzz supervised: {out['supervised_case_s']:.3f} s a case "
+              f"(spawn, torch import, CUDA init, kernel load, 4 routes); "
+              f"abort drill: {json.dumps(out['drill'])}", flush=True)
+        # (c) the other flavors
+        before = kernel_counts()
+        flavor("approx", approx.run_approx_campaign(
+            n_cases=FUZZ_APPROX, bank_dir=bank("approx"), log=None,
+            device=DEV), FUZZ_APPROX)
+        t0 = time.perf_counter()
+        for generator, rt, precision in FUZZ_SPLIT:
+            spec = CaseSpec(generator, 18, FUZZ_SPLIT_N, FUZZ_SPLIT_K)
+            got = approx._approx_failure(generate_case(spec), FUZZ_SPLIT_K,
+                                         rt, precision=precision, device=DEV)
+            require(got is None, f"fuzz split {generator} at {rt} "
+                                 f"{precision}: {got}")
+        sel = {k: kernel_counts()[k] - before[k]
+               for k in ("mxu_select", "mxu_select_bf16",
+                         "mxu_select_split")}
+        require(all(v > 0 for v in sel.values()),
+                f"fuzz approx: a selection kernel never launched {sel}")
+        out["approx_launches"] = sel
+        print(f"  fuzz approx selections launched {json.dumps(sel)}; "
+              f"split cases (k={FUZZ_SPLIT_K}, n={FUZZ_SPLIT_N}) exact "
+              f"in {time.perf_counter() - t0:.3f} s", flush=True)
+        flavor("fof", fof.run_fof_campaign(
+            n_cases=FUZZ_FOF, bank_dir=bank("fof"), log=None, device=DEV),
+            FUZZ_FOF)
+        flavor("mutation", mutation.run_mutation_campaign(
+            n_cases=FUZZ_MUTATIONS, bank_dir=bank("mutation"), log=None,
+            device=DEV), FUZZ_MUTATIONS)
+        flavor("pod", pod.run_pod_campaign(
+            n_cases=FUZZ_POD, ndev=FUZZ_POD_CHIPS, bank_dir=bank("pod"),
+            log=None, device=DEV), FUZZ_POD)
+        # (d) the seeded faults
+        out["faults"] = fuzz_faults(scratch)
+        print(f"  fuzz seeded faults: {json.dumps(out['faults'])}",
+              flush=True)
+        # (e) both corpora replay clean
+        replayed = 0
+        for d in (fuzz.REFERENCE_CORPUS_DIR, fuzz.CORPUS_DIR):
+            for name in sorted(os.listdir(d)):
+                if name.endswith(".npz"):
+                    got = campaign.replay_banked(os.path.join(d, name),
+                                                 device=DEV)
+                    require(got is None, f"corpus {name} regressed: {got}")
+                    replayed += 1
+        out["corpus_replayed"] = replayed
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        # the banked cases, flight and stall files were read above
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["flavors"] = flavors
+    out["launches"] = kernel_counts()
+    require(all(v > 0 for v in out["launches"].values()),
+            f"fuzz: a kernel never launched in the phase {out['launches']}")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  fuzz corpus: {replayed} banked cases replayed clean; kernel "
+          f"launches in the phase {json.dumps(out['launches'])}; phase "
+          f"{out['s']:.1f} s", flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -4970,11 +5247,11 @@ def main() -> int:
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
-    print(f"build: {', '.join(f'{n}.cu' for n in KERNELS)} in "
+    _build.load_all(_build.KERNELS)
+    print(f"build: {', '.join(f'{n}.cu' for n in _build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
           flush=True)
-    for name in KERNELS:
+    for name in _build.KERNELS:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
@@ -5074,6 +5351,9 @@ def main() -> int:
     phase("the elastic index: Morton-range shards and a live migration")
     elastic = elastic_phase()
 
+    phase("the fuzz campaigns on the card")
+    fuzzed = fuzz_phase()
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -5125,7 +5405,8 @@ def main() -> int:
              elastic_launches=elastic["launches"],
              elastic_hotspot_ms=elastic["hotspot_kernel"]["ms"],
              elastic_hotspot_plain_ms=elastic["hotspot_kernel"]["plain_ms"],
-             mxu_tier_launches=mxu_tier["launches"]),
+             mxu_tier_launches=mxu_tier["launches"],
+             fuzz_launches=fuzzed["launches"]["supercell_topk"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -5137,24 +5418,28 @@ def main() -> int:
              per_block_rows_crowded=blocked_crowded["per_block_rows"],
              query_launches=query["blocked_launches"],
              query_ms=query["blocked"]["kernel"]["ms"],
-             query_bound_ms=query["blocked"]["kernel"]["bound_ms"]),
+             query_bound_ms=query["blocked"]["kernel"]["bound_ms"],
+             fuzz_launches=fuzzed["launches"]["blocked_topk"]),
         dict(name="supercell_topk_mode_b", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
              launches=legacy["launches_b"],
              max_abs_err=legacy["max_abs_err"],
-             shape="900k/k=10 legacy pack", **legacy["mode_b"]),
+             shape="900k/k=10 legacy pack", **legacy["mode_b"],
+             fuzz_launches=fuzzed["launches"]["supercell_topk_mode_b"]),
         dict(name="blocked_topk_mode_b", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"],
              launches=legacy["blocked_launches_b"],
              max_abs_err=legacy["max_abs_err_blocked"],
-             shape="900k/k=10 legacy pack", **legacy["mode_b_blocked"]),
+             shape="900k/k=10 legacy pack", **legacy["mode_b_blocked"],
+             fuzz_launches=fuzzed["launches"]["blocked_topk_mode_b"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],
              max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
-             **select_timings["100k x 128 f32"]),
+             **select_timings["100k x 128 f32"],
+             fuzz_launches=fuzzed["launches"]["mxu_select"]),
         dict(name="mxu_select_bf16", route="cuda",
              source=CSRC + "mxu_select_bf16.cu",
              replaces=REPLACES["mxu_select_bf16"],
@@ -5162,13 +5447,15 @@ def main() -> int:
              max_abs_err=max_err["mxu_select_bf16"],
              max_band_ratio=band_ratio[0],
              max_band_ratio_f32=band_ratio[1], shape="100k x 128 bf16",
-             **select_timings["100k x 128 bf16"]),
+             **select_timings["100k x 128 bf16"],
+             fuzz_launches=fuzzed["launches"]["mxu_select_bf16"]),
         dict(name="mxu_select_split", route="cuda",
              source=CSRC + "mxu_select_split.cu",
              replaces=REPLACES["mxu_select_split"],
              launches=refused["launches"],
              max_abs_err=max_err["mxu_select_split"],
-             shape="20k x 3 f32 k=1800", **split_timings),
+             shape="20k x 3 f32 k=1800", **split_timings,
+             fuzz_launches=fuzzed["launches"]["mxu_select_split"]),
     ]
     print(f"  FoF (plain torch, no kernel of its own): "
           f"{json.dumps(fof_runs)}", flush=True)
@@ -5179,6 +5466,7 @@ def main() -> int:
     print(f"  sharded: {json.dumps(sharded)}", flush=True)
     print(f"  pod: {json.dumps(pod)}", flush=True)
     print(f"  elastic: {json.dumps(elastic)}", flush=True)
+    print(f"  fuzz: {json.dumps(fuzzed)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,11 +48,21 @@ _ID_MASK = 0xFFFFFFFF
 _MISSING = 2**63 - 1  # after every real key
 
 
-def cert_band_precision(precision: str) -> str:
+#: Seeded faults (``KNTPU_MXU_FAULT``, read by ``mxu/solve.parse_fault``
+#: and run through :func:`select_plain` only): 'drop-block' drops block
+#: 0's survivors from the selection after certification (a certified yet
+#: incomplete row), 'skip-certify' certifies every row, 'narrow-bound'
+#: certifies bf16-scored rows with the f32 band.  Each must give a banked
+#: failure in the approx fuzz campaign (``fuzz/approx.py``).
+FAULTS = ("drop-block", "skip-certify", "narrow-bound")
+
+
+def cert_band_precision(precision: str, fault: str | None = None) -> str:
     """The precision whose error band certifies rows: the scoring
-    precision (the reference's seeded 'narrow-bound' fault is not
-    ported)."""
-    return check_precision(precision)
+    precision, but the f32 band under the 'narrow-bound' seeded fault
+    (too narrow for bf16 scores, so boundary rows wrongly certify)."""
+    check_precision(precision)
+    return "f32" if fault == "narrow-bound" else precision
 
 
 def score_key(s: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -125,7 +135,7 @@ def score_tile(q: torch.Tensor, p: torch.Tensor,
 
 
 def block_fold(s: torch.Tensor, ids: torch.Tensor, k: int, m: int,
-               err_b: torch.Tensor
+               err_b: torch.Tensor, fault: str | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The TPU-KNN fold over a scored tile.
 
@@ -138,10 +148,22 @@ def block_fold(s: torch.Tensor, ids: torch.Tensor, k: int, m: int,
     (score, id), certified (...,) bool): each block's first m, the first k
     of their pool, and ``kplus >= t + 2B`` with t the k-th score and kplus
     the smallest score left out (rejected by its block, or in the pool
-    beyond the k-th)."""
+    beyond the k-th).  ``fault`` is a seeded fault of :data:`FAULTS`."""
     pool, kplus = fold_pool(s, ids, k, m)
     sel_s = key_score(pool[..., :k])
     cert = kplus >= sel_s[..., k - 1] + 2.0 * err_b
+    if fault == "skip-certify":
+        cert = torch.ones_like(cert)
+    if fault == "drop-block":
+        # certification above saw the whole pool; the selection loses
+        # block 0's survivors
+        lead, g = s.shape[:-1], s.shape[-1] // BLOCK
+        mm = min(int(m), BLOCK)
+        rest = score_key(s, ids).reshape(lead + (g, BLOCK))[..., 1:, :]
+        kept = torch.topk(rest, mm, dim=-1, largest=False,
+                          sorted=True).values
+        pool = _smallest(kept.reshape(lead + ((g - 1) * mm,)), k)
+        sel_s = key_score(pool[..., :k])
     return key_id(pool[..., :k]), sel_s, cert
 
 
@@ -211,7 +233,8 @@ def check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
 
 
 def select_plain(queries, q_ids, pts_il, cid_il, k: int, m: int,
-                 d_real: int, exclude_self: bool, precision: str = "f32"):
+                 d_real: int, exclude_self: bool, precision: str = "f32",
+                 fault: str | None = None):
     """The brute route's selection in plain torch (same arguments and
     results as ``mxu.kernel.select``).
 
@@ -221,8 +244,8 @@ def select_plain(queries, q_ids, pts_il, cid_il, k: int, m: int,
     is scored against every candidate (chunked over queries), masked, and
     folded (:func:`block_fold`) with the error band of the f32 norms, d =
     ``d_real`` and ``pn_max`` the largest f32 norm of a real candidate (at
-    least 0).  Returns (ids (M, k) int32, scores (M, k) f32, certified
-    (M,) bool)."""
+    least 0).  ``fault`` is a seeded fault of :data:`FAULTS`.  Returns
+    (ids (M, k) int32, scores (M, k) f32, certified (M,) bool)."""
     n_q, n_c, _ = check_select_args(queries, q_ids, pts_il, cid_il, k, m,
                                     d_real, precision)
     k, m = int(k), int(m)
@@ -242,9 +265,9 @@ def select_plain(queries, q_ids, pts_il, cid_il, k: int, m: int,
             drop = drop | (cid_il[None, :] == q_ids[r0:r0 + step, None])
         s = torch.where(drop, float("inf"), s)
         err_b = dot_error_bound(norms(q), pn_max, int(d_real),
-                                cert_band_precision(precision))
+                                cert_band_precision(precision, fault))
         out_i[r0:r0 + step], out_s[r0:r0 + step], cert[r0:r0 + step] = \
-            block_fold(s, cid_il.expand(s.shape), k, m, err_b)
+            block_fold(s, cid_il.expand(s.shape), k, m, err_b, fault)
     return out_i, out_s, cert
 
 

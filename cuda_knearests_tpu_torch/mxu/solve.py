@@ -14,12 +14,18 @@ to the exact brute fallback.  At ``recall_target=1.0`` the fold is
 exhaustive and the certificate strict about dot-form rounding, so the
 answer is byte-identical to the exact elementwise path.
 
-Everything runs on the GPU unless ``device='cpu'`` is passed.
+Everything runs on the GPU unless ``device='cpu'`` is passed.  A seeded
+fault (``KNTPU_MXU_FAULT``, :func:`parse_fault`; the approx fuzz
+campaign's self-test) runs the selection's plain version,
+``scorer.select_plain``, on the given device instead of the kernels:
+only then, and never as a fallback.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import numpy as np
 
@@ -31,7 +37,25 @@ from ..runtime import dispatch
 from ..utils.memory import InvalidConfigError, InvalidShapeError
 from ..utils.platform import resolve_device
 from . import kernel
+from .scorer import FAULTS, select_plain
 from .topk import BLOCK, interleave_slots, per_block_m, recall_bound
+
+_FAULT_ENV = "KNTPU_MXU_FAULT"
+
+
+def parse_fault(spec: Optional[str] = None) -> Optional[str]:
+    """The seeded-fault knob
+    (``KNTPU_MXU_FAULT=drop-block|skip-certify|narrow-bound``); an unknown
+    value raises, so a mistyped fault never runs a clean campaign that
+    would 'prove' the detectors fire."""
+    spec = os.environ.get(_FAULT_ENV, "") if spec is None else spec
+    spec = (spec or "").strip()
+    if not spec:
+        return None
+    if spec not in FAULTS:
+        raise InvalidConfigError(
+            f"unknown {_FAULT_ENV} value {spec!r}: expected one of {FAULTS}")
+    return spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +71,8 @@ class MxuResult:
     bound of the (n_blocks, m) fold.  ``backend`` names the selection's
     route (``kernel.select_routed``): 'cuda' (the one-block kernel of the
     tier), 'cuda_split' (the split selection, where that kernel's launch
-    gate refuses the shape), 'plain' (the plain version, on the CPU) or
-    'elementwise' (the exact brute selection)."""
+    gate refuses the shape), 'plain' (the plain version: on the CPU, or
+    under a seeded fault) or 'elementwise' (the exact brute selection)."""
 
     neighbors: np.ndarray
     dists_sq: np.ndarray
@@ -175,9 +199,15 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     m = per_block_m(recall_target, k, g)
     bound = recall_bound(k, g, m)
     qid, pts_il, cid_il = select_inputs(points, m_q, exclude_self)
-    backend, (sel_i, _sel_s, cert_d) = kernel.select_routed(
-        q_dev, dispatch.stage(qid, device), dispatch.stage(pts_il, device),
-        dispatch.stage(cid_il, device), k, m, d, exclude_self, precision)
+    args = (q_dev, dispatch.stage(qid, device),
+            dispatch.stage(pts_il, device), dispatch.stage(cid_il, device),
+            k, m, d, exclude_self, precision)
+    fault = parse_fault()
+    if fault is None:
+        backend, (sel_i, _sel_s, cert_d) = kernel.select_routed(*args)
+    else:
+        backend = "plain"
+        sel_i, _sel_s, cert_d = select_plain(*args, fault=fault)
 
     ids_sel, cert = dispatch.fetch(sel_i, cert_d)
     ids, d2 = _host_rescore(points, queries_v, ids_sel)

@@ -3,8 +3,8 @@ snapshot.
 
 Counterpart of ``cuda_knearests_tpu/obs/metrics.py``: :class:`Counter`,
 :class:`Gauge`, :class:`Histogram`, :func:`percentile_fields`,
-:class:`MetricsRegistry`, :func:`metrics_snapshot` and
-:class:`JsonlEmitter`.
+:class:`MetricsRegistry`, :func:`metrics_snapshot`,
+:class:`JsonlEmitter` and :func:`watchdog_stall_tripped`.
 
 * :class:`Histogram` has FIXED geometric buckets with exact count, sum,
   min and max and interpolated percentiles: O(1) memory at any request
@@ -288,3 +288,11 @@ class JsonlEmitter(threading.Thread):
         self._emit()                  # final snapshot (short sessions)
         with self._lock:
             self._f.close()
+
+
+def watchdog_stall_tripped(tag: str) -> None:
+    """The watchdog's trip path: count the stall where every other
+    counter lives (called from ``utils/watchdog.py`` right before exit)."""
+    REGISTRY.counter("watchdog.stalls").inc()
+    REGISTRY.gauge("watchdog.last_stall_ts").set(time.time())
+    _ = tag  # the tag rides the flight-recorder event, not the counter

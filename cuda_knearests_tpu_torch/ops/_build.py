@@ -32,6 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+#: Every kernel source of ``csrc/``: what a run that may launch any of
+#: them builds up front (``load_all(KERNELS)``).
+KERNELS = ("supercell_topk", "blocked_topk", "mxu_select", "mxu_select_bf16",
+           "mxu_select_split")
+
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 # nvcc's output (ptxas register / spill report) of each build this process

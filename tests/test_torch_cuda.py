@@ -1563,3 +1563,60 @@ def test_default_budget_leaves_out_a_pinned_segment(cuda_device):
     assert abs(pinned - int(free * 0.8)) < (64 << 20)
     del small
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_fuzz_zoo_card_rows_equal_cpu(cuda_device):
+    """One case per zoo generator through the four fuzz routes, the
+    blocked kernel and the gather epilogue (``campaign.check_card_rows``):
+    exact against the kd-tree, and the card's rows equal the CPU's bit for
+    bit."""
+    from cuda_knearests_tpu_torch.fuzz.campaign import check_card_rows
+    from cuda_knearests_tpu_torch.fuzz.generators import draw_cases
+
+    cs.launches = cs.blocked_launches = 0
+    for spec in draw_cases(12, 0):
+        runs, problems = check_card_rows(spec, cuda_device)
+        assert runs == 7 and problems == []
+    assert cs.launches > 0 and cs.blocked_launches > 0
+
+
+@pytest.mark.cuda
+def test_fuzz_supervisor_case_on_card(cuda_device, tmp_path):
+    """A fuzz case in a supervisor worker on the card: the worker builds
+    nothing (the parent did), answers, and banks nothing."""
+    from cuda_knearests_tpu_torch.fuzz.campaign import _run_one, \
+        prepare_device
+    from cuda_knearests_tpu_torch.fuzz.generators import CaseSpec
+    from cuda_knearests_tpu_torch.fuzz.routes import ROUTE_NAMES
+    from cuda_knearests_tpu_torch.runtime.supervisor import Supervisor
+
+    assert prepare_device(cuda_device).type == "cuda"
+    spec = CaseSpec(generator="quantized-dups", seed=3, n=257, k=10)
+    sup = Supervisor(timeout_s=300)
+    assert _run_one(spec, ROUTE_NAMES, str(tmp_path), True, 2, sup,
+                    cuda_device) == []
+    assert sup.quarantined == {} and not list(tmp_path.iterdir())
+
+
+@pytest.mark.cuda
+def test_fuzz_mxu_drop_block_detected_on_card(cuda_device, tmp_path,
+                                              monkeypatch):
+    """KNTPU_MXU_FAULT=drop-block on the card: the planted case fails as
+    'certified-unsound', banked under tmp_path, with no selection kernel
+    launched; without the fault the same case launches the kernel and its
+    banked repro replays clean."""
+    from cuda_knearests_tpu_torch.fuzz import approx
+    from cuda_knearests_tpu_torch.fuzz.campaign import replay_banked
+
+    spec = approx.ApproxCaseSpec("block-aliased", 3, 2048, 10, 0.6)
+    monkeypatch.setenv("KNTPU_MXU_FAULT", "drop-block")
+    before = mk.launches
+    f = approx.run_approx_case(spec, bank_dir=str(tmp_path), max_probes=8,
+                               device=cuda_device)
+    assert f is not None and f.kind == "certified-unsound"
+    assert f.banked.startswith(str(tmp_path)) and mk.launches == before
+    monkeypatch.delenv("KNTPU_MXU_FAULT")
+    assert approx.run_approx_case(spec, device=cuda_device) is None
+    assert mk.launches > before
+    assert replay_banked(f.banked, device=cuda_device) is None

@@ -54,7 +54,18 @@ def test_package_import_leaves_jax_out_of_sys_modules():
             "cuda_knearests_tpu_torch.serve.__main__, "
             "cuda_knearests_tpu_torch.obs.metrics, "
             "cuda_knearests_tpu_torch.obs.spans, "
-            "cuda_knearests_tpu_torch.runtime.supervisor\n"
+            "cuda_knearests_tpu_torch.runtime.supervisor, "
+            "cuda_knearests_tpu_torch.runtime.worker, "
+            "cuda_knearests_tpu_torch.obs.recorder, "
+            "cuda_knearests_tpu_torch.utils.watchdog, "
+            "cuda_knearests_tpu_torch.fuzz.__main__, "
+            "cuda_knearests_tpu_torch.fuzz.approx, "
+            "cuda_knearests_tpu_torch.fuzz.fof, "
+            "cuda_knearests_tpu_torch.fuzz.mutation, "
+            "cuda_knearests_tpu_torch.fuzz.pod\n"
+            "from cuda_knearests_tpu_torch.fuzz.campaign import run_campaign\n"
+            "assert run_campaign(n_cases=2, routes=('adaptive',), "
+            "bank_dir=None, log=None, device='cpu')['ok']\n"
             "d = pt.serve.ServeDaemon(pt.KnnProblem.prepare("
             "[[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], pt.KnnConfig(k=1), "
             "device='cpu'))\n"
