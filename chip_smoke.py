@@ -206,6 +206,27 @@ H100: the kernels target sm_90a).  It imports only the port
      selection launch under the fault); (e) ``tests/corpus`` and
      ``tests/corpus_torch`` replayed clean; each kernel's launches in the
      phase printed;
+ 10f. runs the serving fleet (``serve.fleet``) on the card: (a) the
+     reference's ``fleet_4tenant_mix`` fleet at full width
+     (``default_fleet_builds(4, base_n=1_000_000, k=10, seed=11)``: dense
+     tenants of 1,000,000, 1,000,000 and 1,002,048 points on the legacy
+     route, a replica each, and the 48-point host sidecar tenant), the
+     throughput tenant flooding at 900/s: every answered row exact against
+     cKDTree, 0 failed, 0 recompiles, a Jain index, per-tenant
+     percentiles, round trips and bytes, the class kernel's launches
+     (mode (a): legacy queries scatter) counted from 0 over the session; (b) a session with 20% mutations, then each dense
+     tenant's probe rows equal to a rebuild of its mutated cloud byte for
+     byte, before and after an in-process failover; (c) the process-level
+     ``failover_drill`` at 1,000,000 points with both children on the
+     card; (d) the reference's ``diurnal_autoscale`` row at base n =
+     1,000,000: every actuator family, a brownout episode through the
+     bf16 selection kernel (its batches timed), recovery to
+     byte-identical answers, 0 lost committed mutations; (e) the
+     ``--pod-tenant`` recipe on a 1,000,000-point pod tenant: a live
+     migration under queries, every row exact; (f) a small fleet on the
+     card and on the CPU under one fake clock, every response equal bit
+     for bit, a bf16 brownout episode included; the phase's seconds and
+     each kernel's launches printed;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -225,6 +246,7 @@ lines are the card, one JSON object of kernel measurements, and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -5222,6 +5244,712 @@ def fuzz_phase() -> dict:
     return out
 
 
+FLEET_N = 1_000_000
+FLEET_K = 10
+FLEET_REQS = 80              # the reference's fleet_4tenant_mix row
+FLEET_MUT_REQS = 60
+FLEET_PROBE = 256
+AUTOSCALE_K = 8
+AUTOSCALE_REQS = 240         # the reference's diurnal_autoscale row
+AUTOSCALE_RATE = 3600.0
+POD_TENANT_REQS = 60
+FLEET_CPU_N = 6000
+
+
+class CapturedFleet:
+    """Records every response a fleet returns, and each request's
+    (tenant, kind, payload), around ``run_fleet_session``."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.requests, self.responses = {}, []
+        submit, poll, drain = fleet.submit, fleet.poll, fleet.drain
+
+        def sub(req_id, tenant, kind, payload, *a, **kw):
+            self.requests[req_id] = (tenant, kind, payload)
+            return self._keep(submit(req_id, tenant, kind, payload, *a,
+                                     **kw))
+        fleet.submit = sub
+        fleet.poll = lambda *a, **kw: self._keep(poll(*a, **kw))
+        fleet.drain = lambda *a, **kw: self._keep(drain(*a, **kw))
+
+    def _keep(self, rs):
+        self.responses.extend(rs)
+        return rs
+
+    def query_rows(self, tenant: str, tiers=(None,)):
+        """(queries, ids, d2) of the tenant's answered query requests
+        served at one of ``tiers`` (None = exact, else the brownout
+        rung's wire name), stacked; None if there are none."""
+        qs, ids, d2 = [], [], []
+        for r in self.responses:
+            if (r.ok and r.ids is not None and r.tenant == tenant
+                    and r.degraded in tiers):
+                qs.append(self.requests[r.req_id][2])
+                ids.append(r.ids)
+                d2.append(r.d2)
+        if not qs:
+            return None
+        return np.concatenate(qs), np.concatenate(ids), np.concatenate(d2)
+
+
+def launches_since(before: dict) -> dict:
+    now = kernel_counts()
+    return {k: now[k] - before[k] for k in now if now[k] - before[k]}
+
+
+def restart_counts(total: dict) -> None:
+    """Add every kernel's launch count so far into ``total``, then set
+    the counts to 0: a path's launches are then read from 0."""
+    for key, v in kernel_counts().items():
+        total[key] = total.get(key, 0) + v
+    zero_kernel_counts()
+
+
+def session_line(name: str, s: dict) -> str:
+    per = {t: {key: pt[key] for key in ("p50_ms", "p99_ms", "p999_ms",
+                                        "completion", "slo_ok")}
+           for t, pt in s["per_tenant"].items()}
+    return (f"  fleet {name}: {s['completed_queries']} queries in "
+            f"{s['elapsed_s']:.3f} s = {s['sustained_qps']} q/s, "
+            f"{s['fleet_batches']} batches, failed {s['failed_requests']}, "
+            f"refused {s['refused_requests']}, recompiles "
+            f"{s['recompiles']}, jain {s['jain_fairness']}, host_syncs "
+            f"{s['host_syncs']}, d2h {s['d2h_bytes']} B, h2d "
+            f"{s['h2d_bytes']} B; per tenant {json.dumps(per)}")
+
+
+def recall_rows(what: str, pts: np.ndarray, q: np.ndarray, ids, d2,
+                dk: np.ndarray) -> np.ndarray:
+    """Rows of the certified-approximate rung against the exact k-th
+    distances ``dk`` (squared): valid unique ids, each d2 the realized
+    distance of its id, ascending.  Returns each row's hits: its ids
+    within the k-th reference distance's tolerance band."""
+    require(bool((ids >= 0).all()), f"{what}: a row has missing neighbours")
+    srt = np.sort(ids, axis=1)
+    require(not bool((np.diff(srt, axis=1) == 0).any()),
+            f"{what}: a row repeats a neighbour")
+    dp = ((pts[ids].astype(np.float64) - q[:, None, :].astype(np.float64))
+          ** 2).sum(-1)
+    require(bool(np.allclose(dp, d2, rtol=RTOL, atol=ATOL))
+            and not bool((np.diff(d2, axis=1) < 0).any()),
+            f"{what}: a row's d2 is not its ids' distances, ascending")
+    kth = dk[:, -1:]
+    return (dp <= kth + ATOL + RTOL * kth).sum(axis=1)
+
+
+def fleet_rows_exact(name: str, cap, fleet, trees: dict,
+                     recall_target: float = 1.0) -> dict:
+    """Every ok query row of every tenant (dense, pod, sidecar) against
+    cKDTree of the tenant's current cloud: rows served exact or at the
+    bf16 rung (which refines to exact) tie-aware exact; rows of the
+    lowered-recall rung valid, their d2 realized, and their mean recall
+    at least ``recall_target`` less three standard errors.  Returns the
+    rows checked by kind."""
+    from scipy.spatial import cKDTree
+
+    out = {"exact": 0, "bf16": 0, "recall": 0, "recall_mean": None}
+    hits, k_recall = [], 0
+    for tname, t in fleet.tenants.items():
+        for tiers in ((None, "bf16"), ("recall",)):
+            got = cap.query_rows(tname, tiers)
+            if got is None:
+                continue
+            q, ids, d2 = got
+            pts = t.mutated_points()
+            tree = trees.get(tname)
+            if tree is None:
+                tree = trees[tname] = cKDTree(pts.astype(np.float64))
+            k = ids.shape[1]
+            dk, ik = tree.query(q.astype(np.float64), k=k)
+            dk, ik = dk.reshape(q.shape[0], -1) ** 2, ik.reshape(q.shape[0],
+                                                                -1)
+            if tiers == ("recall",):
+                hits.append(recall_rows(f"fleet {name} tenant {tname}",
+                                        pts, q, ids, d2, dk))
+                k_recall = k
+                out["recall"] += q.shape[0]
+                continue
+            check_rows_exact(pts, ids, np.arange(q.shape[0]), dk, ik,
+                             queries=q)
+            out["exact"] += q.shape[0]
+            out["bf16"] += sum(r.ids.shape[0] for r in cap.responses
+                               if r.ok and r.ids is not None
+                               and r.tenant == tname
+                               and r.degraded == "bf16")
+    if hits:
+        # the rung's target is an expected recall: the sample mean of
+        # n rows x k slots may fall short of it by sampling error alone,
+        # so it must reach the target less three standard errors
+        out["recall_mean"] = float(np.concatenate(hits).mean() / k_recall)
+        floor = recall_target - 3.0 * np.sqrt(
+            recall_target * (1.0 - recall_target) / (out["recall"]
+                                                      * k_recall))
+        require(out["recall_mean"] >= floor,
+                f"fleet {name}: the lowered-recall rung's rows reach "
+                f"recall {out['recall_mean']} < {floor} (target "
+                f"{recall_target} less 3 standard errors)")
+    print(f"  fleet {name}: {out['exact']} served query rows exact against "
+          f"cKDTree ({out['bf16']} of them at the bf16 rung); "
+          f"{out['recall']} at the lowered-recall rung, mean recall "
+          f"{out['recall_mean']}", flush=True)
+    return out
+
+
+def fleet_mixed(total: dict) -> dict:
+    """Phase 10f (a) and (b): the reference's ``fleet_4tenant_mix`` fleet
+    at FLEET_N (three dense tenants of 1,000,000, 1,000,000 and 1,002,048
+    points, one replica each, and the 48-point sidecar tenant), k=10, on
+    the card.  (a) the mixed-SLO session with the throughput tenant
+    flooding: every answered row exact, 0 failed, 0 recompiles, a defined
+    Jain index, class-kernel launches counted from 0 over the session;
+    (b) a session with 20% mutations, after which each dense tenant's
+    answers equal a rebuild of its mutated cloud byte for byte, and an
+    in-process failover loses no committed mutation and answers the same
+    bytes."""
+    import torch
+
+    from cuda_knearests_tpu_torch.serve.fleet import (FleetDaemon,
+                                                      TenantLoad,
+                                                      default_fleet_builds,
+                                                      run_fleet_session)
+
+    out = {}
+    t0 = time.perf_counter()
+    builds = default_fleet_builds(n_tenants=4, base_n=FLEET_N, k=FLEET_K,
+                                  seed=11, replicas=1)
+    fleet = FleetDaemon(builds, device=DEV)
+    out["build_s"] = time.perf_counter() - t0
+    print(f"  fleet build: {len(builds)} tenants "
+          f"({', '.join(str(t.n_points) for t in fleet.tenants.values())}"
+          f" points), prepared and warmed in {out['build_s']:.1f} s",
+          flush=True)
+    cap = CapturedFleet(fleet)
+    loads = []
+    for i, (spec, _) in enumerate(builds):
+        flood = spec.slo == "throughput" \
+            and not fleet.tenants[spec.name].is_sidecar
+        loads.append(TenantLoad(tenant=spec.name,
+                                rate=900.0 if flood else 250.0,
+                                requests=FLEET_REQS * 2 if flood
+                                else FLEET_REQS, seed=40 + i))
+    # the main path's count: every kernel from 0 just before the session
+    restart_counts(total)
+    s = run_fleet_session(fleet, loads)
+    out["launches"] = kernel_counts()
+    print(session_line("mixed SLO", s), flush=True)
+    require(s["failed_requests"] == 0 and s["recompiles"] == 0
+            and s["jain_fairness"] is not None
+            and s["kernel_route"] == "cuda",
+            f"fleet mixed session: failed {s['failed_requests']}, "
+            f"recompiles {s['recompiles']}, jain {s['jain_fairness']}")
+    # the dense tenants' legacy queries resolve epilogue 'auto' to
+    # 'scatter': the class kernel in mode (a)
+    require(out["launches"]["supercell_topk"] > 0,
+            "the dense tenants launched no class kernel")
+    trees: dict = {}
+    out["exact_rows"] = fleet_rows_exact("mixed SLO", cap, fleet,
+                                         trees)["exact"]
+    out["session"] = {key: s[key] for key in (
+        "completed_queries", "elapsed_s", "sustained_qps", "fleet_batches",
+        "failed_requests", "recompiles", "jain_fairness", "host_syncs",
+        "d2h_bytes", "h2d_bytes", "kernel_launches", "occupancy_mean")}
+    out["per_tenant"] = {t: {key: pt[key] for key in (
+        "slo", "served_rows", "completion", "p50_ms", "p99_ms", "p999_ms",
+        "slo_ok", "sidecar")} for t, pt in s["per_tenant"].items()}
+    print(f"  fleet mixed launches {json.dumps(out['launches'])}",
+          flush=True)
+    # (b) mutations, then the rebuild oracle and an in-process failover
+    mut_loads = [dataclasses.replace(ld, requests=FLEET_MUT_REQS,
+                                     mutation_ratio=0.2, seed=ld.seed + 7)
+                 if not fleet.tenants[ld.tenant].is_sidecar else ld
+                 for ld in loads]
+    before = kernel_counts()
+    s = run_fleet_session(fleet, mut_loads)
+    out["mutating_launches"] = launches_since(before)
+    print(session_line("mutating (20%)", s), flush=True)
+    require(s["failed_requests"] == 0,
+            f"fleet mutating session: {s['failed_requests']} failed")
+    probe = (np.random.default_rng(71).random((FLEET_PROBE, 3)) * 980.0
+             + 10.0).astype(np.float32)
+    fo = {}
+    for name, t in fleet.tenants.items():
+        if t.daemon is None:
+            continue
+        cloud = t.mutated_points().copy()
+        t0 = time.perf_counter()
+        rebuilt = t.daemon.overlay.base.with_points(cloud, validate=False)
+        ref_i, ref_d = rebuilt.query(probe, FLEET_K)
+        rebuild_s = time.perf_counter() - t0
+        got_i, got_d = t.daemon.overlay.query(probe, FLEET_K)
+        require(np.array_equal(got_i, ref_i) and np.array_equal(got_d, ref_d),
+                f"fleet tenant {name}: overlay answers differ from the "
+                f"rebuild of its mutated cloud")
+        seq = t.log.committed_seq
+        info = fleet.failover(name)
+        promoted = t.daemon.overlay.mutated_points()
+        got_i, got_d = t.daemon.overlay.query(probe, FLEET_K)
+        require(np.array_equal(promoted, cloud) and info["committed_seq"]
+                == seq and np.array_equal(got_i, ref_i)
+                and np.array_equal(got_d, ref_d),
+                f"fleet tenant {name}: failover lost a mutation or "
+                f"changed an answer ({info})")
+        fo[name] = {"committed_seq": seq, "replayed": info["replayed"],
+                    "n_points": int(cloud.shape[0]),
+                    "rebuild_s": round(rebuild_s, 3)}
+        del rebuilt
+    out["failover"] = fo
+    print(f"  fleet mutations: each dense tenant's {FLEET_PROBE} probe "
+          f"rows equal a rebuild of its mutated cloud byte for byte, "
+          f"before and after an in-process failover (0 lost committed "
+          f"mutations): {json.dumps(fo)}", flush=True)
+    del fleet, cap, trees
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_failover() -> dict:
+    """Phase 10f (c): ``failover_drill`` at FLEET_N with both child
+    replicas on the card (three CUDA contexts on one card)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.serve.fleet import failover_drill
+
+    free, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    drill = failover_drill(n=FLEET_N, k=FLEET_K, ops=24, seed=7,
+                           device=DEV)
+    drill["s"] = time.perf_counter() - t0
+    drill["free_bytes_before"] = int(free)
+    print(f"  fleet failover drill: {json.dumps(drill)} (card free "
+          f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB before the "
+          f"children)", flush=True)
+    require(drill["failover_ok"] and drill["device"].startswith("cuda"),
+            f"fleet process failover: {drill}")
+    return drill
+
+
+def degraded_split(t, k: int) -> dict:
+    """Where a brownout batch's time goes on one dense tenant: the host
+    concatenation of its mutated cloud, the cloud's upload alone, and a
+    whole rung-1 ``solve_general`` of 64 queries (which repeats both),
+    each to a synchronize; medians of 3."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu.solve import solve_general
+
+    q = (np.random.default_rng(12).random((64, 3)) * 980.0
+         + 10.0).astype(np.float32)
+    parts = {"concat_ms": [], "upload_ms": [], "solve_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = t.daemon.overlay.mutated_points()
+        t1 = time.perf_counter()
+        torch.as_tensor(pts).to(DEV)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        solve_general(pts, k=k, recall_target=1.0, refine="brute",
+                      queries=q, scorer="mxu", precision="bf16", device=DEV)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts["concat_ms"].append((t1 - t0) * 1e3)
+        parts["upload_ms"].append((t2 - t1) * 1e3)
+        parts["solve_ms"].append((t3 - t2) * 1e3)
+    return {key: float(np.median(v)) for key, v in parts.items()}
+
+
+def brownout_kernel_check(first_batch: dict) -> dict:
+    """``mxu_select_bf16`` against ``scorer.select_plain`` on the card on
+    the inputs ``solve_general`` built for the first degraded batch of
+    each brownout rung (the tenant's whole cloud, the batch's queries,
+    its k and the rung's recall target), to the bf16 contract
+    (``bf16_contract``), with the kernel's time (3 calls after a warm-up,
+    the wrapper's two prep passes included), the plain version's, a bf16
+    matmul + topk over the same pairs, and the bound (2*d operations a
+    pair over the dense BF16 peak, or the bytes over the HBM rate).
+    Returns the first rung's numbers, with the largest score difference
+    over the rungs."""
+    import torch
+
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+    from cuda_knearests_tpu_torch.mxu.topk import BLOCK, per_block_m
+
+    require(bool(first_batch), "fleet autoscale: no degraded batch ran")
+    rungs = {}
+    for tier, (pts, queries, k, rt) in sorted(first_batch.items()):
+        n, d = pts.shape
+        m_q = queries.shape[0]
+        m = per_block_m(rt, k, -(-n // BLOCK))
+        qid, pts_il, cid_il = select_inputs(pts, m_q, False)
+        q, qid_t, p, cid = [torch.as_tensor(a, device=DEV)
+                            for a in (queries, qid, pts_il, cid_il)]
+        what = (f"fleet brownout rung {tier}: bf16 select, {m_q} queries "
+                f"x {n} points, k={k} m={m}")
+        want = ms.select_plain(q, qid_t, p, cid, k, m, d, False, "bf16")
+        *got, dump = quiet(lambda: mk._select_bf16_with_scores(
+            q, qid_t, p, cid, k, m, d, False))
+        s_plain = torch.cat([ms.score_tile(q[r0:r0 + 64], p, "bf16")
+                             for r0 in range(0, m_q, 64)])
+        err, ratio, _ = bf16_contract(what, got, want, dump, s_plain, cid,
+                                      ms.norms(q), mk.prep_plain(p, cid)[3],
+                                      d, False)
+        del dump, s_plain
+        kernel_ms = quiet(lambda: cuda_ms(lambda: mk.select(
+            q, qid_t, p, cid, k, m, d, False, "bf16"), 3))
+        plain_ms = cuda_ms(lambda: ms.select_plain(
+            q, qid_t, p, cid, k, m, d, False, "bf16"), 1)
+        q16, p16 = q.to(torch.bfloat16), p.to(torch.bfloat16)
+        qn, pn = (q * q).sum(1), (p * p).sum(1)
+
+        def library():
+            prod = (q16 @ p16.T).float()
+            torch.topk(qn[:, None] + pn[None, :] - 2.0 * prod, k, dim=1,
+                        largest=False)
+
+        library_ms = cuda_ms(library, 3)
+        flops = 2 * d * m_q * n
+        nbytes = (4 * m_q * d + 4 * pts_il.size + 4 * m_q + 4 * cid_il.size
+                  + 8 * m_q * k + m_q)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        rungs[tier] = {
+            "shape": f"{m_q} queries x {n} points x {d}, k={k} m={m}",
+            "max_abs_err": err, "max_band_ratio": ratio, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"  fleet brownout kernel, rung {tier}: {json.dumps(rungs[tier])}"
+              f" (within the bf16 contract against select_plain)",
+              flush=True)
+    out = dict(next(iter(rungs.values())))
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rungs.values())
+    out["rungs"] = sorted(rungs)
+    return out
+
+
+def fleet_autoscale(total: dict) -> dict:
+    """Phase 10f (d): the reference's ``diurnal_autoscale`` row
+    (``bench.py`` ``_diurnal_autoscale_scenario``) at base_n = FLEET_N:
+    five tenants shipping lazily plus a throughput pod tenant, its
+    AutoscaleConfig (the promotion floor and the pod threshold are
+    relative to n, so they scale with the cloud), the warmup of the
+    brownout tiers and of the promoted pod's shapes, a probe before the
+    flood, the diurnal session with client backoff, the recovery ticks,
+    then the checks of its row: all three actuator families, brown down
+    and up, degraded stamps, 0 failed, recovery, byte-identical probe,
+    the zero-lost drill, the no-drop-tail probe, and ``mxu_select_bf16``
+    launched in the session (every count from 0 just before it).  Every
+    answered row is checked against cKDTree of its tenant's cloud
+    (``fleet_rows_exact``), and the bf16 selection against its plain
+    version on the inputs of the first degraded batch of each rung
+    (``brownout_kernel_check``)."""
+    import torch
+
+    from cuda_knearests_tpu_torch.config import ServeFleetConfig
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.mxu.solve import solve_general
+    from cuda_knearests_tpu_torch.pod.reshard import ElasticIndex
+    from cuda_knearests_tpu_torch.serve.fleet import (AutoscaleConfig,
+                                                      FleetDaemon,
+                                                      TenantLoad,
+                                                      TenantSpec,
+                                                      default_fleet_builds,
+                                                      run_fleet_session)
+
+    n, k = FLEET_N, AUTOSCALE_K
+    out = {}
+    t0 = time.perf_counter()
+    builds = default_fleet_builds(n_tenants=5, base_n=n, k=k, seed=17)
+    builds = [(dataclasses.replace(spec, ship_mode="lazy"), pts)
+              for spec, pts in builds]
+    pod_threshold = n + 1024 * 5
+    cfg = dataclasses.replace(ServeFleetConfig(),
+                              pod_threshold=pod_threshold, pod_shards=2)
+    builds.append((TenantSpec(name="pod0", k=k, slo="throughput"),
+                   generate_uniform(pod_threshold + 512, seed=17 + 997)))
+    as_cfg = AutoscaleConfig(period_s=0.005, promote_min_points=n + 3000,
+                             promote_load_rows=192)
+    fleet = FleetDaemon(builds, cfg, autoscale=as_cfg, device=DEV)
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wq = (np.random.default_rng(5).random((4, 3)) * 100.0
+          + 5.0).astype(np.float32)
+    for t in fleet.tenants.values():
+        if t.daemon is None or t.spec.slo != "throughput":
+            continue
+        pts = t.daemon.overlay.mutated_points()
+        for rt, refine in ((1.0, "brute"), (as_cfg.recall_target, "none")):
+            solve_general(pts, k=k, recall_target=rt, refine=refine,
+                          queries=wq, scorer="mxu", precision="bf16",
+                          device=DEV)
+    el = fleet.tenants["pod0"].elastic
+    rng0 = np.random.default_rng(31)
+    el.insert((rng0.random((cfg.compact_threshold + 64, 3)) * 110.0
+               + 5.0).astype(np.float32))
+    for m in (1, 4, 16, 64):
+        el.query(np.zeros((m, 3), np.float32), k)
+    warm_el = ElasticIndex(
+        fleet.tenants["t3"].daemon.overlay.mutated_points(), k=k,
+        nshards=cfg.pod_shards, compact_threshold=cfg.compact_threshold,
+        skew_threshold=cfg.pod_skew_threshold, device=DEV)
+    for m in (1, 4, 16, 64):
+        warm_el.query(np.zeros((m, 3), np.float32), k)
+    del warm_el
+    out["warm_s"] = time.perf_counter() - t0
+    probe_q = (np.random.default_rng(6).random((8, 3)) * 100.0
+               + 5.0).astype(np.float32)
+    cap = CapturedFleet(fleet)
+
+    def probe(rid: int):
+        now = fleet.clock()
+        rs = list(fleet.submit(rid, "t1", "query", probe_q, k=k, now=now))
+        rs += list(fleet.drain(now))
+        return next((r for r in rs if r.req_id == rid), None)
+
+    pre = probe(10 ** 8)
+    loads = []
+    for i, (spec, _) in enumerate(builds):
+        t = fleet.tenants[spec.name]
+        flood = spec.slo == "throughput" and t.daemon is not None
+        loads.append(TenantLoad(
+            tenant=spec.name, rate=AUTOSCALE_RATE if flood else 400.0,
+            requests=AUTOSCALE_REQS * 2 if flood else AUTOSCALE_REQS,
+            diurnal=4.0, backoff=True, seed=70 + i))
+    # time the degraded batches: each one hands the whole mutated cloud
+    # to solve_general (host concatenation, upload, norm prep); keep the
+    # first batch of each rung's inputs for the kernel check
+    degraded_ms, first_batch = [], {}
+    run_degraded = fleet._execute_degraded
+
+    def timed_degraded(t, batch):
+        tier, recall = t.degraded_tier_name, t.degraded_recall
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rs = run_degraded(t, batch)
+        torch.cuda.synchronize()
+        degraded_ms.append((time.perf_counter() - t1) * 1e3)
+        if tier not in first_batch:
+            first_batch[tier] = (t.mutated_points(), np.array(batch.queries),
+                                 max(r.k for r in batch.requests), recall)
+        return rs
+    fleet._execute_degraded = timed_degraded
+    restart_counts(total)
+    s = run_fleet_session(fleet, loads)
+    out["launches"] = {key: v for key, v in kernel_counts().items() if v}
+    print(session_line("diurnal autoscale", s), flush=True)
+    sc = fleet.autoscaler
+    base = time.monotonic()
+    recovered = False
+    for i in range(1200):
+        fleet.poll(base + (i + 1) * as_cfg.period_s * 1.01)
+        dense = [t for t in fleet.tenants.values() if t.daemon is not None]
+        if (all(t.degraded_tier == 0 for t in dense)
+                and all(st.tier == 0 for st in sc.classes.values())
+                and sum(sc.added.values()) == 0):
+            recovered = True
+            break
+    post = probe(10 ** 8 + 1)
+    # every row so far, before the tail inserts below change t0's cloud
+    out["rows"] = fleet_rows_exact("diurnal autoscale", cap, fleet, {},
+                                   as_cfg.recall_target)
+    out["brownout_kernel"] = brownout_kernel_check(first_batch)
+    byte_identical = bool(
+        pre is not None and post is not None and pre.ok and post.ok
+        and pre.degraded is None and post.degraded is None
+        and np.array_equal(pre.ids, post.ids)
+        and np.array_equal(pre.d2, post.d2))
+    t0t = fleet.tenants["t0"]
+    rng = np.random.default_rng(9)
+    before_pts = t0t.daemon.overlay.mutated_points().copy()
+    zero_lost = bool(t0t.add_replica())
+    tail = [(rng.random((3, 3)) * 100.0 + 5.0).astype(np.float32)
+            for _ in range(2)]
+    for j, pts in enumerate(tail):
+        rs = fleet.submit(10 ** 8 + 2 + j, "t0", "insert", pts,
+                          now=fleet.clock())
+        zero_lost = zero_lost and bool(rs and rs[-1].ok)
+    fo = t0t.failover() if zero_lost else {"replayed": -1}
+    zero_lost = (zero_lost and fo["replayed"] == 2
+                 and np.array_equal(t0t.daemon.overlay.mutated_points(),
+                                    np.concatenate([before_pts] + tail)))
+    drop_tail = None
+    for t in fleet.tenants.values():
+        if t.log is None:
+            continue
+        floor = min((r.applied_seq for r in t.replica_pool), default=0)
+        try:
+            list(t.log.since(floor))
+        except RuntimeError as e:
+            drop_tail = f"{t.spec.name}: {e}"
+    stats = sc.stats_dict()
+    degraded_stamped = sum(s["degraded_rows"].values())
+    out["degraded_split"] = degraded_split(fleet.tenants["t1"], k)
+    out.update({key: stats[key] for key in (
+        "ticks", "scale_up", "scale_down", "widen", "narrow", "promote",
+        "brown_down", "brown_up", "shed")})
+    out.update(
+        recovered=recovered, byte_identical=byte_identical,
+        zero_lost=zero_lost, drop_tail=drop_tail,
+        degraded_rows=s["degraded_rows"],
+        per_tenant={t: {key: pt[key] for key in (
+            "slo", "completion", "p50_ms", "p99_ms", "p999_ms", "slo_ok")}
+            for t, pt in s["per_tenant"].items()},
+        session={key: s[key] for key in (
+            "completed_queries", "elapsed_s", "sustained_qps",
+            "fleet_batches", "failed_requests", "refused_requests",
+            "deferred_requests", "recompiles", "elastic_recompiles",
+            "migrations_done", "host_syncs", "d2h_bytes", "h2d_bytes")},
+        degraded_batches=len(degraded_ms),
+        degraded_ms_median=(float(np.median(degraded_ms))
+                            if degraded_ms else None),
+        degraded_ms_max=max(degraded_ms) if degraded_ms else None)
+    print(f"  fleet autoscale: {json.dumps(out)}", flush=True)
+    require(stats["scale_up"] >= 1
+            and stats["widen"] + stats["narrow"] >= 1
+            and stats["promote"] >= 1,
+            f"fleet autoscale: an actuator family never fired {stats}")
+    require(stats["brown_down"] >= 1 and stats["brown_up"] >= 1
+            and degraded_stamped > 0,
+            f"fleet autoscale: no brownout episode ({stats['brown_down']} "
+            f"down, {stats['brown_up']} up, {s['degraded_rows']} rows)")
+    require(s["failed_requests"] == 0 and s["recompiles"] == 0,
+            f"fleet autoscale: {s['failed_requests']} failed, "
+            f"{s['recompiles']} recompiles")
+    require(recovered and byte_identical and zero_lost and drop_tail is None,
+            f"fleet autoscale: recovered {recovered}, probe byte-identical "
+            f"{byte_identical}, zero lost {zero_lost}, tail {drop_tail}")
+    require(out["launches"].get("mxu_select_bf16", 0) > 0,
+            "the brownout tiers launched no bf16 selection")
+    require(all(out["rows"][tier] >= n
+                for tier, n in s["degraded_rows"].items()),
+            f"fleet autoscale: degraded rows {s['degraded_rows']}, checked "
+            f"{out['rows']}")
+    del fleet, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_pod_tenant() -> dict:
+    """Phase 10f (e): the ``--pod-tenant`` recipe at FLEET_N: a pod tenant
+    of 1,000,000 points in 2 Morton shards, 576 hot inserts past the
+    compaction threshold, the batch shapes warmed, ``force_rebalance``,
+    then a query session the migration rides; every answered row exact
+    against cKDTree, a probe equal to the rebuild oracle byte for byte,
+    at least one migration done."""
+    import torch
+
+    from cuda_knearests_tpu_torch.config import ServeFleetConfig
+    from cuda_knearests_tpu_torch.io import generate_uniform
+    from cuda_knearests_tpu_torch.serve.fleet import (FleetDaemon,
+                                                      TenantLoad,
+                                                      TenantSpec,
+                                                      run_fleet_session)
+
+    pod_threshold = FLEET_N - 512
+    cfg = dataclasses.replace(ServeFleetConfig(),
+                              pod_threshold=pod_threshold, pod_shards=2)
+    t0 = time.perf_counter()
+    fleet = FleetDaemon([(TenantSpec(name="pod0", k=FLEET_K),
+                          generate_uniform(FLEET_N, seed=997))], cfg,
+                        device=DEV)
+    el = fleet.tenants["pod0"].elastic
+    rng = np.random.default_rng(5)
+    el.insert((rng.random((cfg.compact_threshold + 64, 3)) * 110.0
+               + 5.0).astype(np.float32))
+    for m in (1, 4, 16, 64):
+        el.query(np.zeros((m, 3), np.float32), FLEET_K)
+    started = bool(el.force_rebalance())
+    build_s = time.perf_counter() - t0
+    cap = CapturedFleet(fleet)
+    before = kernel_counts()
+    s = run_fleet_session(fleet, [TenantLoad(
+        tenant="pod0", rate=350.0, requests=POD_TENANT_REQS, seed=50)])
+    launches = launches_since(before)
+    print(session_line("pod tenant", s), flush=True)
+    rows = fleet_rows_exact("pod tenant", cap, fleet, {})["exact"]
+    probe = (np.random.default_rng(8).random((64, 3)) * 980.0
+             + 10.0).astype(np.float32)
+    got = el.query(probe, FLEET_K)
+    want = el.rebuild_oracle_query(probe, FLEET_K)
+    require(started and s["migrations_done"] >= 1
+            and s["failed_requests"] == 0 and s["recompiles"] == 0
+            and np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1]),
+            f"fleet pod tenant: rebalance started {started}, migrations "
+            f"{s['migrations_done']}, failed {s['failed_requests']}, "
+            f"recompiles {s['recompiles']}, probe equal to the rebuild "
+            f"{np.array_equal(got[0], want[0])}")
+    out = {"build_s": build_s, "exact_rows": rows, "launches": launches,
+           "migrations_done": s["migrations_done"],
+           "elastic_recompiles": s["elastic_recompiles"],
+           "p50_ms": s["per_tenant"]["pod0"]["p50_ms"],
+           "p99_ms": s["per_tenant"]["pod0"]["p99_ms"],
+           "p999_ms": s["per_tenant"]["pod0"]["p999_ms"]}
+    print(f"  fleet pod tenant: {json.dumps(out)}", flush=True)
+    del fleet, el, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_card_equals_cpu() -> dict:
+    """Phase 10f (f): a small fleet (base_n=6000, k=8, a replica each,
+    20% mutations, a bf16 brownout episode on the throughput tenant) on
+    the card and on the CPU under one schedule and a fake clock
+    (``loadgen.card_equals_cpu``): every response equal, ids and d2 bit
+    for bit, ok, tenant and tier."""
+    from cuda_knearests_tpu_torch.serve.fleet import (TenantLoad,
+                                                      default_fleet_builds)
+    from cuda_knearests_tpu_torch.serve.fleet.loadgen import card_equals_cpu
+
+    t0 = time.perf_counter()
+    builds = default_fleet_builds(n_tenants=4, base_n=FLEET_CPU_N, k=8,
+                                  seed=3, replicas=1)
+    loads = [TenantLoad(tenant=spec.name, rate=300.0, requests=20,
+                        mutation_ratio=0.2 if spec.name != "t3" else 0.0,
+                        seed=90 + i) for i, (spec, _) in enumerate(builds)]
+    out = card_equals_cpu(builds, loads, DEV)
+    out["s"] = time.perf_counter() - t0
+    require(out["difference"] is None,
+            f"fleet card = CPU: {out['difference']}")
+    require(out["degraded"] > 0, "fleet card = CPU: no degraded batch ran")
+    print(f"  fleet card = CPU: {out['responses']} responses equal bit for "
+          f"bit ({out['degraded']} at the bf16 rung) in {out['s']:.1f} s",
+          flush=True)
+    return out
+
+
+def fleet_phase() -> dict:
+    """Phase 10f: the serving fleet (``serve/fleet``) on the card, with
+    every kernel's launches counted from 0 over the phase."""
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    out, total = {}, {}
+    steps = (("mixed", lambda: fleet_mixed(total)),
+             ("failover", fleet_failover),
+             ("autoscale", lambda: fleet_autoscale(total)),
+             ("pod", fleet_pod_tenant), ("card_cpu", fleet_card_equals_cpu))
+    seconds = {}
+    for name, run in steps:
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    # the sessions restarted the counts from 0: add back what ran before
+    now = kernel_counts()
+    out["launches"] = {key: total.get(key, 0) + now[key] for key in now}
+    out["seconds"] = seconds
+    out["s"] = time.perf_counter() - t_phase
+    require(out["launches"]["supercell_topk"] > 0
+            and out["launches"]["mxu_select_bf16"] > 0,
+            f"fleet: a kernel of the path never launched {out['launches']}")
+    print(f"  fleet phase: {out['s']:.1f} s ({json.dumps(seconds)}); "
+          f"kernel launches in the phase {json.dumps(out['launches'])}",
+          flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -5354,6 +6082,9 @@ def main() -> int:
     phase("the fuzz campaigns on the card")
     fuzzed = fuzz_phase()
 
+    phase("the serving fleet on the card")
+    fleet = fleet_phase()
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -5368,7 +6099,8 @@ def main() -> int:
              source=CSRC + "supercell_topk.cu",
              replaces=REPLACES["supercell_topk"],
              launches=(launches + pod["overlay"]["launches"]
-                       + elastic["launches"]),
+                       + elastic["launches"]
+                       + fleet["mixed"]["launches"]["supercell_topk"]),
              grid_main_path_launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
                              sharded["main"]["slabs"][1]["max_abs_err"],
@@ -5406,7 +6138,10 @@ def main() -> int:
              elastic_hotspot_ms=elastic["hotspot_kernel"]["ms"],
              elastic_hotspot_plain_ms=elastic["hotspot_kernel"]["plain_ms"],
              mxu_tier_launches=mxu_tier["launches"],
-             fuzz_launches=fuzzed["launches"]["supercell_topk"]),
+             fuzz_launches=fuzzed["launches"]["supercell_topk"],
+             fleet_main_path_launches=fleet["mixed"]["launches"][
+                 "supercell_topk"],
+             fleet_launches=fleet["launches"]["supercell_topk"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -5419,32 +6154,43 @@ def main() -> int:
              query_launches=query["blocked_launches"],
              query_ms=query["blocked"]["kernel"]["ms"],
              query_bound_ms=query["blocked"]["kernel"]["bound_ms"],
-             fuzz_launches=fuzzed["launches"]["blocked_topk"]),
+             fuzz_launches=fuzzed["launches"]["blocked_topk"],
+             fleet_launches=fleet["launches"]["blocked_topk"]),
         dict(name="supercell_topk_mode_b", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
              launches=legacy["launches_b"],
              max_abs_err=legacy["max_abs_err"],
              shape="900k/k=10 legacy pack", **legacy["mode_b"],
-             fuzz_launches=fuzzed["launches"]["supercell_topk_mode_b"]),
+             fuzz_launches=fuzzed["launches"]["supercell_topk_mode_b"],
+             fleet_launches=fleet["launches"]["supercell_topk_mode_b"]),
         dict(name="blocked_topk_mode_b", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"],
              launches=legacy["blocked_launches_b"],
              max_abs_err=legacy["max_abs_err_blocked"],
              shape="900k/k=10 legacy pack", **legacy["mode_b_blocked"],
-             fuzz_launches=fuzzed["launches"]["blocked_topk_mode_b"]),
+             fuzz_launches=fuzzed["launches"]["blocked_topk_mode_b"],
+             fleet_launches=fleet["launches"]["blocked_topk_mode_b"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],
              max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
              **select_timings["100k x 128 f32"],
-             fuzz_launches=fuzzed["launches"]["mxu_select"]),
+             fuzz_launches=fuzzed["launches"]["mxu_select"],
+             fleet_launches=fleet["launches"]["mxu_select"]),
         dict(name="mxu_select_bf16", route="cuda",
              source=CSRC + "mxu_select_bf16.cu",
              replaces=REPLACES["mxu_select_bf16"],
              launches=select_launches["bf16"],
-             max_abs_err=max_err["mxu_select_bf16"],
+             fleet_brownout_launches=fleet["autoscale"]["launches"][
+                 "mxu_select_bf16"],
+             fleet_launches=fleet["launches"]["mxu_select_bf16"],
+             **{f"fleet_brownout_{key}": v for key, v in
+                fleet["autoscale"]["brownout_kernel"].items()},
+             max_abs_err=max(max_err["mxu_select_bf16"],
+                             fleet["autoscale"]["brownout_kernel"][
+                                 "max_abs_err"]),
              max_band_ratio=band_ratio[0],
              max_band_ratio_f32=band_ratio[1], shape="100k x 128 bf16",
              **select_timings["100k x 128 bf16"],
@@ -5455,7 +6201,8 @@ def main() -> int:
              launches=refused["launches"],
              max_abs_err=max_err["mxu_select_split"],
              shape="20k x 3 f32 k=1800", **split_timings,
-             fuzz_launches=fuzzed["launches"]["mxu_select_split"]),
+             fuzz_launches=fuzzed["launches"]["mxu_select_split"],
+             fleet_launches=fleet["launches"]["mxu_select_split"]),
     ]
     print(f"  FoF (plain torch, no kernel of its own): "
           f"{json.dumps(fof_runs)}", flush=True)
@@ -5467,6 +6214,7 @@ def main() -> int:
     print(f"  pod: {json.dumps(pod)}", flush=True)
     print(f"  elastic: {json.dumps(elastic)}", flush=True)
     print(f"  fuzz: {json.dumps(fuzzed)}", flush=True)
+    print(f"  fleet: {json.dumps(fleet)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -382,3 +382,116 @@ class ServeConfig:
         # wider requests
         raise ValueError(f"batch of {m} queries exceeds max_batch="
                          f"{self.max_batch}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SloClass:
+    """One service-level-objective tier of the serving fleet
+    (``serve/fleet``).  A class picks the batching law's deadline and depth
+    for its tenants: the latency tier flushes small batches fast, the
+    throughput tier buffers deep batches on the large buckets.
+
+    Attributes:
+      name: the class's wire name ('latency' / 'throughput').
+      max_delay_s: deadline flush trigger for tenants of this class.
+      max_batch: batch depth cap (clamped to the fleet ladder's max_batch,
+        so every batch shape stays on the shared bucket ladder).
+      p99_budget_ms: the class's latency promise; a session stamps
+        ``slo_ok`` (p99 <= budget) per tenant."""
+
+    name: str
+    max_delay_s: float
+    max_batch: int
+    p99_budget_ms: float
+
+
+# The fleet's SLO classes: tenants name one, and the front door builds
+# each tenant's ServeConfig from it plus the shared ladder.
+SLO_CLASSES = {
+    "latency": SloClass("latency", max_delay_s=0.002, max_batch=64,
+                        p99_budget_ms=250.0),
+    "throughput": SloClass("throughput", max_delay_s=0.05, max_batch=256,
+                           p99_budget_ms=4000.0),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeFleetConfig:
+    """Tunables of the multi-tenant serving fleet (``serve/fleet``);
+    counterpart of the reference's ``ServeFleetConfig``.
+
+    Attributes:
+      min_bucket: smallest capacity bucket of the shared ladder.
+      max_batch: the ladder's global cap; per-class max_batch clamps to it.
+      compact_threshold: per-tenant delta-overlay compaction threshold.
+      warmup: run one sentinel batch per bucket per dense tenant when the
+        fleet starts, so no kernel library loads inside a session.
+      sidecar_threshold: tenants whose cloud is smaller than this (or
+        degenerate, n < k) are served by the host brute sidecar
+        (``serve/fleet/sidecar.py``), not the dense batching ladder.
+      quota_qps: default token-bucket refill rate (query rows/s) of
+        tenants that set none; None = unmetered.
+      quota_burst: default token-bucket depth (rows).
+      drr_quantum: deficit-round-robin quantum (query rows added to each
+        backlogged tenant's deficit per round).  Over any window in which
+        tenants stay backlogged, their served rows differ by at most one
+        quantum plus one batch.
+      pod_threshold: tenants whose cloud is at least this large serve from
+        an elastic pod index (``pod/reshard.ElasticIndex``); None disables
+        the pod rung of the ladder sidecar -> dense -> pod.
+      pod_shards: initial Morton-range shard count of pod tenants.
+      pod_skew_threshold: population skew (max shard / mean) past which a
+        pod tenant's mutations trigger a live rebalance.
+    """
+
+    min_bucket: int = 8
+    max_batch: int = 256
+    compact_threshold: int = 512
+    warmup: bool = True
+    sidecar_threshold: int = 192
+    quota_qps: Optional[float] = None
+    quota_burst: float = 4096.0
+    drr_quantum: int = 64
+    pod_threshold: Optional[int] = None
+    pod_shards: int = 2
+    pod_skew_threshold: float = 3.0
+
+    def __post_init__(self):
+        if self.min_bucket < 1 or self.max_batch < self.min_bucket:
+            raise ValueError(
+                f"fleet ladder needs 1 <= min_bucket <= max_batch, got "
+                f"min_bucket={self.min_bucket} max_batch={self.max_batch}")
+        if self.sidecar_threshold < 0:
+            raise ValueError(f"sidecar_threshold must be >= 0, got "
+                             f"{self.sidecar_threshold}")
+        if self.drr_quantum < 1:
+            raise ValueError(f"drr_quantum must be >= 1, got "
+                             f"{self.drr_quantum}")
+        if self.quota_qps is not None and self.quota_qps <= 0:
+            raise ValueError(f"quota_qps must be > 0 (or None for "
+                             f"unmetered), got {self.quota_qps}")
+        if self.pod_threshold is not None \
+                and self.pod_threshold <= self.sidecar_threshold:
+            raise ValueError(
+                f"pod_threshold must exceed sidecar_threshold (the "
+                f"placement ladder is sidecar -> dense -> pod), got "
+                f"pod_threshold={self.pod_threshold} <= "
+                f"sidecar_threshold={self.sidecar_threshold}")
+        if self.pod_shards < 1:
+            raise ValueError(f"pod_shards must be >= 1, got "
+                             f"{self.pod_shards}")
+        if self.pod_skew_threshold <= 1.0:
+            raise ValueError(f"pod_skew_threshold must be > 1.0, got "
+                             f"{self.pod_skew_threshold}")
+
+    def serve_config_for(self, slo: SloClass,
+                         k: Optional[int] = None) -> ServeConfig:
+        """The per-tenant ServeConfig an SLO class induces on the shared
+        ladder: the class's deadline and depth, the fleet's floor and
+        cap, so every tenant's buckets are a prefix of one ladder."""
+        return ServeConfig(
+            max_batch=min(int(slo.max_batch), self.max_batch),
+            max_delay_s=float(slo.max_delay_s),
+            min_bucket=self.min_bucket,
+            compact_threshold=self.compact_threshold,
+            warmup=self.warmup, k=k)

@@ -45,6 +45,7 @@ from .generators import DEFAULT_KS, DEFAULT_NS, CaseSpec, draw_cases, \
 from .minimize import ddmin_points
 from .routes import ROUTE_NAMES, oracle_reference, parse_fault, \
     route_excludes_self, run_route, self_solve
+from ..utils import watchdog
 from ..utils.memory import InputContractError, classify_fault_text
 
 # (generator, route) -> reason; '*' matches any.  Empty: every
@@ -178,7 +179,12 @@ def run_case(spec: CaseSpec, routes: Sequence[str] = ROUTE_NAMES,
              n_devices: int = 2, max_probes: int = 48,
              device=None) -> List[CaseFailure]:
     """Run one case through every route in-process on ``device``;
-    minimize and bank each unwaived failure.  Returns the failures."""
+    minimize and bank each unwaived failure.  Returns the failures.
+
+    Each route and each ddmin probe is one unit of work: it beats the
+    stall watchdog's heartbeat when done (``utils.watchdog``), so a
+    supervised worker's case may run longer than the stall limit as long
+    as every unit finishes inside it."""
     points = generate_case(spec)
     bank_dir = _safe_bank_dir(bank_dir)
     failures: List[CaseFailure] = []
@@ -189,6 +195,7 @@ def run_case(spec: CaseSpec, routes: Sequence[str] = ROUTE_NAMES,
             refs[excl] = oracle_reference(points, spec.k, excl)
         got = _route_failure(points, spec.k, route, n_devices,
                              ref=refs[excl], device=device)
+        watchdog.heartbeat()
         if got is None:
             continue
         kind, reason = got
@@ -204,6 +211,7 @@ def run_case(spec: CaseSpec, routes: Sequence[str] = ROUTE_NAMES,
             def _still_fails(sub):
                 sub_got = _route_failure(sub, spec.k, route, n_devices,
                                          device=device)
+                watchdog.heartbeat()
                 return sub_got is not None and sub_got[0] == kind
             repro, _probes = ddmin_points(points, _still_fails,
                                           max_probes=max_probes)

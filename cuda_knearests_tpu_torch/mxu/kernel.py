@@ -236,6 +236,12 @@ def _lib_bf16() -> ctypes.CDLL:
     return lib
 
 
+def load(precision: str) -> None:
+    """Build (if needed) and load the one-block selection library of the
+    tier (``csrc/mxu_select_bf16.cu`` at bf16, else ``mxu_select.cu``)."""
+    (_lib_bf16 if precision == "bf16" else _lib)()
+
+
 def _lib_split() -> ctypes.CDLL:
     lib = _build.load("mxu_select_split")
     if not getattr(lib, "_argtypes_set", False):

@@ -125,6 +125,14 @@ def select_inputs(points: np.ndarray, m_q: int, exclude_self: bool):
     return qid, pts_pad[il], cid[il]
 
 
+def warm(precision: str = "auto", device=None) -> None:
+    """Load the selection library that :func:`solve_general` launches at
+    ``precision`` on ``device`` (nothing on the CPU), so that a later
+    solve at that tier builds and loads nothing."""
+    if resolve_device(device).type == "cuda":
+        kernel.load(resolve_precision(precision, "mxu"))
+
+
 def solve_general(points, k: int = 10, recall_target: float = 1.0,
                   exclude_self: bool = True, refine: str = "brute",
                   queries=None, scorer: str = "mxu",

@@ -14,6 +14,9 @@ Counterpart of ``cuda_knearests_tpu/serve/``:
 * :mod:`loadgen` -- the open-loop Poisson load harness and its session
   summary: sustained queries/s, p50/p99/p999 latency, batch occupancy,
   recompiles (kernel builds plus library loads) and class-kernel launches.
+* :mod:`fleet` -- many tenants' indexes behind one front door (SLO
+  classes, admission and fair scheduling, replication and failover, the
+  autoscaler and its brownout ladder); imported on its own.
 
 Every served batch runs ``KnnProblem.query`` on the problem's device: the
 class kernels on the GPU, their plain versions on the CPU.

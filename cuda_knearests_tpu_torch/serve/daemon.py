@@ -66,6 +66,9 @@ class Response:
     # mutated cloud and the number of clusters
     labels: Optional[np.ndarray] = None
     n_clusters: Optional[int] = None
+    # the tenant a fleet front door (serve/fleet) answered for; None on a
+    # single-tenant daemon
+    tenant: Optional[str] = None
     # the echoed wire trace_id and the span-sourced latency decomposition
     # -- where this request's wall time went (admission -> execution =
     # queue, host batch work = dispatch, the overlay query = device).
@@ -74,6 +77,11 @@ class Response:
     queue_ms: Optional[float] = None
     dispatch_ms: Optional[float] = None
     device_ms: Optional[float] = None
+    # the fleet's brownout rung this answer was served at ('bf16' |
+    # 'recall'; None = exact), and the defer hint a shed or over-quota
+    # refusal carries, so a backoff client re-offers the request
+    degraded: Optional[str] = None
+    retry_after_ms: Optional[float] = None
 
     @property
     def latency_s(self) -> float:
@@ -93,12 +101,18 @@ class Response:
         if self.labels is not None:
             out["labels"] = np.asarray(self.labels).tolist()
             out["n_clusters"] = self.n_clusters
+        if self.tenant is not None:
+            out["tenant"] = self.tenant
         if self.trace_id is not None:
             out["trace_id"] = self.trace_id
         if self.queue_ms is not None:
             out["timing"] = {"queue_ms": self.queue_ms,
                              "dispatch_ms": self.dispatch_ms,
                              "device_ms": self.device_ms}
+        if self.degraded is not None:
+            out["degraded"] = self.degraded
+        if self.retry_after_ms is not None:
+            out["retry_after_ms"] = self.retry_after_ms
         if not self.ok:
             out["error"] = self.error
             out["failure_kind"] = self.failure_kind
@@ -315,8 +329,8 @@ class ServeDaemon:
         st = self.overlay.stats
         version = (b, st.inserts, st.deletes, st.compactions)
         # the version key is per overlay: anything that swaps the overlay
-        # object itself must drop the memo (_fof_cache = None), because the
-        # new overlay's counters can collide with the old one's
+        # object itself must call invalidate_fof_memo(), because the new
+        # overlay's counters can collide with the old one's
         if self._fof_cache is not None and self._fof_cache[0] == version:
             self.fof_memo_hits += 1
             return self._fof_cache[1]
@@ -326,6 +340,13 @@ class ServeDaemon:
                          device=self.overlay.device)
         self._fof_cache = (version, res)
         return res
+
+    def invalidate_fof_memo(self) -> None:
+        """Drop the FoF memo.  Mutations invalidate it through the
+        version key; a caller that swaps the overlay object (a fleet
+        failover promotes a replica's overlay) must call this, since the
+        new overlay's counters can collide with the old key."""
+        self._fof_cache = None
 
     def _run_batch(self, batch: Batch, idx: int):
         """One padded bucket-capacity launch at the serving k.  Returns

@@ -1620,3 +1620,40 @@ def test_fuzz_mxu_drop_block_detected_on_card(cuda_device, tmp_path,
     assert approx.run_approx_case(spec, device=cuda_device) is None
     assert mk.launches > before
     assert replay_banked(f.banked, device=cuda_device) is None
+
+
+# -- the serving fleet ----------------------------------------------------------
+
+@pytest.mark.cuda
+def test_gpu_fleet_session_equals_cpu(cuda_device):
+    """A mixed-SLO fleet (three dense tenants with a replica each, the
+    sidecar tenant, 20% mutations, a bf16 brownout episode) answers on
+    the card as on the CPU (``loadgen.card_equals_cpu``): every
+    response's ok, tenant and tier equal, ids and d2 bit for bit; the
+    class kernel and the bf16 selection launched."""
+    from cuda_knearests_tpu_torch.serve.fleet import (TenantLoad,
+                                                      default_fleet_builds)
+    from cuda_knearests_tpu_torch.serve.fleet.loadgen import card_equals_cpu
+
+    builds = default_fleet_builds(n_tenants=4, base_n=6000, k=8, seed=3,
+                                  replicas=1)
+    loads = [TenantLoad(tenant=spec.name, rate=300.0, requests=20,
+                        mutation_ratio=0.2 if i < 3 else 0.0, seed=90 + i)
+             for i, (spec, _) in enumerate(builds)]
+    l0, bf0 = cs.launches, mk.launches_bf16
+    got = card_equals_cpu(builds, loads, cuda_device)
+    assert cs.launches > l0 and mk.launches_bf16 > bf0
+    assert got["difference"] is None, got
+    assert got["degraded"] > 0
+
+
+@pytest.mark.cuda
+def test_gpu_fleet_process_failover(cuda_device):
+    """The process-level failover drill with both child replicas
+    preparing on the card."""
+    from cuda_knearests_tpu_torch.serve.fleet import failover_drill
+
+    drill = failover_drill(n=20_000, k=8, ops=16, seed=3,
+                           device=cuda_device)
+    assert drill["device"].startswith("cuda")
+    assert drill["failover_ok"], drill

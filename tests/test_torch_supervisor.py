@@ -228,3 +228,42 @@ def test_fuzz_case_in_a_worker_on_the_cpu(monkeypatch, tmp_path):
                    sup, "cpu")
     assert out == [] and sup.quarantined == {}
     assert os.listdir(tmp_path) == []
+
+
+_LONG_CASE = """
+import sys, time
+from cuda_knearests_tpu_torch.fuzz import campaign
+from cuda_knearests_tpu_torch.fuzz.generators import CaseSpec
+from cuda_knearests_tpu_torch.utils import watchdog
+
+unit_s = float(sys.argv[1])
+def slow_route(points, k, route, n_devices, ref=None, device=None):
+    time.sleep(unit_s)           # one unit of work, then the heartbeat
+    return None
+campaign._route_failure = slow_route
+watchdog.start(tag="long-case")
+t0 = time.monotonic()
+out = campaign.run_case(CaseSpec(generator="uniform", seed=3, n=40, k=4),
+                        bank_dir=None, device="cpu")
+print("done", out, round(time.monotonic() - t0, 2), flush=True)
+"""
+
+
+@pytest.mark.parametrize("unit_s, rc", [(1.2, 0), (3.5, 3)],
+                         ids=["progressing", "stalled"])
+def test_watchdog_sees_run_case_progress(unit_s, rc):
+    """``fuzz.campaign.run_case`` beats the watchdog once per route: a
+    case of four 1.2 s routes (4.8 s in all) under a 2 s stall limit
+    finishes, while one route that takes 3.5 s trips the watchdog
+    (rc 3)."""
+    env = dict(os.environ, BENCH_STALL_TIMEOUT_S="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _LONG_CASE, str(unit_s)], env=env,
+        cwd=psup._REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == rc, proc.stderr[-2000:]
+    if rc == 0:
+        done = proc.stdout.strip().splitlines()[-1].split()
+        assert done[:2] == ["done", "[]"] and float(done[2]) > 4.0
+    else:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert line["error"].startswith("stall watchdog (long-case)")
