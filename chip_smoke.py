@@ -227,6 +227,26 @@ H100: the kernels target sm_90a).  It imports only the port
      card and on the CPU under one fake clock, every response equal bit
      for bit, a bf16 brownout episode included; the phase's seconds and
      each kernel's launches printed;
+ 10g. runs mesh failover and the fleet and chaos campaigns on the card:
+     (a) ``serve.fleet.elastic.mesh_failover_drill`` at 1,000,000 points,
+     k=10, with the primary and the standby mesh both child processes on
+     the card: a forced live rebalance, a snapshot under the migration, a
+     SIGKILL mid-migration, the standby restored and the log tail
+     replayed, zero lost committed mutations and answers byte-identical
+     to the parent's per-shard rebuild; the snapshot's seconds and bytes,
+     the restore and replay seconds, the probe latencies and free card
+     memory before and after printed; (b) the chaos campaign
+     (``fuzz.chaos``, 8 schedules at the reference's case sizes, and the
+     4 named autoscale schedules, whose brownouts run the bf16
+     selection), clean, its protocol trace a word of the declared models,
+     the class kernel and the bf16 selection launched; (c) the fleet
+     campaign (``fuzz.fleet``, 8 streams), clean; (d)
+     ``KNTPU_FLEET_FAULT`` torn-migration, lost-range, scale-drop-tail
+     (chaos) and cross-tenant (fleet) each caught and banked into a
+     temporary directory, never into ``tests/corpus_torch``; (e) 3 chaos
+     schedules and 3 fleet streams on the card and on the CPU, every
+     checked answer equal bit for bit; the phase's seconds and each
+     kernel's launches printed;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -5000,15 +5020,9 @@ FUZZ_SPLIT_N, FUZZ_SPLIT_K = 2048, 1800
 
 def kernel_counts() -> dict:
     """Every kernel's launch count, by the name the kernels line uses."""
-    from cuda_knearests_tpu_torch.mxu import kernel as mk
-    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+    from cuda_knearests_tpu_torch.runtime.dispatch import kernel_launches
 
-    return {"supercell_topk": cs.launches - cs.launches_b,
-            "supercell_topk_mode_b": cs.launches_b,
-            "blocked_topk": cs.blocked_launches - cs.blocked_launches_b,
-            "blocked_topk_mode_b": cs.blocked_launches_b,
-            "mxu_select": mk.launches, "mxu_select_bf16": mk.launches_bf16,
-            "mxu_select_split": mk.split_launches}
+    return kernel_launches()
 
 
 def zero_kernel_counts() -> None:
@@ -5950,6 +5964,205 @@ def fleet_phase() -> dict:
     return out
 
 
+# Phase 10g: the mesh drill at the fleet's pod-tenant size, and the chaos
+# and fleet campaigns at the reference's own case sizes.
+MESH_N, MESH_K, MESH_OPS = 1_000_000, 10, 26
+CHAOS_CASES = FLEET_CASES = 8
+CARD_CPU_SPECS = 3
+# the seeded faults run on the card (of fuzz.chaos.SEEDED_FAULT_CASES)
+CARD_FAULTS = ("torn-migration", "lost-range", "scale-drop-tail",
+               "cross-tenant")
+
+
+def mesh_drill() -> dict:
+    """Phase 10g (a): ``mesh_failover_drill`` at MESH_N points with the
+    primary and the standby mesh both on the card (three CUDA contexts on
+    one card), killed mid-migration.  Each child reports its own device
+    and kernel launches: the promoted standby must have served its probe
+    through ``supercell_topk`` on the card, and its rows must be exact
+    against the host kd-tree."""
+    import torch
+
+    from cuda_knearests_tpu_torch.serve.fleet.elastic import \
+        mesh_failover_drill
+
+    free0, total = torch.cuda.mem_get_info()
+    drill = mesh_failover_drill(n=MESH_N, k=MESH_K, ops=MESH_OPS, seed=0,
+                                device=DEV)
+    free1, _ = torch.cuda.mem_get_info()
+    drill["free_bytes_before"], drill["free_bytes_after"] = free0, free1
+    t = drill["timing"]
+    print(f"  mesh drill at {MESH_N:,} points: {t['drill_s']:.1f} s "
+          f"(children ready {t['spawn_s']:.1f} s; snapshot "
+          f"{t['snapshot_s']:.2f} s, {t['snapshot_bytes']:,} bytes, its "
+          f"prepare {t['snapshot_prepare_s']:.2f} s and cloud gather "
+          f"{t['snapshot_cloud_s']:.2f} s; standby restore "
+          f"{t['restore_s']:.2f} s, replay of {t['replayed']} record(s) "
+          f"{t['replay_s']:.3f} s; shard shipping {t['shards_s']:.2f} s, "
+          f"state_cloud {t['state_cloud_s']:.3f} s, oracle "
+          f"{t['oracle_s']:.2f} s); migration at the kill "
+          f"{json.dumps(drill['migration_at_kill'])}; probe latency "
+          f"{json.dumps(drill['latency_decomposition'])}; kd-tree check "
+          f"{t['kdtree_s']:.2f} s; card free {free0 / 2**30:.1f} GiB "
+          f"before, {drill['card_free_bytes_both_meshes'] / 2**30:.1f} GiB "
+          f"with both meshes up, {free1 / 2**30:.1f} GiB after, of "
+          f"{total / 2**30:.1f}", flush=True)
+    for who in ("primary_at_kill", "mesh_child"):
+        report = drill[who]
+        print(f"  {who}: device {report['device']}, "
+              f"{report['cuda_allocated_bytes'] / 2**30:.2f} GiB allocated, "
+              f"launches {json.dumps(report['launches'])}", flush=True)
+    child = drill["mesh_child"]
+    require(drill["mesh_failover_ok"] and drill["killed_mid_migration"]
+            and drill["zero_lost_committed"]
+            and drill["post_failover_byte_identical"]
+            and drill["post_failover_exact"]
+            and drill["mesh_failovers"] >= 1
+            and drill["device"].startswith("cuda")
+            and all(drill[who]["device"].startswith("cuda")
+                    for who in ("primary_at_kill", "mesh_child"))
+            and child["launches"]["supercell_topk"] > 0,
+            f"mesh failover drill: {json.dumps(drill)}")
+    return drill
+
+
+def campaign_clean(name: str, manifest: dict, n_cases: int) -> None:
+    require(manifest["ok"] and manifest["failures"] == []
+            and manifest["proto_models_ok"]
+            and not manifest.get("proto_trace_violations")
+            and manifest["completed_cases"] >= n_cases,
+            f"{name} campaign on the card: "
+            f"{json.dumps(manifest)}")
+
+
+def chaos_campaign_card(bank: str) -> dict:
+    """Phase 10g (b): the chaos campaign on the card, the named autoscale
+    schedules riding along (the brownout rungs run the bf16 selection)."""
+    from cuda_knearests_tpu_torch.fuzz.chaos import run_chaos_campaign
+
+    before = kernel_counts()
+    m = run_chaos_campaign(n_cases=CHAOS_CASES, seed=0, bank_dir=bank,
+                           drill=False, log=None, device=DEV)
+    m["launches"] = launches_since(before)
+    campaign_clean("chaos", m, CHAOS_CASES)
+    require(m["launches"].get("supercell_topk", 0) > 0
+            and m["launches"].get("mxu_select_bf16", 0) > 0,
+            f"chaos campaign: a kernel of its path never launched "
+            f"{m['launches']}")
+    print(f"  chaos campaign: {m['completed_cases']} schedules clean in "
+          f"{m['elapsed_s']:.1f} s, {m['proto_trace_events']} protocol "
+          f"events conform; launches {json.dumps(m['launches'])}",
+          flush=True)
+    return {key: m[key] for key in ("completed_cases", "elapsed_s",
+                                    "proto_trace_events", "launches")}
+
+
+def fleet_campaign_card(bank: str) -> dict:
+    """Phase 10g (c): the fleet campaign on the card."""
+    from cuda_knearests_tpu_torch.fuzz.fleet import run_fleet_campaign
+
+    before = kernel_counts()
+    m = run_fleet_campaign(n_cases=FLEET_CASES, seed=0, bank_dir=bank,
+                           log=None, device=DEV)
+    m["launches"] = launches_since(before)
+    campaign_clean("fleet", m, FLEET_CASES)
+    require(m["launches"].get("supercell_topk", 0) > 0,
+            f"fleet campaign: no class-kernel launch {m['launches']}")
+    print(f"  fleet campaign: {m['completed_cases']} streams clean in "
+          f"{m['elapsed_s']:.1f} s, {m['proto_trace_events']} protocol "
+          f"events conform; launches {json.dumps(m['launches'])}",
+          flush=True)
+    return {key: m[key] for key in ("completed_cases", "elapsed_s",
+                                    "proto_trace_events", "launches")}
+
+
+def fleet_faults_card() -> dict:
+    """Phase 10g (d): each seeded fleet fault on the card yields a
+    failure, banked into a temporary directory although the run aims at
+    ``tests/corpus_torch``."""
+    from cuda_knearests_tpu_torch import fuzz
+    from cuda_knearests_tpu_torch.fuzz import chaos
+
+    corpus = os.path.abspath(fuzz.CORPUS_DIR)
+    out = {}
+    for fault in CARD_FAULTS:
+        f, _suffix = chaos.run_seeded_fault_case(
+            fault, bank_dir=fuzz.CORPUS_DIR, device=DEV)
+        banked = os.path.abspath(f.banked) if f and f.banked else ""
+        if banked:
+            if banked.startswith(corpus + os.sep):
+                os.unlink(banked)
+            else:
+                shutil.rmtree(os.path.dirname(banked), ignore_errors=True)
+        require(f is not None and bool(banked)
+                and not banked.startswith(corpus + os.sep),
+                f"KNTPU_FLEET_FAULT={fault}: {f} (banked at {banked!r})")
+        out[fault] = {"kind": f.kind, "reason": f.reason[:120],
+                      "banked": os.path.basename(banked)}
+    print(f"  seeded fleet faults caught on the card, none banked into "
+          f"tests/corpus_torch: {json.dumps(out)}", flush=True)
+    return out
+
+
+def campaigns_card_equals_cpu() -> dict:
+    """Phase 10g (e): CARD_CPU_SPECS chaos schedules and as many fleet
+    streams replayed on the card and on the CPU: every checked query's
+    ids and d2 equal bit for bit."""
+    from cuda_knearests_tpu_torch.fuzz import chaos, fleet
+
+    out = {"chaos_queries": 0, "fleet_queries": 0}
+    for name, mod in (("chaos", chaos), ("fleet", fleet)):
+        for spec in mod.draw_specs(CARD_CPU_SPECS, 1):
+            got = fleet.answers_equal(mod.replay_ops, spec,
+                                      mod.generate_ops(spec), DEV)
+            require(got["difference"] is None
+                    and got["verdicts"] == [None, None]
+                    and got["queries"] > 0,
+                    f"{name} card = CPU on {spec.case_id()}: {got}")
+            out[f"{name}_queries"] += got["queries"]
+    print(f"  campaigns card = CPU: {out['chaos_queries']} chaos and "
+          f"{out['fleet_queries']} fleet query answers equal bit for bit "
+          f"over {CARD_CPU_SPECS} specs each", flush=True)
+    return out
+
+
+def mesh_chaos_phase() -> dict:
+    """Phase 10g: mesh failover and the fleet and chaos campaigns on the
+    card, with every kernel's launches counted from 0 over the phase."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    bank = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    out, seconds = {}, {}
+    steps = (("mesh", mesh_drill),
+             ("chaos", lambda: chaos_campaign_card(bank)),
+             ("fleet", lambda: fleet_campaign_card(bank)),
+             ("faults", fleet_faults_card),
+             ("card_cpu", campaigns_card_equals_cpu))
+    try:
+        for name, run in steps:
+            t0 = time.perf_counter()
+            out[name] = run()
+            seconds[name] = round(time.perf_counter() - t0, 1)
+    finally:
+        shutil.rmtree(bank, ignore_errors=True)
+    out["launches"] = kernel_counts()
+    out["seconds"] = seconds
+    out["s"] = time.perf_counter() - t_phase
+    require(out["launches"]["supercell_topk"] > 0
+            and out["launches"]["mxu_select_bf16"] > 0,
+            f"mesh and chaos: a kernel of the path never launched "
+            f"{out['launches']}")
+    torch.cuda.empty_cache()
+    print(f"  mesh and chaos phase: {out['s']:.1f} s "
+          f"({json.dumps(seconds)}); kernel launches in the phase "
+          f"{json.dumps(out['launches'])}", flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -6085,6 +6298,11 @@ def main() -> int:
     phase("the serving fleet on the card")
     fleet = fleet_phase()
 
+    phase("mesh failover and the fleet and chaos campaigns on the card")
+    mesh_chaos = mesh_chaos_phase()
+    # the promoted standby's own count, from its process
+    mesh_child = mesh_chaos["mesh"]["mesh_child"]["launches"]
+
     phase("timing at the main paths' class shapes")
     timing, err10 = class_timing("900k/k=10", prob10, cfg10)
     _, err50 = class_timing("300k/k=50", prob50, cfg50)
@@ -6141,7 +6359,9 @@ def main() -> int:
              fuzz_launches=fuzzed["launches"]["supercell_topk"],
              fleet_main_path_launches=fleet["mixed"]["launches"][
                  "supercell_topk"],
-             fleet_launches=fleet["launches"]["supercell_topk"]),
+             fleet_launches=fleet["launches"]["supercell_topk"],
+             mesh_chaos_launches=mesh_chaos["launches"]["supercell_topk"],
+             mesh_child_launches=mesh_child["supercell_topk"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -6155,7 +6375,9 @@ def main() -> int:
              query_ms=query["blocked"]["kernel"]["ms"],
              query_bound_ms=query["blocked"]["kernel"]["bound_ms"],
              fuzz_launches=fuzzed["launches"]["blocked_topk"],
-             fleet_launches=fleet["launches"]["blocked_topk"]),
+             fleet_launches=fleet["launches"]["blocked_topk"],
+             mesh_chaos_launches=mesh_chaos["launches"]["blocked_topk"],
+             mesh_child_launches=mesh_child["blocked_topk"]),
         dict(name="supercell_topk_mode_b", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
@@ -6163,7 +6385,10 @@ def main() -> int:
              max_abs_err=legacy["max_abs_err"],
              shape="900k/k=10 legacy pack", **legacy["mode_b"],
              fuzz_launches=fuzzed["launches"]["supercell_topk_mode_b"],
-             fleet_launches=fleet["launches"]["supercell_topk_mode_b"]),
+             fleet_launches=fleet["launches"]["supercell_topk_mode_b"],
+             mesh_chaos_launches=mesh_chaos["launches"][
+                 "supercell_topk_mode_b"],
+             mesh_child_launches=mesh_child["supercell_topk_mode_b"]),
         dict(name="blocked_topk_mode_b", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"],
@@ -6171,14 +6396,18 @@ def main() -> int:
              max_abs_err=legacy["max_abs_err_blocked"],
              shape="900k/k=10 legacy pack", **legacy["mode_b_blocked"],
              fuzz_launches=fuzzed["launches"]["blocked_topk_mode_b"],
-             fleet_launches=fleet["launches"]["blocked_topk_mode_b"]),
+             fleet_launches=fleet["launches"]["blocked_topk_mode_b"],
+             mesh_chaos_launches=mesh_chaos["launches"]["blocked_topk_mode_b"],
+             mesh_child_launches=mesh_child["blocked_topk_mode_b"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"],
              max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
              **select_timings["100k x 128 f32"],
              fuzz_launches=fuzzed["launches"]["mxu_select"],
-             fleet_launches=fleet["launches"]["mxu_select"]),
+             fleet_launches=fleet["launches"]["mxu_select"],
+             mesh_chaos_launches=mesh_chaos["launches"]["mxu_select"],
+             mesh_child_launches=mesh_child["mxu_select"]),
         dict(name="mxu_select_bf16", route="cuda",
              source=CSRC + "mxu_select_bf16.cu",
              replaces=REPLACES["mxu_select_bf16"],
@@ -6186,6 +6415,8 @@ def main() -> int:
              fleet_brownout_launches=fleet["autoscale"]["launches"][
                  "mxu_select_bf16"],
              fleet_launches=fleet["launches"]["mxu_select_bf16"],
+             mesh_chaos_launches=mesh_chaos["launches"]["mxu_select_bf16"],
+             mesh_child_launches=mesh_child["mxu_select_bf16"],
              **{f"fleet_brownout_{key}": v for key, v in
                 fleet["autoscale"]["brownout_kernel"].items()},
              max_abs_err=max(max_err["mxu_select_bf16"],
@@ -6202,7 +6433,9 @@ def main() -> int:
              max_abs_err=max_err["mxu_select_split"],
              shape="20k x 3 f32 k=1800", **split_timings,
              fuzz_launches=fuzzed["launches"]["mxu_select_split"],
-             fleet_launches=fleet["launches"]["mxu_select_split"]),
+             fleet_launches=fleet["launches"]["mxu_select_split"],
+             mesh_chaos_launches=mesh_chaos["launches"]["mxu_select_split"],
+             mesh_child_launches=mesh_child["mxu_select_split"]),
     ]
     print(f"  FoF (plain torch, no kernel of its own): "
           f"{json.dumps(fof_runs)}", flush=True)
@@ -6215,6 +6448,7 @@ def main() -> int:
     print(f"  elastic: {json.dumps(elastic)}", flush=True)
     print(f"  fuzz: {json.dumps(fuzzed)}", flush=True)
     print(f"  fleet: {json.dumps(fleet)}", flush=True)
+    print(f"  mesh and chaos: {json.dumps(mesh_chaos)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

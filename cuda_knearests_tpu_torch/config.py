@@ -138,27 +138,30 @@ class KnnConfig:
         only.
     """
 
+    # The reference's field order: a checkpoint's config JSON lists the
+    # fields in this order (``dataclasses.asdict``), so the same problem
+    # saves to the same bytes in both packages.
     k: int = DEFAULT_K
     density: float = DEFAULT_CELL_DENSITY
-    ring_radius: Optional[int] = None
-    supercell: int = 3
-    exclude_self: bool = True
-    fallback: str = "brute"
-    max_classes: int = 4
     scorer: str = "auto"
     recall_target: float = 1.0
-    backend: str = "auto"
-    kernel: str = "kpass"
-    precision: str = "auto"
-    plane_feed: bool = False
-    adaptive: bool = True
-    dist_method: str = "diff"
+    ring_radius: Optional[int] = None
+    supercell: int = 3
     sc_batch: int = 64
+    dist_method: str = "diff"
+    exclude_self: bool = True
+    fallback: str = "brute"
+    backend: str = "auto"
     interpret: bool = False
+    adaptive: bool = True
+    max_classes: int = 4
     stream_tile: int = 2048
     hbm_budget_bytes: Optional[int] = None
+    kernel: str = "kpass"
     epilogue: str = "auto"
     query_chunk: Optional[int] = None
+    precision: str = "auto"
+    plane_feed: bool = False
 
     def __post_init__(self):
         for name, (allowed, why) in _UNSUPPORTED.items():

@@ -15,9 +15,11 @@ engine's exactness promise, on the GPU unless ``device='cpu'`` is passed.
   failures minimized and banked into :data:`CORPUS_DIR`; under case
   isolation each case runs in a supervisor worker
   (``runtime/supervisor.py``), so a worker's death costs one case.
-* :mod:`approx`, :mod:`fof`, :mod:`mutation`, :mod:`pod` -- the flavors:
-  the brute route's recall bound and certificates, friends-of-friends,
-  mutation streams through the delta overlay, and the pod.
+* :mod:`approx`, :mod:`fof`, :mod:`mutation`, :mod:`pod`, :mod:`fleet`,
+  :mod:`chaos` -- the flavors: the brute route's recall bound and
+  certificates, friends-of-friends, mutation streams through the delta
+  overlay, the pod, multi-tenant streams through the serving fleet, and
+  fault schedules against its pod tenants (ending with the mesh drill).
 
 The port banks into ``tests/corpus_torch/``; the JAX package's
 ``tests/corpus/`` is read (replayed), never written.

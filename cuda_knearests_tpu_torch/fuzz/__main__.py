@@ -3,6 +3,8 @@
     python -m cuda_knearests_tpu_torch.fuzz --cases 64 --seed 0
     python -m cuda_knearests_tpu_torch.fuzz --approx --cases 32
     python -m cuda_knearests_tpu_torch.fuzz --cases 8 --device cpu
+    python -m cuda_knearests_tpu_torch.fuzz --chaos --cases 8
+    python -m cuda_knearests_tpu_torch.fuzz --fleet --cases 4 --device cpu
     python -m cuda_knearests_tpu_torch.fuzz --cases 36 --seed 2 \
         --isolation none --ns 1000,4000,16000 --ks 10,33,60,128 \
         --card-rows 4000
@@ -10,8 +12,7 @@
 Counterpart of ``python -m cuda_knearests_tpu.fuzz``, with ``--device``
 (default: the GPU; ``cpu`` runs the kernels' plain versions).  Exit codes:
 0 = campaign clean (no unwaived failure), 1 = failures found (each
-minimized and banked), 2 = usage error, or a flavor not ported yet
-(``--fleet``, ``--chaos``).
+minimized and banked), 2 = usage error.
 
 ``--ns`` / ``--ks`` replace the point campaign's size and k palettes
 (``generators.DEFAULT_NS``, ``DEFAULT_KS``).  ``--card-rows MAX_N`` then
@@ -80,14 +81,20 @@ def main(argv=None) -> int:
                          "recall against its bound and certificate "
                          "soundness against the oracle (fuzz/approx.py)")
     ap.add_argument("--fleet", action="store_true",
-                    help="the fleet campaign: not ported yet (exits 2)")
+                    help="run the fleet campaign instead: seeded "
+                         "multi-tenant streams through the fleet front "
+                         "door against per-tenant rebuild oracles "
+                         "(fuzz/fleet.py)")
     ap.add_argument("--pod", action="store_true",
                     help="run the pod campaign instead: boundary-weighted "
                          "zoo clouds through the cell-partitioned route "
                          "against the oracle and the single-chip route "
                          "(fuzz/pod.py)")
     ap.add_argument("--chaos", action="store_true",
-                    help="the chaos campaign: not ported yet (exits 2)")
+                    help="run the chaos campaign instead: seeded fault "
+                         "schedules against the elastic pod fleet, the "
+                         "named autoscale schedules, then the cross-mesh "
+                         "SIGKILL drill (fuzz/chaos.py)")
     ap.add_argument("--fof", action="store_true",
                     help="run the FoF campaign instead: zoo clouds and "
                          "seeded linking lengths through cluster.fof "
@@ -162,11 +169,6 @@ def main(argv=None) -> int:
     if single_route and args.isolation != "auto":
         ap.error("--isolation applies to the point-case campaign only; "
                  "the other campaigns run in-process")
-    if args.fleet or args.chaos:
-        print(f"{flavors[0]}: the fleet and chaos campaigns wait for the "
-              f"port of the serving fleet", file=sys.stderr)
-        return 2
-
     kwargs = {} if args.bank_dir is None else {"bank_dir": args.bank_dir}
     common = dict(seed=args.seed, budget_s=budget,
                   minimize=not args.no_minimize, device=args.device,
@@ -177,6 +179,16 @@ def main(argv=None) -> int:
         manifest = run_pod_campaign(n_cases=args.cases,
                                     ndev=max(4, args.devices), **common)
         return _finish_campaign(manifest, args, "POD FUZZ FAILED")
+    if args.chaos:
+        from .chaos import run_chaos_campaign
+
+        manifest = run_chaos_campaign(n_cases=args.cases, **common)
+        return _finish_campaign(manifest, args, "CHAOS FUZZ FAILED")
+    if args.fleet:
+        from .fleet import run_fleet_campaign
+
+        manifest = run_fleet_campaign(n_cases=args.cases, **common)
+        return _finish_campaign(manifest, args, "FLEET FUZZ FAILED")
     if args.approx:
         from .approx import run_approx_campaign
 

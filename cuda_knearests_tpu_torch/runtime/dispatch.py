@@ -130,6 +130,23 @@ def kernel_stats() -> dict:
             + cuda_solve.blocked_launches}
 
 
+def kernel_launches() -> dict:
+    """Each hand-written kernel's launches in this process, by kernel and
+    mode: ``supercell_topk`` and ``blocked_topk`` count mode (a) (rows),
+    the ``_mode_b`` entries the (S, k, Q) layout, and the three MXU
+    selections their own.  A wrapper counts where it launches, so a CPU
+    process reports zeros."""
+    from ..mxu import kernel as mk
+    from ..ops import cuda_solve as cs
+
+    return {"supercell_topk": cs.launches - cs.launches_b,
+            "supercell_topk_mode_b": cs.launches_b,
+            "blocked_topk": cs.blocked_launches - cs.blocked_launches_b,
+            "blocked_topk_mode_b": cs.blocked_launches_b,
+            "mxu_select": mk.launches, "mxu_select_bf16": mk.launches_bf16,
+            "mxu_select_split": mk.split_launches}
+
+
 def fetch(*tensors: torch.Tensor):
     """One batched readback: the tensors as host numpy arrays, in order.
     Each CUDA tensor's copy is queued on the current stream of its own

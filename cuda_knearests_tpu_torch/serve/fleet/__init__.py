@@ -18,6 +18,10 @@ front door, on one device.
   brownout ladder (exact -> bf16 -> lowered recall).
 * :mod:`loadgen` -- the multi-tenant open-loop harness (per-tenant
   percentiles, Jain fairness, SLO verdicts, the window's kernel counters).
+* :mod:`elastic` -- mesh failover for pod tenants: checksummed
+  snapshots, primary and standby meshes as child processes, and the
+  mid-migration SIGKILL drill (imported on its own, as in the
+  reference).
 
 ``python -m cuda_knearests_tpu_torch.serve.fleet`` runs a mixed-SLO fleet
 session (``--failover-smoke``: the process-level failover proof;

@@ -54,6 +54,7 @@ class TokenBucket:
         """Spend ``rows`` tokens if the bucket holds them; False = over
         quota (the caller refuses typed).  An unmetered bucket admits
         everything."""
+        # proto: drr-admission.enqueue -- admission is where work enters a queue
         if self.rate is None:
             self.admitted_rows += int(rows)
             return True
@@ -129,6 +130,7 @@ class DrrScheduler:
         rotation adds one quantum to every backlogged tenant, so a head
         batch of B rows runs within ceil(B / quantum) rotations of
         reaching the head: the drain ends and no batch starves."""
+        # proto: drr-admission.rotate
         out: List[Tuple[str, object, DrrDispatch]] = []
         if not self._order:
             return out

@@ -265,7 +265,7 @@ class Autoscaler:
             return []
         self._next_tick = now + self.config.period_s
         self.counters["ticks"] += 1
-        prototrace.record("autoscale", "tick")
+        prototrace.record("autoscale", "tick")  # proto: autoscale.tick
         flap = self.fleet._fault == "flap-policy"
         need_b = 1 if flap else self.config.breach_streak
         need_c = 1 if flap else self.config.clear_streak
@@ -339,7 +339,7 @@ class Autoscaler:
             name = t.spec.name
             if self.added.get(name, 0) >= cfg.max_extra_replicas:
                 continue
-            if self._fire("scale_up", cls, name, t.add_replica):
+            if self._fire("scale_up", cls, name, t.add_replica):  # proto: autoscale.scale_up
                 self.added[name] = self.added.get(name, 0) + 1
                 return {"action": "scale_up", "tenant": name,
                         "replicas": len(t.replica_pool)}
@@ -365,7 +365,7 @@ class Autoscaler:
                 and dense:
             for t in dense:
                 self._fire("brown_down", cls, t.spec.name,
-                           lambda t=t: t.brown_down(
+                           lambda t=t: t.brown_down(  # proto: autoscale.brown_down
                                recall_target=cfg.recall_target,
                                max_tier=cfg.max_tier) > 0)
             st.tier = min(st.tier + 1, cfg.max_tier)
@@ -373,7 +373,7 @@ class Autoscaler:
                     "tier_name": TIER_NAMES[st.tier]}
         # 5. shed with a typed retry-after hint
         self.shed_until[cls] = now + cfg.shed_window_s
-        self._fire("shed", cls, None, lambda: True)
+        self._fire("shed", cls, None, lambda: True)  # proto: autoscale.shed
         return {"action": "shed",
                 "retry_after_ms": round(cfg.shed_retry_after_s * 1e3, 3)}
 
@@ -389,7 +389,7 @@ class Autoscaler:
             for t in dense:
                 if t.degraded_tier > 0:
                     self._fire("brown_up", cls, t.spec.name,
-                               lambda t=t: t.brown_up() >= 0)
+                               lambda t=t: t.brown_up() >= 0)  # proto: autoscale.brown_up
             st.tier -= 1
             return {"action": "brown_up", "tier": st.tier,
                     "tier_name": TIER_NAMES[st.tier]}
@@ -401,7 +401,7 @@ class Autoscaler:
             res: List[dict] = []
             if self._fire(
                     "scale_down", cls, name,
-                    lambda t=t, res=res: res.append(
+                    lambda t=t, res=res: res.append(  # proto: autoscale.scale_down
                         t.remove_replica(
                             unsafe_compact=self.fleet._fault
                             == "scale-drop-tail")) or res[-1] is not None):

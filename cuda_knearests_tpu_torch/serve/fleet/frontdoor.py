@@ -181,7 +181,7 @@ class FleetDaemon:
         t = self.tenants.get(tenant)
         quota_ok = None
         if t is not None:
-            quota_ok = self.quota[tenant].try_take(
+            quota_ok = self.quota[tenant].try_take(  # proto: drr-admission.enqueue
                 _rows_estimate(kind, payload), now)
         try:
             payload = validate_request(
@@ -350,7 +350,7 @@ class FleetDaemon:
                           k=int(k) if k else t.spec.k, arrived_at=now,
                           trace_id=trace_id, t_perf=_spans.now())
             for batch in t.daemon.batcher.admit(req, now):
-                t.ready.append(batch)
+                t.ready.append(batch)  # proto: drr-admission.enqueue
                 prototrace.record("drr-admission", "enqueue")
             return self.pump(now)
         # mutation / fof barriers: THIS tenant's already-flushed batches
@@ -363,7 +363,7 @@ class FleetDaemon:
         out = self._execute_ready(t)
         pending = t.daemon.batcher.flush("barrier", now)
         if pending is not None:
-            t.ready.append(pending)
+            t.ready.append(pending)  # proto: drr-admission.enqueue
             prototrace.record("drr-admission", "enqueue")
             out.extend(self._execute_ready(t))
         responses = t.daemon.submit(req_id, kind, payload, k=k, now=now,
@@ -469,7 +469,7 @@ class FleetDaemon:
         if t.daemon is not None:
             batch = t.daemon.batcher.flush("drain", now)
             if batch is not None:
-                t.ready.append(batch)
+                t.ready.append(batch)  # proto: drr-admission.enqueue
                 prototrace.record("drr-admission", "enqueue")
                 out.extend(self._execute_ready(t))
         return out
@@ -498,7 +498,7 @@ class FleetDaemon:
         if any(q for q in ready.values()):
             prototrace.record("drr-admission", "rotate")
         out: List[Response] = []
-        for name, batch, disp in self.drr.select(ready):
+        for name, batch, disp in self.drr.select(ready):  # proto: drr-admission.rotate
             out.extend(self._run_batch(
                 self.tenants[name], batch,
                 {"deficit_after": disp.deficit_after,
@@ -520,7 +520,7 @@ class FleetDaemon:
                 continue
             batch = t.daemon.batcher.poll(now)
             if batch is not None:
-                t.ready.append(batch)
+                t.ready.append(batch)  # proto: drr-admission.enqueue
                 prototrace.record("drr-admission", "enqueue")
         return self.pump(now)
 
@@ -531,7 +531,7 @@ class FleetDaemon:
                 continue
             batch = t.daemon.batcher.flush("drain", now)
             if batch is not None:
-                t.ready.append(batch)
+                t.ready.append(batch)  # proto: drr-admission.enqueue
                 prototrace.record("drr-admission", "enqueue")
         return self.pump(now)
 

@@ -366,6 +366,16 @@ def replay_fleet(builds, items: List[dict], device, brown_at: int,
     return out + fleet.drain(clock[0])
 
 
+def rows_bit_equal(a_ids, a_d2, b_ids, b_d2) -> bool:
+    """Two answers agree: both absent, or ids equal and d2 equal bit for
+    bit (NaN and -0.0 included)."""
+    if a_ids is None or b_ids is None:
+        return a_ids is None and b_ids is None
+    return bool(np.array_equal(a_ids, b_ids) and np.array_equal(
+        np.asarray(a_d2, np.float32).view(np.int32),
+        np.asarray(b_d2, np.float32).view(np.int32)))
+
+
 def card_equals_cpu(builds, loads: List[TenantLoad], device) -> dict:
     """The fleet's card-against-CPU check: the schedule of ``loads``
     through :func:`replay_fleet` on ``device`` and on the CPU, with a
@@ -396,10 +406,7 @@ def card_equals_cpu(builds, loads: List[TenantLoad], device) -> dict:
             out["difference"] = (f"request {a.req_id}: {head(a)} against "
                                  f"the CPU's {head(b)}")
             return out
-        if (a.ids is None) != (b.ids is None) or a.ids is not None and not (
-                np.array_equal(a.ids, b.ids) and np.array_equal(
-                    np.asarray(a.d2, np.float32).view(np.int32),
-                    np.asarray(b.d2, np.float32).view(np.int32))):
+        if not rows_bit_equal(a.ids, a.d2, b.ids, b.d2):
             out["difference"] = (f"request {a.req_id} ({a.tenant}, tier "
                                  f"{a.degraded}): rows differ from the "
                                  f"CPU's")

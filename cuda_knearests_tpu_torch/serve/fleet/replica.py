@@ -96,6 +96,7 @@ class ReplicationLog:
         return self.base_seq + len(self.records)
 
     def append(self, kind: str, payload: np.ndarray) -> DeltaRecord:
+        # proto: replication-commit.append
         rec = DeltaRecord(seq=self.committed_seq + 1, kind=kind,
                           payload=np.asarray(payload))
         self.records.append(rec)
@@ -155,6 +156,9 @@ class Replica:
         """Apply one record, strictly in sequence: a gap means the
         shipper lost a committed delta, and corrupting silently is the one
         unacceptable outcome."""
+        # proto: replication-commit.apply -- primary-side; as the replica
+        # receive path this same method is the ship target:
+        # proto: replication-commit.ship
         if record.seq != self.applied_seq + 1:
             raise RuntimeError(
                 f"replication sequence gap: replica at seq "
@@ -382,14 +386,14 @@ class FailoverController:
         rec = DeltaRecord(seq=self.log.committed_seq + 1, kind=kind,
                           payload=np.asarray(payload))
         self.primary.apply(rec)          # raises TransportError if dead
-        prototrace.record("replication-commit", "apply")
-        self.log.records.append(rec)     # the commit
+        prototrace.record("replication-commit", "apply")  # proto: replication-commit.apply
+        self.log.records.append(rec)     # the commit  # proto: replication-commit.append
         prototrace.record("replication-commit", "append")
         for rep in self.replicas:
             if not rep.alive:
                 continue
             try:
-                rep.apply(rec)
+                rep.apply(rec)  # proto: replication-commit.ship
                 prototrace.record("replication-commit", "ship")
             except TransportError:
                 pass  # a dead replica just stops being a failover target
@@ -414,10 +418,11 @@ class FailoverController:
                 "failover impossible: no live replica (committed log "
                 f"retains {self.log.committed_seq} mutation(s) for a "
                 f"future replica)")
+        # proto: replication-commit.failover
         target = max(live, key=lambda p: p.acked_seq)
         replayed = 0
         for rec in self.log.since(target.acked_seq):
-            target.apply(rec)
+            target.apply(rec)  # proto: replication-commit.ship
             prototrace.record("replication-commit", "ship")
             replayed += 1
         target.promote()

@@ -254,11 +254,11 @@ class Tenant:
         if self.log is None or drop_from_log:
             return
         prototrace.record("replication-commit", "apply")
-        rec = self.log.append(kind, np.asarray(payload))
+        rec = self.log.append(kind, np.asarray(payload))  # proto: replication-commit.append
         prototrace.record("replication-commit", "append")
         if self.spec.ship_mode == "sync":
             for rep in self.replica_pool:
-                rep.apply(rec)
+                rep.apply(rec)  # proto: replication-commit.ship
                 prototrace.record("replication-commit", "ship")
 
     # -- elastic replication and brownout (autoscale.py) ----------------------
@@ -270,6 +270,7 @@ class Tenant:
         committed seq, which holds even when the tenant never logged or
         the primary overlay compacted its base; from then on the
         committed tail ships to it as to any replica."""
+        # proto: autoscale.scale_up
         if self.daemon is None:
             return False
         if self.log is None:
@@ -292,6 +293,7 @@ class Tenant:
         applied seq would make the next failover's re-ship tail
         unrecoverable.  ``unsafe_compact`` is the seeded scale-drop-tail
         fault's hook (compact to the committed head regardless)."""
+        # proto: autoscale.scale_down
         if self.daemon is None \
                 or len(self.replica_pool) <= self.spec.replicas:
             return None
@@ -320,6 +322,7 @@ class Tenant:
                    max_tier: int = 2) -> int:
         """Step one rung down the ladder: exact f32 -> bf16 scoring with
         the exact refinement -> bf16 at ``recall_target``."""
+        # proto: autoscale.brown_down
         if self.degraded_tier < max_tier:
             self.degraded_tier += 1
             self.degraded_recall = (1.0 if self.degraded_tier == 1
@@ -330,6 +333,7 @@ class Tenant:
     def brown_up(self) -> int:
         """Step one rung back up; at tier 0 the tenant serves exactly as
         one that was never degraded."""
+        # proto: autoscale.brown_up
         if self.degraded_tier > 0:
             self.degraded_tier -= 1
             self.degraded_recall = (1.0 if self.degraded_tier <= 1
@@ -347,11 +351,12 @@ class Tenant:
             raise TransportError(
                 f"tenant {self.spec.name!r}: failover impossible "
                 f"(replicas={len(self.replica_pool)})")
+        # proto: replication-commit.failover
         target = max(self.replica_pool, key=lambda r: r.applied_seq)
         replayed = 0
         if not skip_reship:
             for rec in self.log.since(target.applied_seq):
-                target.apply(rec)
+                target.apply(rec)  # proto: replication-commit.ship
                 prototrace.record("replication-commit", "ship")
                 replayed += 1
         self.replica_pool.remove(target)

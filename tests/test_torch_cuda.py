@@ -1657,3 +1657,49 @@ def test_gpu_fleet_process_failover(cuda_device):
                            device=cuda_device)
     assert drill["device"].startswith("cuda")
     assert drill["failover_ok"], drill
+
+
+# -- mesh failover and the chaos campaign -----------------------------------------
+
+@pytest.mark.cuda
+def test_gpu_mesh_failover_drill(cuda_device):
+    """The cross-mesh drill with the primary and the standby mesh both
+    building their pod tenant on the card: killed mid-migration, zero
+    committed mutations lost, answers byte-identical to the parent's
+    per-shard rebuild on the card and exact against the host kd-tree,
+    and the promoted standby reports its shards on the card and its own
+    class-kernel launches."""
+    from cuda_knearests_tpu_torch.serve.fleet.elastic import \
+        mesh_failover_drill
+
+    drill = mesh_failover_drill(n=200_000, k=8, ops=26, seed=0,
+                                device=cuda_device)
+    assert drill["device"].startswith("cuda")
+    assert drill["killed_mid_migration"] is True
+    assert drill["zero_lost_committed"] is True
+    assert drill["post_failover_byte_identical"] is True
+    assert drill["post_failover_exact"] is True
+    assert drill["mesh_failover_ok"] is True, drill
+    for report in (drill["primary_at_kill"], drill["mesh_child"]):
+        assert report["device"].startswith("cuda"), drill
+        assert report["cuda_allocated_bytes"] > 0, drill
+    assert drill["mesh_child"]["launches"]["supercell_topk"] > 0, drill
+    assert drill["card_free_bytes_both_meshes"] > 0
+
+
+@pytest.mark.cuda
+def test_gpu_chaos_case_equals_cpu(cuda_device):
+    """One chaos schedule (migrations, chip loss, a wedge, the guaranteed
+    rebalance tail) replays clean on the card and on the CPU, every
+    checked query's ids and d2 equal bit for bit, the class kernel
+    launched."""
+    from cuda_knearests_tpu_torch.fuzz import chaos
+    from cuda_knearests_tpu_torch.fuzz.fleet import answers_equal
+
+    spec = chaos.draw_specs(1, 1)[0]
+    before = cs.launches
+    got = answers_equal(chaos.replay_ops, spec, chaos.generate_ops(spec),
+                        cuda_device)
+    assert cs.launches > before
+    assert got["verdicts"] == [None, None], got
+    assert got["difference"] is None and got["queries"] > 0, got

@@ -322,14 +322,31 @@ def test_flavor_campaigns_clean(tmp_path):
     assert pmut.run_mutation_case(spec, bank_dir=None, device=CPU) is None
 
 
-def test_cli_usage_and_unported_flavors(capsys):
+def test_cli_usage_and_unported_flavors(tmp_path, capsys):
+    """Every flavor is ported: --fleet and --chaos run their campaigns
+    (rc 0 when clean; --budget 0 truncates the chaos list before its
+    first case, so no mesh drill runs here); mutually exclusive flavors
+    and point-only flags on them are usage errors (rc 2)."""
+    import json
+
     from cuda_knearests_tpu_torch.fuzz.__main__ import main
 
-    assert main(["--fleet", "--device", "cpu"]) == 2
-    assert main(["--chaos", "--device", "cpu"]) == 2
-    with pytest.raises(SystemExit) as e:
-        main(["--pod", "--approx"])
-    assert e.value.code == 2
+    common = ["--device", "cpu", "--bank-dir", str(tmp_path)]
+    assert main(["--fleet", "--cases", "1", "--seed", "4"] + common) == 0
+    fleet_m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert fleet_m["flavor"] == "fleet-stream" and fleet_m["ok"]
+    assert fleet_m["completed_cases"] == 1 and fleet_m["proto_models_ok"]
+    assert main(["--chaos", "--cases", "1", "--budget", "0"] + common) == 0
+    chaos_m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert chaos_m["flavor"] == "chaos-stream" and chaos_m["ok"]
+    assert chaos_m["truncated_after"] == 0
+    assert chaos_m["mesh_failover"] is None
+    for argv in (["--pod", "--approx"], ["--fleet", "--chaos"],
+                 ["--chaos", "--routes", "adaptive"],
+                 ["--fleet", "--isolation", "case"]):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
     capsys.readouterr()
 
 

@@ -62,7 +62,16 @@ def test_package_import_leaves_jax_out_of_sys_modules():
             "cuda_knearests_tpu_torch.fuzz.approx, "
             "cuda_knearests_tpu_torch.fuzz.fof, "
             "cuda_knearests_tpu_torch.fuzz.mutation, "
-            "cuda_knearests_tpu_torch.fuzz.pod\n"
+            "cuda_knearests_tpu_torch.fuzz.pod, "
+            "cuda_knearests_tpu_torch.fuzz.fleet, "
+            "cuda_knearests_tpu_torch.fuzz.chaos, "
+            "cuda_knearests_tpu_torch.serve.fleet.elastic, "
+            "cuda_knearests_tpu_torch.analysis, "
+            "cuda_knearests_tpu_torch.analysis.findings, "
+            "cuda_knearests_tpu_torch.analysis.models, "
+            "cuda_knearests_tpu_torch.analysis.proto\n"
+            "from cuda_knearests_tpu_torch.analysis import run_proto\n"
+            "assert not [f for f in run_proto() if f.severity != 'info']\n"
             "from cuda_knearests_tpu_torch.fuzz.campaign import run_campaign\n"
             "assert run_campaign(n_cases=2, routes=('adaptive',), "
             "bank_dir=None, log=None, device='cpu')['ok']\n"
