@@ -247,6 +247,28 @@ H100: the kernels target sm_90a).  It imports only the port
      schedules and 3 fleet streams on the card and on the CPU, every
      checked answer equal bit for bit; the phase's seconds and each
      kernel's launches printed;
+ 10h. (run after 11, whose CUDA-event time of ``supercell_topk`` it reads)
+     the CLI and device observability on the card: (d) the 900k/k=10 job
+     through ``python -m cuda_knearests_tpu_torch.cli ... --no-oracle
+     --capture`` in a process of its own (torch.profiler drops a growing
+     share of device events in sessions long after a process's first):
+     rc 0, every device event attributed and joined to its launch by
+     correlation id, ``supercell_topk`` once per class, its captured ms
+     within 10% of the CUDA-event time, the memory growth within the model
+     from the allocator, and ``utils.roofline.roofline_fields`` of the
+     timed solve, of a warm solve here and of the kernel alone against the
+     card's own peaks entry, each share at most 105%, printed beside the
+     static-shape and real-pair bounds; meanwhile (a) ``cli.main`` on
+     ``data/900k_blue_cube.xyz`` (regenerated from its seed where the file
+     is absent) at k=10 in this process: rc 0, 0 hard mismatches against
+     the kd-tree, ``supercell_topk`` once per class per solve, the card as
+     its platform, and (b) a NaN file refused rc 5; then three processes
+     at once: the CLI with ``CUDA_VISIBLE_DEVICES=""`` and no ``--device``
+     (rc 4, ``no-device``), ``python -m cuda_knearests_tpu_torch.obs``
+     (rc 0: zero unattributed, a ``supercell_topk`` event, the verdict
+     from the allocator, the merged trace written) and ``python -m
+     cuda_knearests_tpu_torch.runtime.dispatch`` (rc 0: six routes, each
+     within two host round trips, the sharded ones on cuda:0 twice);
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -269,6 +291,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -6163,6 +6186,289 @@ def mesh_chaos_phase() -> dict:
     return out
 
 
+# -- phase 10h: the CLI and device observability on the card -----------------
+
+CLI_XYZ = "data/900k_blue_cube.xyz"
+
+
+def _json_tail(out: str) -> dict:
+    """The last JSON object line of a command's output."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    require(bool(lines), f"no JSON line in: {out[-2000:]!r}")
+    return json.loads(lines[-1])
+
+
+def fresh_solves_ms(prob) -> list:
+    """Host ms of the first four solves of a fresh problem over ``prob``'s
+    points and config, each result held until the next solve returns."""
+    import cuda_knearests_tpu_torch as pt
+
+    fresh = pt.KnnProblem.prepare(prob.host_points, prob.config, device=DEV)
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fresh.solve()   # the problem holds the last result, as in the CLI
+        times.append(round((time.perf_counter() - t0) * 1e3, 3))
+    return times
+
+
+def _start_commands(cmds: dict, root: str) -> dict:
+    """Start ``python -m cuda_knearests_tpu_torch.<module> <args>`` for
+    each name of ``cmds`` ({name: (args, module, extra env)}) at once,
+    from the checkout's root; {name: process}."""
+    env = dict(os.environ, PYTHONPATH=root)
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", f"cuda_knearests_tpu_torch.{mod}", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(env, **extra), cwd=root)
+        for name, (argv, mod, extra) in cmds.items()}
+
+
+def _finish_commands(procs: dict) -> tuple:
+    """Wait for :func:`_start_commands`' processes (killing any still up
+    after 300 s); ({name: output}, {name: rc}), each tail printed."""
+    texts = {}
+    try:
+        for name, p in procs.items():
+            texts[name] = p.communicate(timeout=300)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = {name: p.returncode for name, p in procs.items()}
+    for name, text in texts.items():
+        keep = [ln for ln in text.strip().splitlines()
+                if not ln.startswith(("{", "/", "  _warn"))]
+        print(f"  {name}: rc {rcs[name]}", flush=True)
+        for ln in keep[-6:]:
+            print(f"    {ln[:1500]}", flush=True)
+    return texts, rcs
+
+
+def _check_roofline(what: str, row: dict, card: str) -> None:
+    require(row.get("device_kind") == card
+            and "assumed" not in row["roofline_peak_source"]
+            and row["roofline_peak_source"].startswith("h100-sxm")
+            and 0 < row["pct_hbm_roofline"] <= 105.0
+            and 0 < row["pct_flops_roofline"] <= 105.0,
+            f"roofline ({what}): {row}")
+
+
+def cli_in_process(prob10, tmp: str, card: str) -> dict:
+    """Phase 10h (a) and (b): ``cli.main`` on the 900k blue cube at k=10
+    in this process (rc 0, 0 hard mismatches against the kd-tree,
+    ``supercell_topk`` once per class per solve, the card as its
+    platform), a fresh problem's first solves beside its timed one, and a
+    NaN file refused rc 5."""
+    import contextlib
+    import io as _io
+
+    from cuda_knearests_tpu_torch import cli
+
+    before = kernel_counts()
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([CLI_XYZ, "--k", "10", "--json"])
+    after = kernel_counts()
+    text = buf.getvalue()
+    line = _json_tail(text)
+    launched = {k: after[k] - before[k] for k in after}
+    # one warm-up and one timed solve, one launch a class each
+    m = re.search(r"adaptive schedule: (\d+) capacity classes", text)
+    cli_cls = int(m.group(1)) if m else -1
+    require(rc == 0 and line.get("hard") == 0
+            and line.get("platform") == card and cli_cls > 0
+            and launched["supercell_topk"] == 2 * cli_cls
+            and sum(launched.values()) == 2 * cli_cls,
+            f"CLI: rc {rc}, summary {line}, {cli_cls} classes, "
+            f"launches {launched}")
+    for ln in text.splitlines():
+        if ln.startswith(("solve:", "oracle comparison", "[knn cpu",
+                          "[prepare", "There are", "  device",
+                          "adaptive schedule", "  class")):
+            print(f"    {ln}", flush=True)
+    # the CLI times its second solve, whose readback cannot reuse the
+    # first result's host buffers: a fresh problem's first four solves
+    # (each result kept until the next returns, as the CLI keeps it)
+    fresh = quiet(lambda: fresh_solves_ms(prob10))
+    print(f"    a fresh 900k/k=10 problem's solves, ms: {fresh}",
+          flush=True)
+    nan = os.path.join(tmp, "nan.xyz")
+    with open(nan, "w") as f:
+        f.write("3\n1 2 3\nnan 5 6\n7 8 9\n")
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(_io.StringIO()):
+        rc_nan = cli.main([nan, "--k", "2"])
+    nan_line = _json_tail(buf.getvalue())
+    require(rc_nan == 5 and nan_line["failure_kind"] == "invalid-input",
+            f"CLI on a NaN file: rc {rc_nan}, {nan_line}")
+    return {"cli": {"rc": rc, "summary": line, "launches": launched,
+                    "fresh_solves_ms": fresh},
+            "rc_nan": rc_nan}
+
+
+def cli_obs_phase(prob10, topk_ms: float) -> dict:
+    """Phase 10h, the CLI and device observability on the card.  (d) The
+    900k/k=10 job through ``python -m cuda_knearests_tpu_torch.cli
+    --capture --no-oracle`` in a process of its own (torch.profiler drops a
+    growing share of device events in sessions long after a process's
+    first, so a capture runs early in a process): rc 0, every device event
+    attributed and joined to its launch, ``supercell_topk`` once per class
+    and its captured ms within 10% of ``topk_ms`` (the same kernel's
+    CUDA-event time in phase 11), the memory verdict from the allocator,
+    and the timed solve's ``roofline_fields`` against the card's own peaks
+    entry, each share at most 105%; here, the static-shape law for
+    ``prob10`` beside the real-pair bounds, and the roofline of its warm
+    solve and of the kernel alone.  (a) ``cli.main`` on the same cube in
+    this process: rc 0, 0 hard mismatches against the kd-tree,
+    ``supercell_topk`` once per class per solve, the card as its platform.
+    (b) A NaN file refused rc 5.  Then at once: the CLI with no visible
+    card and no ``--device`` (rc 4, ``no-device``), ``python -m
+    cuda_knearests_tpu_torch.obs`` (rc 0: zero unattributed events, a
+    ``supercell_topk`` event, the verdict from the allocator, the merged
+    trace written) and ``python -m
+    cuda_knearests_tpu_torch.runtime.dispatch`` (rc 0, every route within
+    its sync budget).  This process's launches are counted from 0."""
+    import tempfile
+
+    import torch
+
+    from cuda_knearests_tpu_torch.utils import roofline
+
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    card = torch.cuda.get_device_name(0)
+    out, seconds = {}, {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-10h-")
+    try:
+        # (d) the capture, in a process of its own, against phase 11; (a)
+        # and (b) run here meanwhile (their device work is done seconds
+        # before the captured solve, which follows the process's start,
+        # its cloud and its first profiler session)
+        t0 = time.perf_counter()
+        capture = _start_commands({"cli_capture": (
+            [CLI_XYZ, "--k", "10", "--no-oracle", "--json", "--capture"],
+            "cli", {})}, root)
+        out.update(cli_in_process(prob10, tmp, card))
+        seconds["cli"] = round(time.perf_counter() - t0, 1)
+        texts, rcs = _finish_commands(capture)
+        text = texts["cli_capture"]
+        line = _json_tail(text)
+        dec = line.get("device_time_decomposition", {})
+        m = re.search(r"adaptive schedule: (\d+) capacity classes", text)
+        cli_cls = int(m.group(1)) if m else -1
+        runs = dec.get("modules", {}).get("supercell_topk", {})
+        captured_ms = dec.get("by_module", {}).get("supercell_topk", 0.0)
+        rel = captured_ms / topk_ms - 1.0
+        require(rcs["cli_capture"] == 0 and line.get("platform") == card
+                and dec.get("unattributed") == 0 and dec.get("events", 0) > 0
+                and dec["joined_by_correlation"] == dec["events"]
+                and runs.get("executions") == cli_cls > 0,
+                f"captured CLI: rc {rcs['cli_capture']}, {cli_cls} classes, "
+                f"decomposition {dec}")
+        require(abs(rel) <= 0.10,
+                f"capture: supercell_topk {captured_ms:.4f} ms against "
+                f"{topk_ms:.4f} ms by CUDA events ({100 * rel:+.1f}%)")
+        require(line.get("hbm_model_ok") is True
+                and line.get("hbm_measured_source") == "cuda_allocator",
+                f"capture: memory verdict {line}")
+        _check_roofline("the CLI's timed solve", line, card)
+        traffic = roofline.problem_traffic(prob10)
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            prob10.solve()
+            times.append(time.perf_counter() - t1)
+        solve_s = float(np.median(times))
+        roof = {"solve": roofline.roofline_fields(traffic, solve_s, "cuda"),
+                "kernel": roofline.roofline_fields(traffic, topk_ms / 1e3,
+                                                   "cuda")}
+        for what, row in roof.items():
+            _check_roofline(what, row, card)
+        static_bytes_ms = traffic["hbm_total"] / PEAK_HBM_BYTES * 1e3
+        static_ops_ms = traffic["flops"] / PEAK_F32_FLOPS * 1e3
+        out["capture"] = {
+            "supercell_topk_ms": round(captured_ms, 4),
+            "cuda_event_ms": round(topk_ms, 4), "rel": round(rel, 4),
+            "executions": runs.get("executions"), "decomposition": dec,
+            "cli_solve_ms": round(line["solve_s"] * 1e3, 3),
+            "hbm_window_delta_bytes": line["hbm_window_delta_bytes"],
+            "hbm_model_bytes": line["hbm_model_bytes"],
+            "cli_roofline": {key: line.get(key) for key in (
+                "achieved_hbm_gbps", "pct_hbm_roofline", "achieved_gflops",
+                "pct_flops_roofline", "roofline_peak_source")},
+            "solve_ms": round(solve_s * 1e3, 3),
+            "static_bound_ms": {"bytes": round(static_bytes_ms, 4),
+                                "operations": round(static_ops_ms, 4)},
+            "roofline": roof}
+        print(f"  (d) captured 900k/k=10 solve (the CLI, its own process): "
+              f"supercell_topk {captured_ms:.4f} ms in "
+              f"{runs.get('executions')} event(s) for {cli_cls} class(es); "
+              f"CUDA events {topk_ms:.4f} ms ({100 * rel:+.2f}%); "
+              f"{dec['events']} device events, all joined by correlation "
+              f"(launch to start {json.dumps(dec.get('launch_to_start_ms'))}"
+              f" ms), {dec['device_total_ms']} ms, by module "
+              f"{json.dumps(dec['by_module'])}; memory growth "
+              f"{line['hbm_window_delta_bytes']} of model "
+              f"{line['hbm_model_bytes']} bytes", flush=True)
+        print(f"    static-shape law (utils/roofline.py, padded slots): "
+              f"{traffic['hbm_total']} bytes -> {static_bytes_ms:.4f} ms at "
+              f"3.35 TB/s, {traffic['pairs']} pairs, {traffic['flops']} "
+              f"f32 ops -> {static_ops_ms:.4f} ms at 67 TFLOP/s; the CLI's "
+              f"timed solve {json.dumps(out['capture']['cli_roofline'])}; "
+              f"here a warm solve (median {solve_s * 1e3:.3f} ms) "
+              f"{json.dumps(roof['solve'])}; the kernel alone "
+              f"{json.dumps(roof['kernel'])}", flush=True)
+        seconds["capture"] = round(time.perf_counter() - t0, 1)
+
+        # the other commands, at once
+        t0 = time.perf_counter()
+        obs_dir = os.path.join(tmp, "obs")
+        texts, rcs = _finish_commands(_start_commands({
+            "cli_no_device": ([CLI_XYZ, "--k", "10", "--json"], "cli",
+                              {"CUDA_VISIBLE_DEVICES": ""}),
+            "obs": (["--out-dir", obs_dir], "obs", {}),
+            "dispatch": ([], "runtime.dispatch", {})}, root))
+        seconds["commands"] = round(time.perf_counter() - t0, 1)
+        no_dev = _json_tail(texts["cli_no_device"])
+        require(rcs["cli_no_device"] == 4
+                and no_dev.get("failure_kind") == "no-device",
+                f"CLI with no visible card: rc {rcs['cli_no_device']}, "
+                f"{no_dev}")
+        obs = _json_tail(texts["obs"])
+        require(rcs["obs"] == 0 and obs.get("ok") is True
+                and obs.get("device_unattributed") == 0
+                and obs.get("device_supercell_topk_events", 0) >= 1
+                and obs.get("hbm_model_ok") is True
+                and obs.get("hbm_measured_source") == "cuda_allocator"
+                and os.path.exists(os.path.join(obs_dir,
+                                                "trace_merged.json")),
+                f"obs smoke: rc {rcs['obs']}, {obs}")
+        print(f"    obs: {json.dumps(obs)[:1500]}", flush=True)
+        routes = [json.loads(ln) for ln in texts["dispatch"].splitlines()
+                  if ln.startswith('{"route"')]
+        require(rcs["dispatch"] == 0 and len(routes) == 6
+                and all(r["ok"] and r["device"] == "cuda" for r in routes),
+                f"dispatch smoke: rc {rcs['dispatch']}, {routes}")
+        print(f"    dispatch: {json.dumps(routes)[:1500]}", flush=True)
+        out.update(cli_no_device=no_dev, obs=obs, dispatch=routes, rcs=rcs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = kernel_counts()
+    out["seconds"] = seconds
+    out["s"] = time.perf_counter() - t_phase
+    require(out["launches"]["supercell_topk"] > 0,
+            f"CLI and observability: supercell_topk never launched "
+            f"{out['launches']}")
+    print(f"  CLI and observability phase: {out['s']:.1f} s "
+          f"({json.dumps(seconds)}); kernel launches in this process "
+          f"{json.dumps(out['launches'])}", flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -6312,13 +6618,17 @@ def main() -> int:
     blocked_crowded, err_bc = crowded_timing("900k/k=10 blocked", prob_b,
                                              cfg_b)
 
+    phase("the CLI and device observability on the card")
+    cli_obs = cli_obs_phase(prob10, timing["ms"])
+
     kernels = [
         dict(name="supercell_topk", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces=REPLACES["supercell_topk"],
              launches=(launches + pod["overlay"]["launches"]
                        + elastic["launches"]
-                       + fleet["mixed"]["launches"]["supercell_topk"]),
+                       + fleet["mixed"]["launches"]["supercell_topk"]
+                       + cli_obs["launches"]["supercell_topk"]),
              grid_main_path_launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
                              sharded["main"]["slabs"][1]["max_abs_err"],
@@ -6361,7 +6671,10 @@ def main() -> int:
                  "supercell_topk"],
              fleet_launches=fleet["launches"]["supercell_topk"],
              mesh_chaos_launches=mesh_chaos["launches"]["supercell_topk"],
-             mesh_child_launches=mesh_child["supercell_topk"]),
+             mesh_child_launches=mesh_child["supercell_topk"],
+             cli_obs_launches=cli_obs["launches"]["supercell_topk"],
+             cli_launches=cli_obs["cli"]["launches"]["supercell_topk"],
+             captured_ms=cli_obs["capture"]["supercell_topk_ms"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -6449,6 +6762,7 @@ def main() -> int:
     print(f"  fuzz: {json.dumps(fuzzed)}", flush=True)
     print(f"  fleet: {json.dumps(fleet)}", flush=True)
     print(f"  mesh and chaos: {json.dumps(mesh_chaos)}", flush=True)
+    print(f"  CLI and observability: {json.dumps(cli_obs)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,6 +45,7 @@ from .ops.query import query_knn
 from .ops.solve import (KnnResult, SolvePlan, brute_force_by_index,
                         build_plan, prepare_pack, resolve_backend)
 from .ops.solve import solve as solve_legacy
+from .obs import spans as _obs_spans
 from .oracle import KdTreeOracle
 from .runtime import dispatch
 from .utils import stats as _stats
@@ -143,15 +144,16 @@ class KnnProblem:
         (``ops.solve.prepare_pack``) refuses what the launch gate or the
         memory budget cannot take."""
         config = config or KnnConfig()
-        _check_scorer_route(config)
-        device = resolve_device(device)
-        points = (validate_or_raise(points, k=config.k) if validate
-                  else np.ascontiguousarray(points, np.float32))
-        grid = build_grid(torch.as_tensor(points, device=device), dim=dim,
-                          density=config.density)
-        problem = cls._planned(grid, config)
-        problem.host_points = points
-        return problem
+        with _obs_spans.span("knn.prepare", k=int(config.k)):
+            _check_scorer_route(config)
+            device = resolve_device(device)
+            points = (validate_or_raise(points, k=config.k) if validate
+                      else np.ascontiguousarray(points, np.float32))
+            grid = build_grid(torch.as_tensor(points, device=device),
+                              dim=dim, density=config.density)
+            problem = cls._planned(grid, config)
+            problem.host_points = points
+            return problem
 
     def with_points(self, points, validate: bool = True) -> "KnnProblem":
         """A fresh problem over ``points`` under this problem's config, on
@@ -191,6 +193,12 @@ class KnnProblem:
         ``fallback='brute'``).  At most two host round trips.  With
         ``config.plane_feed`` the result carries the plane feed
         (``planes``)."""
+        with _obs_spans.span("knn.solve", n=int(self.grid.n_points),
+                             k=int(self.config.k),
+                             route=self._route_name()):
+            return self._solve()
+
+    def _solve(self) -> KnnResult:
         cfg = self.config
         if self.grid.n_points == 0:
             self.result = KnnResult(
@@ -249,6 +257,11 @@ class KnnProblem:
         (``cluster.planes.bisector_planes``: ``[nx, ny, nz, d]``, the
         half-space ``n . x <= d`` holds the query), computed on the host
         from the fetched rows."""
+        with _obs_spans.span("knn.query", k=int(k or self.config.k),
+                             route=self._route_name()):
+            return self._query(queries, k, planes)
+
+    def _query(self, queries, k, planes):
         k = self.config.k if k is None else k
         queries = validate_or_raise(queries, k=k, what="queries")
         k = int(k)

@@ -28,6 +28,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..config import resolve_precision, resolve_scorer
 from ..io import validate_or_raise
@@ -36,6 +37,7 @@ from ..ops.solve import brute_force_by_index
 from ..runtime import dispatch
 from ..utils.memory import InvalidConfigError, InvalidShapeError
 from ..utils.platform import resolve_device
+from ..utils.profiling import annotate
 from . import kernel
 from .scorer import FAULTS, select_plain
 from .topk import BLOCK, interleave_slots, per_block_m, recall_bound
@@ -135,8 +137,10 @@ def warm(precision: str = "auto", device=None) -> None:
 
 def solve_general(points, k: int = 10, recall_target: float = 1.0,
                   exclude_self: bool = True, refine: str = "brute",
-                  queries=None, scorer: str = "mxu",
-                  precision: str = "auto", device=None) -> MxuResult:
+                  queries=None, interpret: bool = False,
+                  scorer: str = "mxu", precision: str = "auto",
+                  query_chunk: Optional[int] = None, *,
+                  device=None) -> MxuResult:
     """All-points (or external-``queries``) kNN through the brute route.
 
     ``points`` is (n, d) for any d >= 1.  ``scorer`` picks the selection:
@@ -152,7 +156,20 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     tier's one-block kernel where its launch gate takes (d, k, m) and
     otherwise the split selection (``backend='cuda_split'``), as the
     reference sends the shapes its kernel does not hold to its XLA
-    twin."""
+    twin.
+
+    The parameters are the reference's, in its order.  ``interpret``
+    takes only False: True (the reference's Pallas interpret mode) raises
+    ``InvalidConfigError``, as ``KnnConfig`` refuses it.  ``query_chunk``
+    (None or <= 0: one selection launch) splits the queries into chunks
+    of that many rows, one launch each; every row's selection depends on
+    its own query alone, so the answer is byte-identical to the unchunked
+    one."""
+    if interpret:
+        raise InvalidConfigError(
+            "interpret=True is the reference's Pallas interpret mode; the "
+            "port has no interpret mode (CPU tensors run the selection's "
+            "plain version): pass interpret=False")
     if refine not in ("brute", "none"):
         raise InvalidConfigError(
             f"unknown refine {refine!r}: 'brute' or 'none'")
@@ -207,15 +224,23 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     m = per_block_m(recall_target, k, g)
     bound = recall_bound(k, g, m)
     qid, pts_il, cid_il = select_inputs(points, m_q, exclude_self)
-    args = (q_dev, dispatch.stage(qid, device),
-            dispatch.stage(pts_il, device), dispatch.stage(cid_il, device),
-            k, m, d, exclude_self, precision)
+    qid_dev = dispatch.stage(qid, device)
+    cands = (dispatch.stage(pts_il, device), dispatch.stage(cid_il, device),
+             k, m, d, exclude_self, precision)
+    step = (int(query_chunk) if query_chunk is not None
+            and int(query_chunk) > 0 else m_q)
     fault = parse_fault()
-    if fault is None:
-        backend, (sel_i, _sel_s, cert_d) = kernel.select_routed(*args)
-    else:
-        backend = "plain"
-        sel_i, _sel_s, cert_d = select_plain(*args, fault=fault)
+    parts = []
+    with annotate("kntpu:mxu-select"):
+        for r0 in range(0, m_q, step):
+            args = (q_dev[r0:r0 + step], qid_dev[r0:r0 + step], *cands)
+            if fault is None:
+                backend, part = kernel.select_routed(*args)
+            else:
+                backend, part = "plain", select_plain(*args, fault=fault)
+            parts.append(part)
+    sel_i = torch.cat([p[0] for p in parts])
+    cert_d = torch.cat([p[2] for p in parts])
 
     ids_sel, cert = dispatch.fetch(sel_i, cert_d)
     ids, d2 = _host_rescore(points, queries_v, ids_sel)
@@ -223,7 +248,8 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     n_unc = int((~cert).sum())
     if refine == "brute" and n_unc:
         bad = np.nonzero(~cert)[0].astype(np.int32)
-        (b_i,) = dispatch.fetch(brute(bad))
+        with annotate("kntpu:mxu-refine"):
+            (b_i,) = dispatch.fetch(brute(bad))
         ids[bad], d2[bad] = _host_rescore(points, queries_v[bad], b_i)
         cert[bad] = True
     return MxuResult(neighbors=ids, dists_sq=d2, certified=cert,

@@ -9,7 +9,9 @@ process each.  Any build or load failure raises :class:`KernelBuildError`.
 Nothing here runs at import time.  :data:`builds` and :data:`loads` count
 the ``nvcc`` builds that succeeded and the libraries loaded in this
 process: the serving daemon's "recompiles" are their sum inside its
-measured window.
+measured window.  Each library loaded is registered in
+``obs.attribution.MODULE_REGISTRY``, with the seconds ``nvcc`` took where
+this process built it, so a captured kernel resolves to its library.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ..obs.attribution import register_executable
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -111,9 +116,11 @@ def load_all(names) -> list:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             started.append((name, out, tmp, cmd, proc))
-        failed = []
+        t0 = time.perf_counter()
+        failed, build_s = [], {}
         for name, out, tmp, cmd, proc in started:
             BUILD_LOGS[name] = proc.communicate()[0]
+            build_s[name] = time.perf_counter() - t0
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed on {name}.cu (rc "
@@ -132,4 +139,6 @@ def load_all(names) -> list:
                 except OSError as e:
                     raise KernelBuildError(f"cannot load {path}: {e}") from e
                 loads += 1
+                register_executable(name, label=f"csrc/{name}.cu",
+                                    compile_s=build_s.get(name))
         return [_LIBS[name] for name in names]

@@ -62,8 +62,10 @@ import torch
 from ..config import (KnnConfig, blocked_topm, default_ring_radius,
                       resolve_kernel)
 from ..mxu.scorer import class_eligible, class_rows_chunk, grid_class_topk
+from ..obs import spans as _spans
 from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
+from ..utils.profiling import annotate
 from .cuda_solve import (_PAD_Q, ClassPack, hbm_budget_bytes, launch_class,
                          pack_bytes, pack_inputs, pick_q_tile)
 from .gridhash import GridHash, cell_coords_host
@@ -672,10 +674,17 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
     k = cfg.k
-    if cfg.resolved_epilogue() == "gather":
-        out_d, out_i = _gather_classes(grid, cfg, plan)
-    else:
-        out_d, out_i = scatter_rows(grid, cfg, plan.classes, plan.n_points)
+    # named profiler scope: the class launches show as one labelled region
+    # in torch.profiler traces; the span carries the phase into the
+    # kntpu-trace timeline
+    with _spans.span("solve.adaptive.launch", n=plan.n_points,
+                     classes=len(plan.classes)), \
+            annotate("kntpu:adaptive-solve"):
+        if cfg.resolved_epilogue() == "gather":
+            out_d, out_i = _gather_classes(grid, cfg, plan)
+        else:
+            out_d, out_i = scatter_rows(grid, cfg, plan.classes,
+                                        plan.n_points)
     lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
     hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
     cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)

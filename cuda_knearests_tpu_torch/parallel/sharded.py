@@ -592,6 +592,17 @@ def _resolve_mesh(n_devices: Optional[int], mesh, devices) -> List[Slab]:
     return [Slab(0, torch.device("cuda", i)) for i in range(n)]
 
 
+def round_robin_devices(device, n_slabs: int) -> List[str]:
+    """``devices=`` for ``n_slabs`` slabs from one resolved ``device``: on
+    CUDA slab i on card i mod the card count (one card: ``cuda:0``
+    repeated), else ``device`` repeated."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [str(device)] * n_slabs
+    cards = torch.cuda.device_count()
+    return [f"cuda:{i % cards}" for i in range(n_slabs)]
+
+
 @dataclasses.dataclass
 class ShardedKnnProblem:
     """One prepared problem over a mesh of slabs: the multi-device twin of

@@ -15,6 +15,10 @@ The counters also carry the bytes each direction moved (``d2h_bytes``,
 caller holds open.  :func:`kernel_stats` reads the kernel counters:
 builds and library loads (``ops/_build``) and class-kernel launches
 (``ops/cuda_solve``).
+
+``python -m cuda_knearests_tpu_torch.runtime.dispatch [--device cpu]``
+runs the sync-budget smoke (:func:`_smoke`): six solve and query routes on
+a small fixture, each within :data:`SYNC_BUDGET` host round trips.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ class DispatchStats:
     h2d_bytes: int = 0
     ici_bytes: int = 0
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 _STATS = DispatchStats()
 _STATS_LOCK = threading.Lock()
@@ -73,7 +80,7 @@ def stats() -> DispatchStats:
 
 def stats_dict() -> dict:
     """The current window's counters as a plain dict."""
-    return dataclasses.asdict(stats())
+    return stats().as_dict()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,3 +205,87 @@ def stage(array: np.ndarray, device: torch.device) -> torch.Tensor:
         with _spans.span("dispatch.stage", nbytes=int(arr.nbytes)):
             return torch.as_tensor(arr).to(device, non_blocking=True)
     return torch.as_tensor(arr).to(device, non_blocking=True)
+
+
+# -- the sync-budget smoke ----------------------------------------------------
+
+def _smoke(n: int = 4000, budget: int = SYNC_BUDGET, device=None) -> int:
+    """Run the six solve and query routes on a small fixture on ``device``
+    (default: the GPU) and hold each to the sync budget: the adaptive
+    solve, the legacy pack solve, adaptive and chunked external queries,
+    and the sharded solve and query over two slabs (two cards where there
+    are two, else ``cuda:0`` twice; ``cpu`` twice on the CPU).  One JSON
+    line a route; returns 0 iff every route kept the budget."""
+    import json
+
+    from .. import KnnConfig, KnnProblem
+    from ..io import generate_uniform
+    from ..parallel.sharded import ShardedKnnProblem, round_robin_devices
+    from ..utils.platform import resolve_device
+
+    device = resolve_device(device)
+    slabs = round_robin_devices(device, 2)
+    points = generate_uniform(n, seed=5)
+    queries = generate_uniform(max(256, n // 16), seed=6)
+    rc = 0
+
+    def row(route: str, run) -> None:
+        nonlocal rc
+        reset_stats()
+        run()
+        s = stats()
+        ok = s.host_syncs <= budget
+        rc |= 0 if ok else 1
+        print(json.dumps({"route": route, "budget": budget, "ok": ok,
+                          "device": str(device), **s.as_dict()}),
+              flush=True)
+
+    p_a = KnnProblem.prepare(points, KnnConfig(k=8), device=device)
+    row("adaptive-solve", p_a.solve)
+    p_l = KnnProblem.prepare(points, KnnConfig(k=8, adaptive=False),
+                             device=device)
+    row("legacy-pack-solve", p_l.solve)
+    row("external-query[adaptive]", lambda: p_a.query(queries))
+    p_c = KnnProblem.prepare(points, KnnConfig(
+        k=8, adaptive=False, query_chunk=128), device=device)
+    row("external-query[chunked]", lambda: p_c.query(queries))
+    sp = ShardedKnnProblem.prepare(points, config=KnnConfig(k=8),
+                                   devices=slabs)
+    print(json.dumps({"sharded_slabs": slabs}), flush=True)
+    row("sharded-solve", sp.solve)
+    row("sharded-query", lambda: sp.query(queries))
+    return rc
+
+
+def _main(argv=None) -> int:
+    import argparse
+    import json
+
+    from ..utils.memory import NoDeviceError
+
+    ap = argparse.ArgumentParser(
+        prog="python -m cuda_knearests_tpu_torch.runtime.dispatch",
+        description="the sync-budget smoke: the six routes, each within "
+                    "SYNC_BUDGET host round trips")
+    ap.add_argument("--n", type=int, default=4000)
+    ap.add_argument("--budget", type=int, default=SYNC_BUDGET)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' to run on "
+                         "the CPU)")
+    args = ap.parse_args(argv)
+    try:
+        return _smoke(args.n, args.budget, device=args.device)
+    except NoDeviceError as e:
+        print(json.dumps({"ok": False, "error": str(e),
+                          "failure_kind": e.kind}), flush=True)
+        return 4
+
+
+if __name__ == "__main__":
+    # `python -m` runs this file as `__main__`, a different module object
+    # from the `cuda_knearests_tpu_torch.runtime.dispatch` the engine
+    # imports: run the canonical module's smoke, whose counters the
+    # routes increment
+    from cuda_knearests_tpu_torch.runtime.dispatch import _main as _canonical
+
+    sys.exit(_canonical())

@@ -25,6 +25,8 @@ The grid route's MXU class scorer (``mxu.scorer.grid_class_topk``, plain
 torch) equals its CPU run bit for bit too, NaN flags included.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1703,3 +1705,92 @@ def test_gpu_chaos_case_equals_cpu(cuda_device):
     assert cs.launches > before
     assert got["verdicts"] == [None, None], got
     assert got["difference"] is None and got["queries"] > 0, got
+
+
+@pytest.mark.cuda
+def test_gpu_cli_equals_cpu_cli_20k(cuda_device, tmp_path, capsys):
+    """``python -m cuda_knearests_tpu_torch.cli`` at 20k on the card: rc 0,
+    no hard mismatch against the kd-tree, the card as its platform, and
+    its rows equal the same command's rows on the CPU bit for bit."""
+    from cuda_knearests_tpu_torch import cli
+    from cuda_knearests_tpu_torch.io import get_dataset, save_xyz
+
+    path = str(tmp_path / "pts20K.xyz")
+    save_xyz(path, get_dataset("pts20K.xyz"))
+    rows, lines = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.npz")
+        argv = [path, "--k", "10", "--json", "--save", out]
+        before = cs.launches
+        assert cli.main(argv + (["--device", "cpu"] if dev == "cpu"
+                                else [])) == 0
+        if dev == "cuda":
+            assert cs.launches > before
+        lines[dev] = json.loads(capsys.readouterr().out.strip()
+                                .splitlines()[-1])
+        rows[dev] = np.load(out)
+    assert lines["cuda"]["platform"] == torch.cuda.get_device_name(0)
+    assert lines["cuda"]["hard"] == 0 == lines["cpu"]["hard"]
+    for key in ("neighbors", "dists_sq"):
+        assert rows["cuda"][key].tobytes() == rows["cpu"][key].tobytes()
+
+
+@pytest.mark.cuda
+def test_gpu_capture_joins_every_class_kernel_by_correlation(cuda_device):
+    """A captured 200k solve: every ``supercell_topk`` event attributed at
+    its launch (joined by correlation id) inside the adaptive-solve scope,
+    one a class, none unattributed; the memory verdict read from the
+    allocator."""
+    from cuda_knearests_tpu_torch.obs import device as dv
+
+    prob = pt.KnnProblem.prepare(generate_blue_noise(200_000, seed=21),
+                                 pt.KnnConfig(k=10), device=cuda_device)
+    prob.solve()
+    rep = dv.profile_window(prob.solve, device=cuda_device,
+                            hbm_model_bytes=dv.problem_hbm_model(prob))
+    assert not rep.unattributed
+    topk = [a for a in rep.attributed if a.event.module == "supercell_topk"]
+    assert len(topk) == len(prob.aplan.classes)
+    assert all(a.joined == "correlation" for a in topk)
+    assert all(a.scope == "kntpu:adaptive-solve" for a in topk)
+    assert rep.decomposition["modules"]["supercell_topk"]["label"] == \
+        "csrc/supercell_topk.cu"
+    assert rep.hbm["hbm_measured_source"] == "cuda_allocator"
+    assert rep.hbm["hbm_model_ok"] is True, rep.hbm
+
+
+@pytest.mark.cuda
+def test_gpu_hbm_model_dominates_300k_k50(cuda_device):
+    """``obs.device.problem_hbm_model`` dominates the allocator's measured
+    growth over a warm 300k/k=50 solve (the preflight's headroom)."""
+    from cuda_knearests_tpu_torch.obs import device as dv
+
+    prob = pt.KnnProblem.prepare(generate_blue_noise(300_000, seed=301),
+                                 pt.KnnConfig(k=50), device=cuda_device)
+    prob.solve()
+    model = dv.problem_hbm_model(prob)
+    rep = dv.profile_window(prob.solve, device=cuda_device,
+                            hbm_model_bytes=model)
+    hbm = rep.hbm
+    assert hbm["hbm_measured_source"] == "cuda_allocator"
+    assert 0 < hbm["hbm_window_delta_bytes"] <= model * dv.HBM_MODEL_HEADROOM
+    assert hbm["hbm_model_ok"] is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_gpu_solve_general_query_chunk_changes_no_byte(cuda_device,
+                                                       precision):
+    """``solve_general(query_chunk=...)`` launches the selection a chunk
+    at a time on the card and answers byte for byte as one launch does,
+    certificates included, at a recall target below 1 and unrefined."""
+    x = np.random.default_rng(5).random((20_000, 3)).astype(np.float32)
+    kw = dict(k=10, recall_target=0.8, refine="none", precision=precision,
+              device=cuda_device)
+    one = mxu.solve_general(x, **kw)
+    before = mk.launches + mk.launches_bf16
+    got = mxu.solve_general(x, query_chunk=3000, **kw)
+    assert mk.launches + mk.launches_bf16 - before == 7
+    assert got.neighbors.tobytes() == one.neighbors.tobytes()
+    assert got.dists_sq.tobytes() == one.dists_sq.tobytes()
+    assert np.array_equal(got.certified, one.certified)

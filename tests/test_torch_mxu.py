@@ -351,10 +351,15 @@ def test_refusals_match_jax(kw):
 
 
 def test_reference_only_knobs_are_not_parameters():
+    """The reference's runtime knobs are parameters now, in its order:
+    ``interpret=True`` (Pallas interpret mode) is refused with
+    ``InvalidConfigError``, as ``KnnConfig`` refuses it, and
+    ``query_chunk`` splits the selection without changing a byte."""
     pts = generate_blue_noise(200, seed=1)
-    for kw in (dict(interpret=True), dict(query_chunk=64)):
-        with pytest.raises(TypeError):
-            pmxu.solve_general(pts, k=4, device=CPU, **kw)
+    with pytest.raises(pmem.InvalidConfigError, match="interpret"):
+        pmxu.solve_general(pts, k=4, device=CPU, interpret=True)
+    _byte_equal(pmxu.solve_general(pts, k=4, device=CPU, query_chunk=64),
+                pmxu.solve_general(pts, k=4, device=CPU))
 
 
 def test_queries_width_mismatch_is_refused():
