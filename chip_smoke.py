@@ -269,6 +269,38 @@ H100: the kernels target sm_90a).  It imports only the port
      from the allocator, the merged trace written) and ``python -m
      cuda_knearests_tpu_torch.runtime.dispatch`` (rc 0: six routes, each
      within two host round trips, the sharded ones on cuda:0 twice);
+ 10i. (run after 10h: a tuner trial resets the dispatch counters) the
+     measured-cost autotuner and the tuned-plan seam on the card: (a)
+     ``python -m cuda_knearests_tpu_torch.tune --n 20000 --d 3 --k 10 --rt
+     1.0 --capture --store ...`` in a process of its own: rc 0, 7 plans
+     raced, every row within the sync budget, at least one on captured
+     device time, every wall-time row stamped with its capture's refusal,
+     every 'mxu' row on the selection kernel ('cuda'), the card's name as
+     the key; the same command again races nothing (one store hit); the
+     winner's knobs solve the same cloud, every row exact against
+     cKDTree; (b) the brute route at TUNE_WIDE_N x 128 (k=10, recall 0.9):
+     all 6 plans, --repeats 1, --capture, in a process of its own, each
+     plan's wall and device time, the winner and each selection tier's
+     launches printed; while (a)'s second run goes on, in this process,
+     each race's selection launches held at its shapes: each tier at query_chunk
+     None, 128 and 512, the chunked answers byte-equal to the one
+     launch's, the one launch on 1,024 queries against select_plain (f32
+     equal, bf16 within its contract); (c) on the 900k/k=10 cube, plan {'epilogue':
+     'gather'} through KNTPU_TUNE_STORE under the card's key, prepared
+     with the default config: mode (b), byte-equal to the untuned rows;
+     with plan {'precision': 'bf16', 'query_chunk': 128} an explicit
+     precision kept (mode (a), rows equal); the class kernel's modes
+     counted from 0 over these prepares; a plan keyed 'cpu' not
+     resolved; the config object returned with no store; then the bf16
+     plan on TUNE_SEAM_N blue noise (every row of a bf16 exact-tier solve
+     goes to the exact fallback, 95.2 s at 900k): the single-device
+     prepare on the grid MXU tier, byte-equal to the untuned rows, and
+     the sharded (4 slabs) and pod (4 chips) prepares on cuda:0, ids and
+     certificates equal to the untuned rows, d2 byte for byte on every
+     row the tier certified (the kd-tree resolves the rest, within the
+     tie band); (d) the tune CLI with no visible card (rc 4) and a store
+     of another schema refused (``StaleTuneStoreError``); (e) the phase's
+     seconds and the smoke's so far;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -6469,6 +6501,550 @@ def cli_obs_phase(prob10, topk_ms: float) -> dict:
     return out
 
 
+# -- phase 10i: the measured-cost autotuner and the tuned-plan seam ----------
+
+# (a) the reference CLI's own signature; (b) the brute route at
+# sift-128-euclidean's width (PERF.md section 4 brute cell (ii)), n cut
+# from 100,000 (one solve of every plan took 56.4 s there, 21.6 s at
+# 50,000, scripts/torch_tune_sizing.py: a race of 3 solves a plan would
+# pass the phase's 120 s); (c)
+# the cloud of the bf16 plan's single-device, sharded and pod prepares
+TUNE_SIG_ARGS = ["--n", "20000", "--d", "3", "--k", "10", "--rt", "1.0"]
+TUNE_WIDE_N = 25_000
+TUNE_SEAM_N = 200_000
+# the tune CLI's main, then this process's kernel launches as one line
+TUNE_WITH_LAUNCHES = (
+    "import json, sys\n"
+    "from cuda_knearests_tpu_torch.tune.__main__ import main\n"
+    "from cuda_knearests_tpu_torch.runtime import dispatch\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'kind': 'tune-launches', "
+    "**dispatch.kernel_launches()}), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def tune_process(argv: list, launches: bool = False, env: dict = None,
+                 timeout: float = 300.0):
+    """``python -m cuda_knearests_tpu_torch.tune <argv>`` in a process of
+    its own (with ``launches``: the same ``main`` through
+    :data:`TUNE_WITH_LAUNCHES`), killed past ``timeout``; (rc, {kind:
+    [lines]}, output, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-c", TUNE_WITH_LAUNCHES] if launches else
+           [sys.executable, "-m", "cuda_knearests_tpu_torch.tune"])
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd + argv, capture_output=True, text=True, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root, **(env or {})),
+                       timeout=timeout)
+    return r.returncode, tune_lines(r.stdout), r.stdout + r.stderr, \
+        time.perf_counter() - t0
+
+
+def tune_lines(out: str) -> dict:
+    """The tune CLI's JSON lines in ``out``: {kind: [lines]}."""
+    lines = {}
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            row = json.loads(ln)
+            lines.setdefault(row.get("kind"), []).append(row)
+    return lines
+
+
+def check_race(what: str, rc: int, lines: dict, out: str, n_plans: int,
+               card: str) -> tuple:
+    """A first race's checks: rc 0, ``n_plans`` raced, every row within
+    the sync budget, the 'mxu' rows on the selection kernel, every wall
+    row stamped with its capture's refusal, the card's name as the key;
+    (trials, winner, meta)."""
+    require(rc == 0 and "tune-meta" in lines,
+            f"{what}: rc {rc}, output {out[-3000:]}")
+    trials = lines.get("tune-trial", [])
+    winner, meta = lines["tune-winner"][0], lines["tune-meta"][0]
+    require(meta["searched"] == len(trials) == n_plans
+            and meta["store_hit"] is False and meta["device_kind"] == card,
+            f"{what}: meta {meta}, {len(trials)} rows")
+    require(all(t["sync_bound_ok"] for t in trials),
+            f"{what}: a trial passed the sync budget {trials}")
+    require(all(t["backend"] == "cuda" for t in trials
+                if t["scorer"] == "mxu"),
+            f"{what}: an 'mxu' trial did not run the selection kernel "
+            f"{[t['backend'] for t in trials]}")
+    require(all("device_capture_skipped" in t for t in trials
+                if t["objective_source"] == "wall"),
+            f"{what}: a wall-time row without its capture's refusal")
+    for t in trials:
+        dev = t.get("device_total_ms")
+        device = f"{dev:.4f} ms" if dev else "not captured"
+        source = t["objective_source"]
+        if "device_capture_skipped" in t:
+            source += "; " + t["device_capture_skipped"][:120]
+        print(f"    {t['scorer']} {t['precision']} query_chunk "
+              f"{t.get('query_chunk')}: wall {t['wall_s'] * 1e3:.3f} ms, "
+              f"device {device} ({source}), uncertified "
+              f"{t['uncert_count']}, bound {t['bound']}", flush=True)
+    print(f"    winner {json.dumps(winner)}", flush=True)
+    return trials, winner, meta
+
+
+def tune_signature(tmp: str, card: str, no_card, meanwhile) -> dict:
+    """Phase 10i (a) and (d)'s CLI refusal: the reference CLI's signature
+    (20,000 x 3, k=10, exact) raced with --capture in a process of its
+    own, every plan; the second run races nothing and hits the store; the
+    winner's knobs then solve the same cloud, every row exact against
+    cKDTree, and the race's selection launches are held in this process
+    while the second run goes on, as is ``meanwhile()`` (its result under
+    "meanwhile").  ``no_card`` is the CLI started with no visible card,
+    which runs meanwhile too."""
+    from scipy.spatial import cKDTree
+
+    from cuda_knearests_tpu_torch import mxu
+
+    argv = TUNE_SIG_ARGS + ["--capture", "--store",
+                            os.path.join(tmp, "plans.json")]
+    rc, lines, out, sec = tune_process(argv)
+    trials, winner, meta = check_race("tune (a)", rc, lines, out, 7, card)
+    sources = [t["objective_source"] for t in trials]
+    require("device" in sources, f"tune (a): no captured row {sources}")
+    print(f"  (a) 20,000 x 3, k=10, exact: {len(trials)} plans in {sec:.1f} s,"
+          f" {sources.count('device')} rows on device time, "
+          f"{sources.count('wall')} on wall time; the winner by "
+          f"{winner['objective_source']} time", flush=True)
+    # the second run races nothing, so it runs beside this process's checks
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_second = time.perf_counter()
+    procs = dict(no_card, **_start_commands(
+        {"tune_second": (argv, "tune", {})}, root))
+    # the CLI's fixture, then the winner's knobs on the card
+    n = int(TUNE_SIG_ARGS[1])
+    pts = (np.random.default_rng(0).random((n, 3)) * 1000.0).astype(
+        np.float32)
+    res = mxu.solve_general(pts, k=10, recall_target=1.0, refine="brute",
+                            scorer=winner["scorer"],
+                            precision=winner["precision"],
+                            query_chunk=winner.get("query_chunk"), device=DEV)
+    tree = cKDTree(pts.astype(np.float64))
+    check_exact(pts, res.neighbors, np.arange(n), 10, tree)
+    print(f"      the winner's solve: every row of {n} exact against "
+          f"cKDTree (backend {res.backend}, {res.uncert_count} rows "
+          f"refined)", flush=True)
+    rows = np.sort(np.random.default_rng(1).permutation(n)[:1024])
+    held = tune_selections("(a)", pts, 10, 1.0, rows,
+                           tree_reference(pts, rows, 10, tree))
+    other = meanwhile()
+    texts, rcs = _finish_commands(procs)
+    sec2 = time.perf_counter() - t_second
+    lines2 = tune_lines(texts["tune_second"])
+    meta2 = lines2.get("tune-meta", [{}])[0]
+    require(rcs["tune_second"] == 0 and meta2.get("searched") == 0
+            and meta2.get("tune_store_hits") == 1
+            and lines2["tune-winner"][0] == winner,
+            f"tune (a), second run: rc {rcs['tune_second']}, meta {meta2}")
+    print(f"      second run: searched 0, store hits 1 (done "
+          f"{sec2:.1f} s after its start, beside the checks above)",
+          flush=True)
+    refusal = _json_tail(texts["tune_no_card"])
+    require(rcs["tune_no_card"] == 4
+            and refusal.get("failure_kind") == "no-device",
+            f"tune with no visible card: rc {rcs['tune_no_card']}, {refusal}")
+    return {"trials": trials, "winner": winner, "meta": meta,
+            "second_meta": meta2, "s": round(sec, 1), "second_s": round(sec2, 1),
+            "device_rows": sources.count("device"),
+            "wall_rows": sources.count("wall"), "no_card": refusal,
+            "held": held, "meanwhile": other}
+
+
+def tune_wide(tmp: str, card: str) -> dict:
+    """Phase 10i (b): the brute route at full width, TUNE_WIDE_N x 128,
+    k=10, recall_target 0.9: all 6 plans, --repeats 1, --capture, in a
+    process of its own; each plan's wall and device time, the winner and
+    each selection tier's launches in that process."""
+    argv = ["--n", str(TUNE_WIDE_N), "--d", "128", "--k", "10", "--rt",
+            "0.9", "--repeats", "1", "--capture", "--store",
+            os.path.join(tmp, "wide.json")]
+    rc, lines, out, sec = tune_process(argv, launches=True)
+    trials, winner, meta = check_race("tune (b)", rc, lines, out, 6, card)
+    launched = lines.get("tune-launches", [{}])[0]
+    require(launched.get("mxu_select", 0) > 0
+            and launched.get("mxu_select_bf16", 0) > 0,
+            f"tune (b): a selection tier never launched {launched}")
+    print(f"  (b) {TUNE_WIDE_N:,} x 128, k=10, recall 0.9: 6 plans in "
+          f"{sec:.1f} s; selection launches in the race: f32 "
+          f"{launched['mxu_select']}, bf16 {launched['mxu_select_bf16']}, "
+          f"split {launched.get('mxu_select_split')}", flush=True)
+    return {"n": TUNE_WIDE_N, "trials": trials, "winner": winner,
+            "meta": meta, "s": round(sec, 1), "launches": launched}
+
+
+def tune_wide_held() -> dict:
+    """Phase 10i (b)'s selection launches held in this process, at the
+    race's shapes on the CLI's fixture (--seed 0)."""
+    gen = np.random.default_rng(0)
+    pts = (gen.random((TUNE_WIDE_N, 128)) * 1000.0).astype(np.float32)
+    rows = np.sort(np.random.default_rng(1).permutation(TUNE_WIDE_N)[:1024])
+    return tune_selections("(b)", pts, 10, 0.9, rows,
+                           brute_reference(pts, rows, 10))
+
+
+def tune_selections(label: str, points: np.ndarray, k: int, rt: float,
+                    rows: np.ndarray, ref) -> dict:
+    """The race's selection launches held in this process: for each tier,
+    ``mxu.solve_general`` (refine='none') at the race's (k, rt) with
+    query_chunk None, 128 and 512, the selection's outputs kept per
+    launch; every launch on the tier's kernel, one a chunk; the chunked
+    answers (the selection's ids, scores and certificates, and the rows)
+    byte-equal to the one launch's; the one launch's selection on the
+    1,024 ``rows`` against select_plain on the same queries at phase 5's
+    tolerance (f32 equal, bf16 within its contract), its certified rows
+    exact against ``ref``.  {tier: largest |score difference|}."""
+    import torch
+
+    from cuda_knearests_tpu_torch import mxu
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.mxu import scorer as ms
+    from cuda_knearests_tpu_torch.mxu import solve as msolve
+    from cuda_knearests_tpu_torch.mxu.measure import row_hits
+    from cuda_knearests_tpu_torch.mxu.solve import select_inputs
+
+    n, d = points.shape
+    saved, parts = msolve.kernel, []
+
+    class Kept:
+        @staticmethod
+        def select_routed(*a, **kw):
+            route, out = saved.select_routed(*a, **kw)
+            parts.append((route, out))
+            return route, out
+
+    def as_bytes(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    qid, pts_il, cid_il = select_inputs(points, n, True)
+    p, cid = (torch.as_tensor(a, device=DEV) for a in (pts_il, cid_il))
+    sub = torch.as_tensor(rows[:1024], device=DEV).long()
+    qs = torch.as_tensor(points, device=DEV)[sub].contiguous()
+    qids = torch.as_tensor(qid, device=DEV)[sub].contiguous()
+    out = {}
+    for precision in ("f32", "bf16"):
+        what = f"tune {label} {precision}"
+        counter = "launches_bf16" if precision == "bf16" else "launches"
+        one = None
+        for chunk in (None, 128, 512):
+            parts.clear()
+            before = getattr(mk, counter)
+            msolve.kernel = Kept
+            try:
+                res = mxu.solve_general(points, k=k, recall_target=rt,
+                                        refine="none", precision=precision,
+                                        query_chunk=chunk, device=DEV)
+            finally:
+                msolve.kernel = saved
+            want_launches = -(-n // chunk) if chunk else 1
+            require(getattr(mk, counter) - before == want_launches
+                    == len(parts) and res.backend == "cuda"
+                    and all(r == "cuda" for r, _ in parts),
+                    f"{what} query_chunk {chunk}: {len(parts)} selections, "
+                    f"{getattr(mk, counter) - before} launches (want "
+                    f"{want_launches}), routes {set(r for r, _ in parts)}")
+            sel = [torch.cat([o[i] for _, o in parts]) for i in range(3)]
+            got = (sel, res.neighbors.tobytes(), res.dists_sq.tobytes(),
+                   res.certified.tobytes())
+            require(np.array_equal(sel[2].cpu().numpy(), res.certified),
+                    f"{what}: the rows' certificates are not the selection's")
+            if one is None:
+                one, m = got, res.m
+                continue
+            require(all(torch.equal(as_bytes(a), as_bytes(b))
+                        for a, b in zip(sel, one[0])) and got[1:] == one[1:],
+                    f"{what}: query_chunk {chunk} differs from one launch")
+        held = [t[sub] for t in one[0]]
+        plain = ms.select_plain(qs, qids, p, cid, k, m, d, True, precision)
+        if precision == "bf16":
+            *again, dump = mk._select_bf16_with_scores(qs, qids, p, cid, k,
+                                                       m, d, True)
+            require(all(torch.equal(as_bytes(a), as_bytes(b))
+                        for a, b in zip(again, held)),
+                    f"{what}: the sampled queries' launch differs from the "
+                    f"one launch's rows")
+            s_plain = torch.cat([ms.score_tile(qs[r0:r0 + 256], p, "bf16")
+                                 for r0 in range(0, sub.numel(), 256)])
+            err = bf16_contract(f"{what} one launch on 1,024 queries", held,
+                                plain, dump, s_plain, cid, ms.norms(qs),
+                                mk.prep_plain(p, cid)[3], d, False)[0]
+            del dump, s_plain
+        else:
+            err = require_equal(f"{what} one launch on 1,024 queries",
+                                (held[1], held[0], held[2]),
+                                (plain[1], plain[0], plain[2]))
+        cert = held[2].cpu().numpy()
+        hits = row_hits(points, held[0].cpu().numpy(), ref[0][:, -1],
+                        queries=points[rows[:1024]])
+        require(bool((hits[cert] == k).all()),
+                f"{what}: a certified sampled row is not exact")
+        out[precision] = err
+        print(f"      {label} held in this process, {precision}: query_chunk "
+              f"128 / 512 byte-equal to one launch (selection and rows); "
+              f"one launch on 1,024 queries "
+              f"{'within the contract of' if precision == 'bf16' else 'equal to'}"
+              f" select_plain (largest score difference {err:.6g}), "
+              f"{int(cert.sum())} certified rows exact", flush=True)
+    return out
+
+
+def _record(path: str, plans: dict) -> None:
+    """A store file at ``path`` holding ``plans`` ({(signature, device
+    kind): plan})."""
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    st = tstore.TunedPlanStore(path=path)
+    for (sig, kind), plan in plans.items():
+        st.record(sig, kind, plan)
+
+
+def _rows_of(prob) -> tuple:
+    return prob.get_knearests().tobytes(), prob.get_dists_sq().tobytes()
+
+
+def tuned_solve(name: str, points: np.ndarray, sig: str, plan: dict,
+                config, tmp: str, want: tuple, perm: np.ndarray) -> tuple:
+    """Prepare and solve ``points`` on the card with ``plan`` recorded
+    under (``sig``, the card's key) in a store that KNTPU_TUNE_STORE
+    activates; the rows must equal ``want`` (sorted-order ids and d2
+    bytes) under the permutation ``perm``.  (problem, summary)."""
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    path = os.path.join(tmp, f"{name}.json")
+    _record(path, {(sig, tstore.device_key(device=DEV)): plan})
+    os.environ["KNTPU_TUNE_STORE"] = path
+    try:
+        t0 = time.perf_counter()
+        prob = pt.KnnProblem.prepare(points, config, device=DEV)
+        res = prob.solve()   # ends in its readback
+        sec = time.perf_counter() - t0
+    finally:
+        os.environ.pop("KNTPU_TUNE_STORE")
+    require(np.array_equal(prob.get_permutation(), perm)
+            and _rows_of(prob) == want,
+            f"tuned prepare ({name}): rows differ from the untuned solve")
+    summary = {"config": {f: getattr(prob.config, f) for f in
+                          ("precision", "scorer", "epilogue", "query_chunk")},
+               "prepare_solve_s": round(sec, 3),
+               "uncert_count": int(res.uncert_count)}
+    print(f"  (c) tuned ({name}): config {json.dumps(summary['config'])}, "
+          f"rows byte-equal to the untuned solve; prepare + solve "
+          f"{summary['prepare_solve_s']} s, {summary['uncert_count']} rows "
+          f"refined", flush=True)
+    return prob, summary
+
+
+def tuned_grid(prob10, pts900: np.ndarray, tmp: str, card: str) -> dict:
+    """Phase 10i (c) on the 900k/k=10 cube, kernel counts zeroed before
+    and read after: plan {'epilogue': 'gather'} through KNTPU_TUNE_STORE
+    under the card's key, prepared with the default config, runs mode (b)
+    and answers the untuned rows byte for byte; with plan {'precision':
+    'bf16', 'query_chunk': 128} an explicit precision='f32' is kept (mode
+    (a), query_chunk filled, rows equal); a plan keyed 'cpu' does not
+    resolve here; without a store the config object comes back."""
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.runtime import dispatch
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    key = tstore.device_key(device=DEV)
+    sig = tstore.plan_signature(pts900.shape[0], 3, 10, 1.0)
+    require(key == card and sig == "n1048576-d3-k10-rt1",
+            f"tuned grid: key {key!r}, signature {sig}")
+    prob10.solve()
+    want, perm = _rows_of(prob10), prob10.get_permutation()
+    cfg = pt.KnnConfig(k=10)
+    out = {}
+    zero_kernel_counts()
+    prob, out["gather"] = tuned_solve("gather", pts900, sig,
+                                      {"epilogue": "gather"}, cfg, tmp,
+                                      want, perm)
+    require(prob.config.epilogue == "gather", f"tuned grid: {prob.config}")
+    prob, out["explicit_f32"] = tuned_solve(
+        "explicit_f32", pts900, sig, {"precision": "bf16",
+                                      "query_chunk": 128},
+        pt.KnnConfig(k=10, precision="f32"), tmp, want, perm)
+    require(prob.config.precision == "f32" and prob.config.query_chunk == 128,
+            f"tuned grid: an explicit precision was overridden {prob.config}")
+    del prob
+    launched = kernel_counts()
+    require(launched["supercell_topk"] > 0
+            and launched["supercell_topk_mode_b"] > 0,
+            f"tuned grid: the class kernel's modes were not both launched "
+            f"{launched}")
+    # a plan measured on the CPU never resolves on the card
+    path = os.path.join(tmp, "cpu.json")
+    _record(path, {(sig, "cpu"): {"precision": "bf16"}})
+    os.environ["KNTPU_TUNE_STORE"] = path
+    try:
+        require(pt.KnnProblem.prepare(pts900, cfg, device=DEV).config is cfg,
+                "a 'cpu' plan resolved on the card")
+        out["tuned_plan_stats"] = dispatch.tuned_plan_stats()
+    finally:
+        os.environ.pop("KNTPU_TUNE_STORE")
+    require(out["tuned_plan_stats"].get("tune_store_misses") == 1,
+            f"the 'cpu' plan's lookup: {out['tuned_plan_stats']}")
+    tstore.set_default_store(None)
+    require(pt.KnnProblem.prepare(pts900, cfg, device=DEV).config is cfg
+            and dispatch.tuned_plan_stats() == {},
+            "with no store active the config object changed")
+    out["launches"] = launched
+    print(f"      900k/k=10 launches {json.dumps(launched)}; a 'cpu' plan "
+          f"did not resolve; no store: the same config object", flush=True)
+    return out
+
+
+def tuned_bf16(tmp: str) -> dict:
+    """Phase 10i (c), plan {'precision': 'bf16', 'query_chunk': 128} on a
+    TUNE_SEAM_N blue-noise cloud (cut from the 900k cube: at recall 1.0
+    the bf16 band leaves every row open, and the exact fallback of 900k
+    rows took 95.2 s, scripts/torch_tune_sizing.py): the single-device prepare takes the grid MXU tier
+    and answers the untuned rows byte for byte; the sharded (4 slabs) and
+    pod (4 chips) prepares on cuda:0 apply the plan, ids and certificates
+    equal to the untuned rows, d2 byte for byte on every row the tier
+    certified; the rows it left open the host kd-tree resolves, an ulp
+    from the grid's d2 at most (held tie-aware, their count printed)."""
+    import cuda_knearests_tpu_torch as pt
+    from cuda_knearests_tpu_torch.io import generate_blue_noise
+    from cuda_knearests_tpu_torch.parallel import ShardedKnnProblem
+    from cuda_knearests_tpu_torch.pod import PodKnnProblem
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    pts = generate_blue_noise(TUNE_SEAM_N, seed=TUNE_SEAM_N)
+    cfg = pt.KnnConfig(k=10)
+    sig = tstore.plan_signature(TUNE_SEAM_N, 3, 10, 1.0)
+    plan = {"precision": "bf16", "query_chunk": 128}
+    base = pt.KnnProblem.prepare(pts, cfg, device=DEV)
+    base.solve()
+    prob, out = tuned_solve("bf16", pts, sig, plan, cfg, tmp,
+                            _rows_of(base), base.get_permutation())
+    require(prob.config.precision == "bf16"
+            and prob.config.query_chunk == 128
+            and prob.config.resolved_scorer() == "mxu",
+            f"tuned bf16: config {prob.config}")
+    out = {"single": out}
+    del base, prob
+    path = os.path.join(tmp, "bf16.json")   # the store tuned_solve wrote
+    makers = {
+        "sharded": lambda: ShardedKnnProblem.prepare(
+            pts, config=cfg, devices=["cuda:0"] * 4),
+        "pod": lambda: PodKnnProblem.prepare(pts, config=cfg,
+                                             mesh=["cuda:0"] * 4)}
+    for name, make in makers.items():
+        base = make()
+        require(base.config is cfg, f"tuned {name}: untuned config changed")
+        want = base.solve()
+        del base
+        os.environ["KNTPU_TUNE_STORE"] = path
+        try:
+            t0 = time.perf_counter()
+            prob = make()
+            got = prob.solve()
+            sec = time.perf_counter() - t0
+        finally:
+            os.environ.pop("KNTPU_TUNE_STORE")
+        require(prob.config.precision == "bf16"
+                and prob.config.query_chunk == 128,
+                f"tuned {name}: the plan was not applied {prob.config}")
+        opened = np.asarray(prob.fallback_rows)
+        kept = np.ones(TUNE_SEAM_N, bool)
+        kept[opened] = False
+        require(bool(got[2].all()) and np.array_equal(got[2], want[2]),
+                f"tuned {name}: certificates differ")
+        sharded_rows_equal(f"tuned {name} (certified rows)", got, want,
+                           np.nonzero(kept)[0])
+        ties = rows_tie_aware_d2(f"tuned {name} (kd-tree rows)", pts, got,
+                                 want, opened)
+        out[name] = {"prepare_solve_s": round(sec, 3),
+                     "kd_tree_rows": int(opened.size),
+                     "rows_d2_off_by_ulps": ties}
+        print(f"  (c) tuned (bf16), {name} on cuda:0 x 4: plan applied; "
+              f"{opened.size} rows the tier left open, resolved by the "
+              f"kd-tree ({ties} of them an ulp off the grid's d2, ids "
+              f"equal), the rest byte-equal; prepare + solve {sec:.2f} s",
+              flush=True)
+    return out
+
+
+def rows_tie_aware_d2(what: str, pts: np.ndarray, got, want,
+                      rows: np.ndarray) -> int:
+    """Original-order rows on ``rows``: ids equal where d2 is, and d2
+    within the tie band (RTOL, ATOL) where not; the rows whose d2 differ
+    at all."""
+    if rows.size == 0:
+        return 0
+    off = rows[(got[1][rows] != want[1][rows]).any(axis=1)]
+    require(bool(np.allclose(got[1][rows], want[1][rows], rtol=RTOL,
+                             atol=ATOL)),
+            f"{what}: d2 outside the tie band")
+    same = np.setdiff1d(rows, off)
+    require(bool((got[0][same] == want[0][same]).all()),
+            f"{what}: ids differ on rows of equal d2")
+    q = pts[off].astype(np.float64)[:, None, :]
+    da = ((pts[got[0][off]].astype(np.float64) - q) ** 2).sum(-1)
+    db = ((pts[want[0][off]].astype(np.float64) - q) ** 2).sum(-1)
+    require(bool(np.allclose(np.sort(da, 1), np.sort(db, 1), rtol=RTOL,
+                             atol=ATOL)),
+            f"{what}: rows with other d2 are not the same neighbours")
+    return int(off.size)
+
+
+def tune_phase(prob10, pts900: np.ndarray) -> dict:
+    """Phase 10i, the measured-cost autotuner and the tuned-plan seam on
+    the card (after 10h: a trial resets the dispatch counters).  (a) and
+    (b) race in processes of their own (torch.profiler drops device events
+    in sessions late in a process); (d) the tune CLI with no visible card
+    (rc 4) meanwhile, and a store of another schema refused; the races'
+    selection launches held in this process while (a)'s second run goes
+    on, before (b)'s race; (c) the seam in this process."""
+    import tempfile
+
+    import torch
+
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-10i-")
+    out, seconds = {}, {}
+    try:
+        t0 = time.perf_counter()
+        no_card = _start_commands({"tune_no_card": (
+            TUNE_SIG_ARGS, "tune", {"CUDA_VISIBLE_DEVICES": ""})}, root)
+        out["signature"] = tune_signature(tmp, card, no_card,
+                                          tune_wide_held)
+        seconds["a"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        out["wide"] = tune_wide(tmp, card)
+        seconds["b"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        out["grid"] = tuned_grid(prob10, pts900, tmp, card)
+        seconds["c_grid"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        out["bf16"] = tuned_bf16(tmp)
+        seconds["c_bf16"] = round(time.perf_counter() - t0, 1)
+        stale = os.path.join(tmp, "stale.json")
+        with open(stale, "w") as f:
+            json.dump({"schema": "kntpu-tuned-plans-v0", "plans": {}}, f)
+        try:
+            tstore.TunedPlanStore(path=stale)
+            require(False, "a store of another schema was read")
+        except tstore.StaleTuneStoreError as e:
+            print(f"  (d) no visible card: rc 4; another schema refused "
+                  f"({str(e)[:100]}...)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("KNTPU_TUNE_STORE", None)
+    out["seconds"] = seconds
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  autotuner phase: {out['s']:.1f} s ({json.dumps(seconds)}); "
+          f"smoke so far {time.perf_counter() - _T0:.1f} s", flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -6621,6 +7197,15 @@ def main() -> int:
     phase("the CLI and device observability on the card")
     cli_obs = cli_obs_phase(prob10, timing["ms"])
 
+    phase("the measured-cost autotuner and the tuned-plan seam")
+    tuned = tune_phase(prob10, pts900)
+    seam, race = tuned["grid"]["launches"], tuned["wide"]["launches"]
+    for held in (tuned["signature"]["held"],
+                 tuned["signature"]["meanwhile"]):
+        max_err["mxu_select"] = max(max_err["mxu_select"], held["f32"])
+        max_err["mxu_select_bf16"] = max(max_err["mxu_select_bf16"],
+                                         held["bf16"])
+
     kernels = [
         dict(name="supercell_topk", route="cuda",
              source=CSRC + "supercell_topk.cu",
@@ -6628,7 +7213,8 @@ def main() -> int:
              launches=(launches + pod["overlay"]["launches"]
                        + elastic["launches"]
                        + fleet["mixed"]["launches"]["supercell_topk"]
-                       + cli_obs["launches"]["supercell_topk"]),
+                       + cli_obs["launches"]["supercell_topk"]
+                       + seam["supercell_topk"]),
              grid_main_path_launches=launches,
              max_abs_err=max(max_err["supercell_topk"], err10, err50,
                              sharded["main"]["slabs"][1]["max_abs_err"],
@@ -6674,7 +7260,8 @@ def main() -> int:
              mesh_child_launches=mesh_child["supercell_topk"],
              cli_obs_launches=cli_obs["launches"]["supercell_topk"],
              cli_launches=cli_obs["cli"]["launches"]["supercell_topk"],
-             captured_ms=cli_obs["capture"]["supercell_topk_ms"]),
+             captured_ms=cli_obs["capture"]["supercell_topk_ms"],
+             tune_seam_launches=seam["supercell_topk"]),
         dict(name="blocked_topk", route="cuda",
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
@@ -6694,7 +7281,9 @@ def main() -> int:
         dict(name="supercell_topk_mode_b", route="cuda",
              source=CSRC + "supercell_topk.cu",
              replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
-             launches=legacy["launches_b"],
+             launches=legacy["launches_b"] + seam["supercell_topk_mode_b"],
+             legacy_launches=legacy["launches_b"],
+             tune_seam_launches=seam["supercell_topk_mode_b"],
              max_abs_err=legacy["max_abs_err"],
              shape="900k/k=10 legacy pack", **legacy["mode_b"],
              fuzz_launches=fuzzed["launches"]["supercell_topk_mode_b"],
@@ -6714,7 +7303,9 @@ def main() -> int:
              mesh_child_launches=mesh_child["blocked_topk_mode_b"]),
         dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
-             launches=select_launches["f32"],
+             launches=select_launches["f32"] + race["mxu_select"],
+             brute_launches=select_launches["f32"],
+             tune_race_launches=race["mxu_select"],
              max_abs_err=max_err["mxu_select"], shape="100k x 128 f32",
              **select_timings["100k x 128 f32"],
              fuzz_launches=fuzzed["launches"]["mxu_select"],
@@ -6724,7 +7315,9 @@ def main() -> int:
         dict(name="mxu_select_bf16", route="cuda",
              source=CSRC + "mxu_select_bf16.cu",
              replaces=REPLACES["mxu_select_bf16"],
-             launches=select_launches["bf16"],
+             launches=select_launches["bf16"] + race["mxu_select_bf16"],
+             brute_launches=select_launches["bf16"],
+             tune_race_launches=race["mxu_select_bf16"],
              fleet_brownout_launches=fleet["autoscale"]["launches"][
                  "mxu_select_bf16"],
              fleet_launches=fleet["launches"]["mxu_select_bf16"],
@@ -6763,6 +7356,7 @@ def main() -> int:
     print(f"  fleet: {json.dumps(fleet)}", flush=True)
     print(f"  mesh and chaos: {json.dumps(mesh_chaos)}", flush=True)
     print(f"  CLI and observability: {json.dumps(cli_obs)}", flush=True)
+    print(f"  autotuner: {json.dumps(tuned)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -73,6 +73,26 @@ def _check_scorer_route(config: KnnConfig) -> None:
             f"for plan-free scoring")
 
 
+def _resolve_tuned_for(cfg: KnnConfig, points, device) -> KnnConfig:
+    """The tuned-plan seam of every prepare: ``config.resolve_tuned`` over
+    this problem's (n, d) signature, keyed by ``device`` (the problem's,
+    or its first slab's or chip's).  It fills only still-default knobs,
+    and with no active store it returns ``cfg`` itself.  Shape probing is
+    forgiving: a malformed input is refused by the front door, not
+    here."""
+    from .config import resolve_tuned
+
+    shape = getattr(points, "shape", None)
+    if shape is None:
+        try:
+            shape = np.asarray(points).shape
+        except Exception:  # noqa: BLE001 -- malformed input: validate_or_raise owns the refusal
+            return cfg
+    if len(shape) != 2:
+        return cfg
+    return resolve_tuned(cfg, (int(shape[0]), int(shape[1])), device=device)
+
+
 def radius_mask_from_knn(ids: np.ndarray, d2: np.ndarray, radius: float,
                          cap: int):
     """Shared tail of the query_radius surfaces (single-chip and sharded):
@@ -140,13 +160,27 @@ class KnnProblem:
         ValueError on an unknown scorer or tier, a recall_target outside
         (0, 1], or 'elementwise' with recall_target < 1 or 'bf16'; and
         ``InvalidConfigError`` for the MXU scorer off the adaptive route.
+        A tuned plan, where a store is active, then fills the config's
+        still-default knobs (``_resolve_tuned_for``, keyed by ``device``)
+        and the result meets the same checks.
         The legacy route packs here, after its preflight
         (``ops.solve.prepare_pack``) refuses what the launch gate or the
         memory budget cannot take."""
-        config = config or KnnConfig()
+        return cls._prepare(points, config or KnnConfig(), dim, validate,
+                            device, tune=True)
+
+    @classmethod
+    def _prepare(cls, points, config: KnnConfig, dim, validate: bool,
+                 device, tune: bool) -> "KnnProblem":
         with _obs_spans.span("knn.prepare", k=int(config.k)):
             _check_scorer_route(config)
             device = resolve_device(device)
+            tuned = (_resolve_tuned_for(config, points, device) if tune
+                     else config)
+            if tuned is not config:
+                # a tuned scorer or tier meets the same fail-fast checks
+                config = tuned
+                _check_scorer_route(config)
             points = (validate_or_raise(points, k=config.k) if validate
                       else np.ascontiguousarray(points, np.float32))
             grid = build_grid(torch.as_tensor(points, device=device),
@@ -158,9 +192,10 @@ class KnnProblem:
     def with_points(self, points, validate: bool = True) -> "KnnProblem":
         """A fresh problem over ``points`` under this problem's config, on
         its device: the rebuild-from-scratch primitive of serving
-        (``validate`` as in :meth:`prepare`)."""
-        return KnnProblem.prepare(points, self.config, validate=validate,
-                                  device=self.device)
+        (``validate`` as in :meth:`prepare`).  The config is already
+        resolved, so no tuned plan is applied again."""
+        return KnnProblem._prepare(points, self.config, None, validate,
+                                   self.device, tune=False)
 
     @classmethod
     def _planned(cls, grid: GridHash, config: KnnConfig,

@@ -32,6 +32,11 @@ DEFAULT_CELL_DENSITY = 3.1
 # Default k (the reference's DEFAULT_NB_PLANES).
 DEFAULT_K = 50
 
+# Default entry cap of the tuned-plan store (tune/store.py): one entry per
+# (device kind, problem signature) the autotuner has searched, evicted
+# least recently used first.  KNTPU_TUNE_CACHE_CAP overrides it.
+DEFAULT_TUNE_CACHE_ENTRIES = 64
+
 
 def grid_dim_for(n_points: int, density: float = DEFAULT_CELL_DENSITY) -> int:
     """Cells per axis for a cubic grid with ~``density`` points per cell
@@ -289,6 +294,55 @@ def resolve_precision(precision: str, scorer_resolved: str = "mxu") -> str:
             f"path has no reduced-precision mode (set scorer='mxu' or leave "
             f"it 'auto')")
     return precision
+
+
+def resolve_tuned(cfg: "KnnConfig", signature, device_kind=None, *,
+                  device=None) -> "KnnConfig":
+    """Fill a config's still-default knobs from the tuned-plan store: the
+    one seam between the autotuner (``tune/``) and the solvers, which
+    every prepare (single-device, sharded, pod) passes its config
+    through.  The reference's laws:
+
+      * only knobs still at 'auto'/None are filled, and only those of
+        ``tune.store.RESOLVABLE_KEYS``: an explicit choice always wins;
+      * with ``KNTPU_TUNE_STORE`` unset and no store registered
+        (``tune.store.set_default_store``) ``cfg`` comes back as the same
+        object and the tuner is not imported;
+      * ``signature`` is a ``tune.store.plan_signature`` key, or an
+        ``(n, d)`` tuple converted after that check.
+
+    The store key's device half is ``tune.store.device_key(device_kind,
+    device=device)``: the explicit kind, else the device the problem runs
+    on ('cpu', or the CUDA card's name), so a plan measured on one never
+    resolves for the other.  Plans fill only 'auto' slots and every tier
+    certifies soundly, so at ``recall_target=1.0`` a tuned answer is the
+    untuned one byte for byte."""
+    import os
+
+    if "KNTPU_TUNE_STORE" not in os.environ:
+        import sys
+        tune_store = sys.modules.get(__package__ + ".tune.store")
+        if tune_store is None or tune_store.get_default_store() is None:
+            return cfg  # no store active: no change, and no import
+    from .tune import store as _store
+
+    if isinstance(signature, tuple):
+        n, d = signature
+        signature = _store.plan_signature(n, d, cfg.k, cfg.recall_target)
+    plan = _store.lookup_plan(signature,
+                              _store.device_key(device_kind, device=device))
+    if not plan:
+        return cfg
+    updates = {}
+    if cfg.precision == "auto" and plan.get("precision"):
+        updates["precision"] = str(plan["precision"])
+    if cfg.scorer == "auto" and plan.get("scorer"):
+        updates["scorer"] = str(plan["scorer"])
+    if cfg.epilogue == "auto" and plan.get("epilogue"):
+        updates["epilogue"] = str(plan["epilogue"])
+    if cfg.query_chunk is None and plan.get("query_chunk"):
+        updates["query_chunk"] = int(plan["query_chunk"])
+    return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
 def blocked_topm(k: int, ccap: int) -> int:

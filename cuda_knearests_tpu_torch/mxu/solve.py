@@ -135,6 +135,16 @@ def warm(precision: str = "auto", device=None) -> None:
         kernel.load(resolve_precision(precision, "mxu"))
 
 
+def check_interpret(interpret: bool) -> None:
+    """Refuse the reference's Pallas interpret mode
+    (``InvalidConfigError``), as ``KnnConfig`` refuses it."""
+    if interpret:
+        raise InvalidConfigError(
+            "interpret=True is the reference's Pallas interpret mode; the "
+            "port has no interpret mode (CPU tensors run the selection's "
+            "plain version): pass interpret=False")
+
+
 def solve_general(points, k: int = 10, recall_target: float = 1.0,
                   exclude_self: bool = True, refine: str = "brute",
                   queries=None, interpret: bool = False,
@@ -165,11 +175,7 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     of that many rows, one launch each; every row's selection depends on
     its own query alone, so the answer is byte-identical to the unchunked
     one."""
-    if interpret:
-        raise InvalidConfigError(
-            "interpret=True is the reference's Pallas interpret mode; the "
-            "port has no interpret mode (CPU tensors run the selection's "
-            "plain version): pass interpret=False")
+    check_interpret(interpret)
     if refine not in ("brute", "none"):
         raise InvalidConfigError(
             f"unknown refine {refine!r}: 'brute' or 'none'")

@@ -17,9 +17,9 @@ Counterpart of ``cuda_knearests_tpu/obs/metrics.py``: :class:`Counter`,
   ``runtime/dispatch`` host-boundary counters and the kernel counters
   (``dispatch.kernel_stats``: kernel builds, library loads, class-kernel
   launches), which stand where the reference reports its executable
-  cache.  The reference's tuned-plan counters are left out until the
-  tuned-plan seam is ported.  The serving wire's ``metrics`` command and
-  the ``--metrics-jsonl`` emitter both return it.
+  cache, and the tuned-plan store's counters (``tuned_plans``).  The
+  serving wire's ``metrics`` command and the ``--metrics-jsonl`` emitter
+  both return it.
 
 Pure Python: nothing here touches a device.
 """
@@ -227,10 +227,11 @@ REGISTRY = MetricsRegistry()
 
 def metrics_snapshot() -> dict:
     """The unified metrics document: registry instruments and providers,
-    the ``runtime/dispatch`` counters (``dispatch``) and the kernel
-    counters (``kernels``).  Top-level keys: ``v``, ``ts``, ``pid``,
+    the ``runtime/dispatch`` counters (``dispatch``), the kernel counters
+    (``kernels``) and the active tuned-plan store's (``tuned_plans``, {}
+    when none is active).  Top-level keys: ``v``, ``ts``, ``pid``,
     ``counters``, ``gauges``, ``histograms``, ``providers``, ``dispatch``,
-    ``kernels``."""
+    ``kernels``, ``tuned_plans``."""
     out = {"v": SCHEMA, "ts": round(time.time(), 6), "pid": os.getpid(),
            **REGISTRY.snapshot()}
     try:
@@ -238,9 +239,11 @@ def metrics_snapshot() -> dict:
 
         out["dispatch"] = _dispatch.stats_dict()
         out["kernels"] = _dispatch.kernel_stats()
+        out["tuned_plans"] = _dispatch.tuned_plan_stats()
     except Exception as e:  # noqa: BLE001 -- the snapshot must land even if the dispatch layer is mid-teardown
         out["dispatch"] = {"error": f"{type(e).__name__}: {e}"}
         out["kernels"] = {}
+        out["tuned_plans"] = {}
     return out
 
 

@@ -562,6 +562,24 @@ def load_sharded(path: str, n_devices: Optional[int] = None, mesh=None, *,
                                      mesh=mesh, dim=dim, devices=devices)
 
 
+def check_grid_engine(config: KnnConfig, path: str) -> None:
+    """The multi-device prepares' refusals, with the reference's
+    messages: ``backend='oracle'`` (a single-chip host engine), the scorer
+    knobs' ValueErrors, and the MXU scorer outside ``dist_method='diff'``.
+    ``path`` names the engine ('sharded' or 'pod')."""
+    if config.backend == "oracle":
+        raise InvalidConfigError(
+            f"backend='oracle' is a single-chip host engine; the {path} "
+            f"path runs grid engines only ('auto'/'pallas'/'xla')")
+    config.resolved_precision()
+    if config.resolved_scorer() == "mxu" and config.dist_method != "diff":
+        raise InvalidConfigError(
+            f"scorer='mxu' (recall_target={config.recall_target}) "
+            f"composes with the per-chip class solves only under "
+            f"dist_method='diff' (got {config.dist_method!r}): the class "
+            f"scorers realize distances in diff arithmetic")
+
+
 def _resolve_mesh(n_devices: Optional[int], mesh, devices) -> List[Slab]:
     """The slab list of :meth:`ShardedKnnProblem.prepare`: ``mesh`` as
     given (``distributed.z_mesh``); else one slab per entry of
@@ -655,20 +673,19 @@ class ShardedKnnProblem:
         place slabs, repeats allowed, e.g. ``['cpu'] * 4``), build every
         local slab on its device, exchange the halos and plan every slab.
         ``backend='oracle'``, and the MXU scorer under ``dist_method='dot'``,
-        are refused with the reference's messages."""
+        are refused with the reference's messages, before and after a
+        tuned plan (keyed by the first slab's device) fills the config's
+        still-default knobs."""
+        from ..api import _resolve_tuned_for
+
         config = config or KnnConfig()
-        if config.backend == "oracle":
-            raise InvalidConfigError(
-                "backend='oracle' is a single-chip host engine; the sharded "
-                "path runs grid engines only ('auto'/'pallas'/'xla')")
-        config.resolved_precision()
-        if config.resolved_scorer() == "mxu" and config.dist_method != "diff":
-            raise InvalidConfigError(
-                f"scorer='mxu' (recall_target={config.recall_target}) "
-                f"composes with the per-chip class solves only under "
-                f"dist_method='diff' (got {config.dist_method!r}): the class "
-                f"scorers realize distances in diff arithmetic")
+        check_grid_engine(config, "sharded")
         mesh = _resolve_mesh(n_devices, mesh, devices)
+        tuned = _resolve_tuned_for(config, points, next(
+            (sl.device for sl in mesh if sl.device is not None), None))
+        if tuned is not config:
+            config = tuned
+            check_grid_engine(config, "sharded")
         ndev = len(mesh)
         rank = _dist.rank()
         if _dist.world_size() > 1:

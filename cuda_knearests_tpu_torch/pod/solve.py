@@ -39,7 +39,8 @@ from ..obs import spans as _spans
 from ..ops.adaptive import query_device
 from ..ops.gridhash import GridHash
 from ..ops.topk import INVALID_ID
-from ..parallel.sharded import SlabReady, _chip_ready_state, _chip_solve
+from ..parallel.sharded import (SlabReady, _chip_ready_state, _chip_solve,
+                               check_grid_engine)
 from ..runtime import dispatch
 from ..utils.memory import (InvalidConfigError, InvalidKError,
                             LaunchBudgetError, NoDeviceError)
@@ -126,20 +127,18 @@ class PodKnnProblem:
         while a chip's model does not fit, and refuses only when the whole
         pool cannot hold the cloud (``LaunchBudgetError``, kind 'oom').
         ``backend='oracle'``, and the MXU scorer outside
-        ``dist_method='diff'``, are refused with the reference's messages."""
+        ``dist_method='diff'``, are refused with the reference's messages,
+        before and after a tuned plan (keyed by the first chip's device)
+        fills the config's still-default knobs."""
+        from ..api import _resolve_tuned_for
+
         config = config or KnnConfig()
-        if config.backend == "oracle":
-            raise InvalidConfigError(
-                "backend='oracle' is a single-chip host engine; the pod "
-                "path runs grid engines only ('auto'/'pallas'/'xla')")
-        config.resolved_precision()
-        if config.resolved_scorer() == "mxu" and config.dist_method != "diff":
-            raise InvalidConfigError(
-                f"scorer='mxu' (recall_target={config.recall_target}) "
-                f"composes with the per-chip class solves only under "
-                f"dist_method='diff' (got {config.dist_method!r}): the "
-                f"class scorers realize distances in diff arithmetic")
+        check_grid_engine(config, "pod")
         pool, fixed = _device_pool(mesh, devices)
+        tuned = _resolve_tuned_for(config, points, pool[0])
+        if tuned is not config:
+            config = tuned
+            check_grid_engine(config, "pod")
         seconds = {}
         with _spans.span("prepare.pod.validate", force=True) as sp:
             points = validate_or_raise(points, k=config.k)

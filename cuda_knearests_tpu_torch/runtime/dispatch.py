@@ -14,7 +14,7 @@ The counters also carry the bytes each direction moved (``d2h_bytes``,
 ``dispatch.fetch`` / ``dispatch.stage`` child span of whatever span the
 caller holds open.  :func:`kernel_stats` reads the kernel counters:
 builds and library loads (``ops/_build``) and class-kernel launches
-(``ops/cuda_solve``).
+(``ops/cuda_solve``); :func:`tuned_plan_stats` the tuned-plan store's.
 
 ``python -m cuda_knearests_tpu_torch.runtime.dispatch [--device cpu]``
 runs the sync-budget smoke (:func:`_smoke`): six solve and query routes on
@@ -152,6 +152,19 @@ def kernel_launches() -> dict:
             "blocked_topk_mode_b": cs.blocked_launches_b,
             "mxu_select": mk.launches, "mxu_select_bf16": mk.launches_bf16,
             "mxu_select_split": mk.split_launches}
+
+
+def tuned_plan_stats() -> dict:
+    """Counters of the active tuned-plan store (``tune/store.py``), or {}
+    when the tuner was never activated.  Resolved through ``sys.modules``
+    so importing dispatch never imports the tune package."""
+    mod = sys.modules.get(_PACKAGE + ".tune.store")
+    if mod is None:
+        return {}
+    try:
+        return mod.stats_dict()
+    except Exception:  # noqa: BLE001 -- stats are observability; their failure must never fail a caller
+        return {}
 
 
 def fetch(*tensors: torch.Tensor):

@@ -1794,3 +1794,64 @@ def test_gpu_solve_general_query_chunk_changes_no_byte(cuda_device,
     assert got.neighbors.tobytes() == one.neighbors.tobytes()
     assert got.dists_sq.tobytes() == one.dists_sq.tobytes()
     assert np.array_equal(got.certified, one.certified)
+
+
+@pytest.mark.cuda
+def test_gpu_tune_race_on_card_hits_its_store(cuda_device):
+    """The 7-plan race at n=4,000 on the card: every 'mxu' trial on the
+    selection kernel of its tier, the winner keyed by the card's name,
+    and the second search races nothing."""
+    from cuda_knearests_tpu_torch.tune import store as tstore
+    from cuda_knearests_tpu_torch.tune.search import search
+
+    x = generate_uniform(4000, seed=40)
+    st = tstore.TunedPlanStore()
+    before = mk.launches, mk.launches_bf16
+    w1, rows, meta = search(x, k=10, recall_target=1.0, repeats=1,
+                            store=st, device=cuda_device)
+    card = torch.cuda.get_device_name(cuda_device)
+    assert meta["searched"] == len(rows) == 7 and meta["device_kind"] == card
+    assert all(r["backend"] == "cuda" for r in rows if r["scorer"] == "mxu")
+    assert all(r["sync_bound_ok"] for r in rows)
+    assert mk.launches > before[0] and mk.launches_bf16 > before[1]
+    assert tstore.device_key(device=cuda_device) == card != "cpu"
+    w2, rows2, meta2 = search(x, k=10, recall_target=1.0, repeats=1,
+                              store=st, device=cuda_device)
+    assert meta2["searched"] == 0 and rows2 == [] and st.hits == 1
+    assert w2 == w1
+    # a plan keyed by the card never resolves for a CPU search
+    _, _, meta3 = search(x, k=10, recall_target=1.0, budget=1, repeats=1,
+                         store=st, device="cpu")
+    assert meta3["searched"] == 1 and meta3["device_kind"] == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [{"precision": "bf16", "query_chunk": 128},
+                                  {"epilogue": "gather"}],
+                         ids=["bf16-qc128", "gather"])
+def test_gpu_tuned_prepare_100k_byte_equal(cuda_device, plan):
+    """A tuned prepare of 100k blue noise on the card, keyed by the
+    card's name, answers the untuned rows byte for byte; under a tuned
+    ``epilogue='gather'`` the class kernel's mode (b) launches."""
+    from cuda_knearests_tpu_torch.tune import store as tstore
+
+    pts = generate_blue_noise(100_000, seed=100)
+    cfg = pt.KnnConfig(k=10)
+    base = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+    base.solve()
+    st = tstore.TunedPlanStore()
+    st.record(tstore.plan_signature(100_000, 3, 10, 1.0),
+              tstore.device_key(device=cuda_device), plan)
+    tstore.set_default_store(st)
+    try:
+        before = cs.launches_b
+        tuned = pt.KnnProblem.prepare(pts, cfg, device=cuda_device)
+        tuned.solve()
+    finally:
+        tstore.set_default_store(None)
+    for key, value in plan.items():
+        assert getattr(tuned.config, key) == value
+    assert tuned.get_knearests().tobytes() == base.get_knearests().tobytes()
+    assert tuned.get_dists_sq().tobytes() == base.get_dists_sq().tobytes()
+    if plan.get("epilogue") == "gather":
+        assert cs.launches_b > before

@@ -289,8 +289,9 @@ def test_metrics_snapshot_and_emitter(tmp_path):
     reg.register_provider("test.serve.bad", lambda: 1 / 0)
     snap = metrics.metrics_snapshot()
     assert {"v", "ts", "pid", "counters", "gauges", "histograms",
-            "providers", "dispatch", "kernels"} <= set(snap)
-    assert "exec_cache" not in snap and "tuned_plans" not in snap
+            "providers", "dispatch", "kernels", "tuned_plans"} <= set(snap)
+    assert "exec_cache" not in snap
+    assert isinstance(snap["tuned_plans"], dict)
     assert snap["counters"]["test.serve.c"] == 3
     assert "error" in snap["providers"]["test.serve.bad"]
     assert set(snap["kernels"]) == {"kernel_builds", "kernel_loads",
