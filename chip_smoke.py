@@ -90,10 +90,12 @@ H100: the kernels target sm_90a).  It imports only the port
      uniform 3-D points (k=10: f32 exact with the brute refine, then
      recall targets 0.95/0.8/0.6 unrefined at f32 and bf16) and on 100k
      uniform points at d=128 (f32 exact refined; f32 and bf16 at 0.9
-     unrefined): one selection launch and at most two host round trips per
-     solve, refined answers exact on sampled rows (cKDTree at d=3, an f64
-     brute force at d=128), every certified sampled row exact, and recall
-     on the sampled rows at least the fold's bound at the 2B band; then
+     unrefined), 1 + 3 solves each, but 1 + 1 where a solve is 4-9 s of
+     host rescore and fallback (the refined runs and d=128): one selection
+     launch and at most two host round trips per solve, refined answers
+     exact on sampled rows (cKDTree at d=3, an f64 brute force at d=128),
+     every certified sampled row exact, and recall on the sampled rows at
+     least the fold's bound at the 2B band; then
      one solve at k=1,800 on 20k uniform 3-D points, which the one-block
      kernels' gates refuse: it runs the split selection (backend
      'cuda_split', no one-block launch), exact against cKDTree on 2,000
@@ -301,6 +303,33 @@ H100: the kernels target sm_90a).  It imports only the port
      tie band); (d) the tune CLI with no visible card (rc 4) and a store
      of another schema refused (``StaleTuneStoreError``); (e) the phase's
      seconds and the smoke's so far;
+ 10j. (run after 10i) the static gate on the card (``analysis``): (a)
+     ``python -m cuda_knearests_tpu_torch.analysis --json`` in a process of
+     its own: rc 0, ``ok``, 0 new findings and no
+     ``env-backend`` finding (the committed certificates and baseline
+     regenerate under this host's torch, on its CPU, with no CUDA context);
+     (b) the sync proof against the counters: ``verify.measure_windows``
+     on pts20K.xyz (k=10, 2,000 uniform queries) with CUDA tensors -- the
+     adaptive and legacy solves, the adaptive and chunked queries, the
+     sharded solve and query (two slabs on the card), FoF, the brute route,
+     one serving batch with tombstones and a delta live, the pod solve and
+     query (two chips on the card) and a tuner trial -- each window's
+     ``host_syncs`` and per-site fetch counts equal to its proven
+     expressions at the run's parameters, ``supercell_topk`` launched in
+     every grid window and ``mxu_select`` in the brute ones, one line a
+     window (proven, measured, launches); (c) the four grid routes
+     recorded at the certificates' plan shapes with CUDA tensors, their
+     launch records' normalised hashes equal to the committed
+     ``equivalence.json``; (d) at the contract matrix's launches and at the
+     900k/k=10 main path's adaptive solve, the byte models
+     (``legacy_pack_bytes``, the adaptive plan's, the pod chip's) at least
+     the allocator's peak growth (the largest ratios printed with their
+     launch), and ``SMEM_LIMIT`` and every planned
+     kernel's shared memory within the card's opt-in limit per block; the
+     phase's seconds and each kernel's launches in it
+     (``analysis_launches``).  (a) starts with the phase and runs beside
+     (b)-(d), which time nothing (CPU only, two torch threads); the phase
+     then waits for it;
  11. times each kernel at its main path's shapes against its plain version
      (the selections' plain version on 1,024 of the queries), a PyTorch
      library yardstick and its bound (for supercell_topk and at f32 also
@@ -2214,6 +2243,11 @@ def select_timing(label: str, points: np.ndarray, k: int, m: int,
     return out, err, (ratio, ratio32)
 
 
+# Timed solves after the first where a brute solve is 4-9 s of host
+# rescore and fallback (the refined runs, and every run at d=128).
+HOST_BOUND_RUNS = 1
+
+
 def path_a():
     """The brute route at full width; returns (selection launches by tier,
     the timing entries by shape, the largest |score difference| seen by
@@ -2234,8 +2268,9 @@ def path_a():
                                        for p in ("f32", "bf16")]
     m3 = {}
     for rt, refine, precision in runs3:
-        out = brute_run("300k x 3", pts3, k, rt, refine, precision, 3,
-                        rows3, ref3)
+        out = brute_run("300k x 3", pts3, k, rt, refine, precision,
+                        3 if refine == "none" else HOST_BOUND_RUNS, rows3,
+                        ref3)
         launches[precision] += out["launches"]
         m3.setdefault(precision, out["m"])
     gen = np.random.default_rng(128)
@@ -2245,8 +2280,8 @@ def path_a():
     m128 = {}
     for rt, refine, precision in ((1.0, "brute", "f32"), (0.9, "none", "f32"),
                                   (0.9, "none", "bf16")):
-        out = brute_run("100k x 128", pts128, k, rt, refine, precision, 3,
-                        rows128, ref128)
+        out = brute_run("100k x 128", pts128, k, rt, refine, precision,
+                        HOST_BOUND_RUNS, rows128, ref128)
         launches[precision] += out["launches"]
         m128.setdefault(precision, out["m"])
     phase("timing the selection kernels")
@@ -7045,6 +7080,216 @@ def tune_phase(prob10, pts900: np.ndarray) -> dict:
     return out
 
 
+# -- phase 10j: the static gate on the card ------------------------------------
+
+GRID_WINDOWS = ("adaptive-solve", "legacy-pack-solve",
+                "external-query-adaptive", "external-query-chunked",
+                "sharded-solve", "sharded-query", "serve-batch", "pod-solve",
+                "pod-query")
+BRUTE_WINDOWS = ("mxu-brute", "tune-trial")
+
+
+def start_gate() -> dict:
+    """Start (a), ``python -m cuda_knearests_tpu_torch.analysis --json``,
+    in a process of its own (CPU only, two torch threads) at the start of
+    phase 10j, so it runs beside (b)-(d), which time nothing; a thread
+    reaps it and times it.  The process is killed at exit if it is still
+    up."""
+    import atexit
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    env.pop("KNTPU_ANALYSIS_FAULT", None)
+    gate = {"t0": time.perf_counter()}
+    gate["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "cuda_knearests_tpu_torch.analysis",
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=root)
+
+    def reap():
+        gate["out"], gate["err"] = gate["proc"].communicate()
+        gate["s"] = time.perf_counter() - gate["t0"]
+
+    gate["thread"] = threading.Thread(target=reap, daemon=True)
+    gate["thread"].start()
+
+    def stop():
+        if gate["proc"].poll() is None:
+            gate["proc"].kill()
+            gate["proc"].wait()
+    atexit.register(stop)
+    return gate
+
+
+def analysis_gate_cli(gate: dict, card: str) -> dict:
+    """(a): the gate's process' verdict."""
+    gate["thread"].join(timeout=300)
+    proc = gate["proc"]
+    require(not gate["thread"].is_alive(), "analysis CLI: still running "
+                                           "after 300 s")
+    out, err = gate["out"], gate["err"]
+    require(proc.returncode == 0,
+            f"analysis CLI: rc {proc.returncode}\n{err[-3000:]}")
+    doc = json.loads(out)
+    rules = {f["rule"] for f in doc["findings"]}
+    require(doc["ok"] is True and doc["counts"]["new"] == 0
+            and "env-backend" not in rules,
+            f"analysis CLI: {doc['counts']}, rules {sorted(rules)}")
+    n_budget = sum(f["rule"] == "sync-budget" for f in doc["findings"])
+    require(n_budget == 19, f"analysis CLI: {n_budget} proven windows")
+    print(f"  (a) python -m cuda_knearests_tpu_torch.analysis --json "
+          f"(beside (b)-(d)): rc 0, ok, {doc['counts']['new']} new, "
+          f"{len(doc['findings'])} info findings, 19 windows proven, "
+          f"baseline {doc['analysis_baseline']}, equivalence "
+          f"{doc['analysis_equivalence']}, {gate['s']:.1f} s [{card}]",
+          flush=True)
+    return {"rc": 0, "s": round(gate["s"], 1), "counts": doc["counts"],
+            "baseline": doc["analysis_baseline"],
+            "equivalence": doc["analysis_equivalence"]}
+
+
+def analysis_windows(card: str) -> list:
+    """(b): every window a single card runs, held to its proof."""
+    from cuda_knearests_tpu_torch.analysis import verify
+    from cuda_knearests_tpu_torch.io import generate_uniform, get_dataset
+
+    pts = get_dataset("pts20K.xyz")
+    queries = generate_uniform(2_000, seed=99)
+    rows = verify.measure_windows(pts, queries, DEV)
+    for r in rows:
+        print(f"  (b) {r['route']:<24} proven {r['syncs']} = {r['proven']}, "
+              f"measured {r['measured']}, fetches {json.dumps(r['fetches'])}"
+              f", launches {json.dumps(r['launches'])} [{card}]",
+              flush=True)
+        require(not r["problems"] and r["measured"] == r["proven"],
+                f"sync proof, {r['route']}: {r['problems']}")
+        if r["route"] in GRID_WINDOWS:
+            require(r["launches"].get("supercell_topk", 0) > 0,
+                    f"{r['route']}: no supercell_topk launch")
+        if r["route"] in BRUTE_WINDOWS:
+            require(r["launches"].get("mxu_select", 0) > 0,
+                    f"{r['route']}: no mxu_select launch")
+    require({r["route"] for r in rows}
+            == set(GRID_WINDOWS + BRUTE_WINDOWS + ("fof",)),
+            "sync proof: a window did not run")
+    return [{k: r[k] for k in ("route", "syncs", "env", "proven",
+                               "measured", "fetches", "launches")}
+            for r in rows]
+
+
+def analysis_certificates(card: str) -> int:
+    """(c): the grid routes' launch records on the card against the
+    committed certificates."""
+    from cuda_knearests_tpu_torch.analysis import contracts, equiv
+
+    cert = equiv.load_certificates()
+    require(cert is not None, "no committed equivalence.json")
+    pts = contracts._points(contracts._SEEDS[0])
+    checked = 0
+    for k, s in equiv.MATRIX:
+        for ep in ("gather", "scatter"):
+            for route in equiv.ROUTES:
+                recs = contracts.record_route(route, pts, k, s, ep,
+                                              device=DEV)
+                got = sorted(c["norm_hash"] for c in equiv.route_cores(recs))
+                want = equiv.norm_hashes(cert, k, s, ep, route)
+                require(got == want,
+                        f"certificate k={k} s={s} {ep} {route}: the card's "
+                        f"launches {got} != committed {want}")
+                checked += 1
+    print(f"  (c) {checked} (cell, epilogue, route) launch sets on the card "
+          f"equal to the committed certificates [{card}]", flush=True)
+    return checked
+
+
+def analysis_memory(card: str, prob10) -> dict:
+    """(d): byte models against the allocator, at the contract matrix's
+    launches and at the 900k/k=10 main-path problem's adaptive solve;
+    shared memory against the card's opt-in limit."""
+    import torch
+
+    from cuda_knearests_tpu_torch.analysis import contracts, equiv
+    from cuda_knearests_tpu_torch.mxu import kernel as mk
+    from cuda_knearests_tpu_torch.ops import cuda_solve as cs
+
+    rows = contracts.launch_memory(DEV)
+    rows.append(contracts.adaptive_memory_row(prob10, prob10.config,
+                                              "900k/k=10 main path", DEV))
+    for r in rows:
+        r["ratio"] = r["growth"] / r["model"]
+        require(r["model"] >= max(r["growth"], r["requested"]),
+                f"byte model below the allocator: {r}")
+    worst = max(r["ratio"] for r in rows)
+    for r in sorted(rows, key=lambda r: -r["ratio"])[:4] + rows[-1:]:
+        print(f"  (d) {r['route']} {r['cell']} {r['ep']}: allocator growth "
+              f"{r['growth']:,} B ({r['ratio']:.3f}), requested "
+              f"{r['requested']:,} B ({r['requested'] / r['model']:.3f}) "
+              f"of a {r['model']:,} B model [{card}]", flush=True)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    planned = []
+    pts = contracts._points(contracts._SEEDS[0])
+    for k, s in equiv.MATRIX:
+        p = contracts.legacy_fixture(pts, k, s, DEV).problem
+        plans = [(p.pack.qcap, p.pack.ccap)] + [
+            (cp.qcap, cp.ccap) for cp in
+            contracts.adaptive_fixture(pts, k, s, DEV).problem.aplan.classes
+            if cp.pk is not None]
+        for qcap, ccap in plans:
+            plan = cs.topk_plan(k, qcap, ccap)
+            planned += [cs.smem_bytes(k, cs.pick_q_tile(k, qcap)),
+                        cs.topk_smem_bytes(plan) + cs._TOPK_STATIC_SMEM]
+    for k in (8, 50):
+        for d in (3, 6):
+            m = contracts.mxu_brute_inputs(k, d)[1]
+            planned.append(mk.smem_bytes(d, k, m, *mk.pick_launch(d, k, m)))
+            planned.append(mk.smem_bytes_bf16(d, k, m,
+                                              *mk.pick_launch_bf16(d, k, m)))
+    require(cs.SMEM_LIMIT <= optin and max(planned) <= cs.SMEM_LIMIT,
+            f"shared memory: SMEM_LIMIT {cs.SMEM_LIMIT}, planned "
+            f"{max(planned)}, the card's opt-in {optin} a block")
+    print(f"  (d) {len(rows)} launches: byte model >= allocator growth "
+          f"(largest growth / model {worst:.3f}); shared memory: "
+          f"SMEM_LIMIT {cs.SMEM_LIMIT}, largest planned {max(planned)} <= "
+          f"{optin} opt-in a block [{card}]", flush=True)
+    return {"launches": len(rows), "worst_growth_over_model": worst,
+            "smem_limit": cs.SMEM_LIMIT, "smem_planned_max": max(planned),
+            "smem_optin": int(optin), "rows": rows}
+
+
+def analysis_phase(card: str, prob10) -> dict:
+    """Phase 10j, the static gate on the card: (a) the gate's own process
+    (:func:`start_gate`), beside (b) the sync proof against the counters,
+    (c) the certificates against the card's launches and (d) the byte and
+    shared-memory models against the card."""
+    from cuda_knearests_tpu_torch.runtime import dispatch
+
+    t_phase = time.perf_counter()
+    gate = start_gate()
+    out, seconds = {}, {}
+    before = dispatch.kernel_launches()
+    t0 = time.perf_counter()
+    out["windows"] = analysis_windows(card)
+    seconds["b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    out["certificates"] = analysis_certificates(card)
+    seconds["c"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    out["memory"] = analysis_memory(card, prob10)
+    seconds["d"] = round(time.perf_counter() - t0, 1)
+    after = dispatch.kernel_launches()
+    out["launches"] = {name: after[name] - before[name] for name in after}
+    t0 = time.perf_counter()
+    out["cli"] = analysis_gate_cli(gate, card)
+    seconds["a_wait"] = round(time.perf_counter() - t0, 1)
+    out["seconds"] = seconds
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  static gate phase: {out['s']:.1f} s ({json.dumps(seconds)}); "
+          f"launches {json.dumps(out['launches'])}; smoke so far "
+          f"{time.perf_counter() - _T0:.1f} s [{card}]", flush=True)
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -7206,8 +7451,13 @@ def main() -> int:
         max_err["mxu_select_bf16"] = max(max_err["mxu_select_bf16"],
                                          held["bf16"])
 
+    phase("the static gate on the card")
+    gate = analysis_phase(card, prob10)
+    gate_launches = gate["launches"]
+
     kernels = [
         dict(name="supercell_topk", route="cuda",
+             analysis_launches=gate_launches["supercell_topk"],
              source=CSRC + "supercell_topk.cu",
              replaces=REPLACES["supercell_topk"],
              launches=(launches + pod["overlay"]["launches"]
@@ -7263,6 +7513,7 @@ def main() -> int:
              captured_ms=cli_obs["capture"]["supercell_topk_ms"],
              tune_seam_launches=seam["supercell_topk"]),
         dict(name="blocked_topk", route="cuda",
+             analysis_launches=gate_launches["blocked_topk"],
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"], launches=blocked_launches,
              max_abs_err=max(max_err["blocked_topk"], err_b, err_b50,
@@ -7279,6 +7530,7 @@ def main() -> int:
              mesh_chaos_launches=mesh_chaos["launches"]["blocked_topk"],
              mesh_child_launches=mesh_child["blocked_topk"]),
         dict(name="supercell_topk_mode_b", route="cuda",
+             analysis_launches=gate_launches["supercell_topk_mode_b"],
              source=CSRC + "supercell_topk.cu",
              replaces="cuda_knearests_tpu/ops/pallas_solve.py:117",
              launches=legacy["launches_b"] + seam["supercell_topk_mode_b"],
@@ -7292,6 +7544,7 @@ def main() -> int:
                  "supercell_topk_mode_b"],
              mesh_child_launches=mesh_child["supercell_topk_mode_b"]),
         dict(name="blocked_topk_mode_b", route="cuda",
+             analysis_launches=gate_launches["blocked_topk_mode_b"],
              source=CSRC + "blocked_topk.cu",
              replaces=REPLACES["blocked_topk"],
              launches=legacy["blocked_launches_b"],
@@ -7301,7 +7554,8 @@ def main() -> int:
              fleet_launches=fleet["launches"]["blocked_topk_mode_b"],
              mesh_chaos_launches=mesh_chaos["launches"]["blocked_topk_mode_b"],
              mesh_child_launches=mesh_child["blocked_topk_mode_b"]),
-        dict(name="mxu_select", route="cuda", source=CSRC + "mxu_select.cu",
+        dict(name="mxu_select", route="cuda",
+             analysis_launches=gate_launches["mxu_select"], source=CSRC + "mxu_select.cu",
              replaces=REPLACES["mxu_select"],
              launches=select_launches["f32"] + race["mxu_select"],
              brute_launches=select_launches["f32"],
@@ -7313,6 +7567,7 @@ def main() -> int:
              mesh_chaos_launches=mesh_chaos["launches"]["mxu_select"],
              mesh_child_launches=mesh_child["mxu_select"]),
         dict(name="mxu_select_bf16", route="cuda",
+             analysis_launches=gate_launches["mxu_select_bf16"],
              source=CSRC + "mxu_select_bf16.cu",
              replaces=REPLACES["mxu_select_bf16"],
              launches=select_launches["bf16"] + race["mxu_select_bf16"],
@@ -7333,6 +7588,7 @@ def main() -> int:
              **select_timings["100k x 128 bf16"],
              fuzz_launches=fuzzed["launches"]["mxu_select_bf16"]),
         dict(name="mxu_select_split", route="cuda",
+             analysis_launches=gate_launches["mxu_select_split"],
              source=CSRC + "mxu_select_split.cu",
              replaces=REPLACES["mxu_select_split"],
              launches=refused["launches"],
@@ -7357,6 +7613,9 @@ def main() -> int:
     print(f"  mesh and chaos: {json.dumps(mesh_chaos)}", flush=True)
     print(f"  CLI and observability: {json.dumps(cli_obs)}", flush=True)
     print(f"  autotuner: {json.dumps(tuned)}", flush=True)
+    gate_summary = dict(gate, memory={k: v for k, v in gate["memory"].items()
+                                      if k != "rows"})
+    print(f"  static gate: {json.dumps(gate_summary)}", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

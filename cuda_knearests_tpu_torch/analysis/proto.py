@@ -51,12 +51,6 @@ from .findings import Finding
 
 FAULTS = ("torn-commit", "ack-before-commit", "unclaimed-action")
 
-# The seeded faults of the other analysis engines (the reference's
-# contracts.FAULTS and verify.FAULTS): one KNTPU_ANALYSIS_FAULT variable
-# seeds every engine, so this one lets their names through unchanged.
-OTHER_ENGINE_FAULTS = ("scatter-map", "hbm-model", "tile-misalign",
-                       "sync-leak", "sig-data-dep", "route-diverge")
-
 _FAULT_ENV = "KNTPU_ANALYSIS_FAULT"
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -407,16 +401,19 @@ def check_conformance(fault: Optional[str] = None) -> List[Finding]:
 
 def run_proto(fault: Optional[str] = None) -> List[Finding]:
     """Run both protocol gates.  ``fault`` (or KNTPU_ANALYSIS_FAULT)
-    seeds one deliberate violation; the other engines' faults
-    (:data:`OTHER_ENGINE_FAULTS`) are ignored here."""
+    seeds one deliberate violation; other engines' faults are ignored
+    here (they seed engines 1 and 3)."""
+    from .contracts import FAULTS as CONTRACT_FAULTS
+    from .verify import FAULTS as VERIFY_FAULTS
+
     fault = fault if fault is not None else _fault()
     if fault is not None and fault not in FAULTS:
-        if fault in OTHER_ENGINE_FAULTS:
+        if fault in CONTRACT_FAULTS + VERIFY_FAULTS:
             fault = None
         else:
             raise ValueError(
                 f"unknown analysis fault {fault!r}: expected one of "
-                f"{OTHER_ENGINE_FAULTS + FAULTS}")
+                f"{CONTRACT_FAULTS + VERIFY_FAULTS + FAULTS}")
     findings = check_models(fault)
     findings += check_conformance(fault)
     return findings

@@ -260,7 +260,7 @@ class KnnProblem:
         """One batched readback of ids, d2, certificates and the
         uncertified count; then, only when rows are uncertified and the
         fallback is on, their exact resolution behind one more fetch."""
-        nbr, d2, cert, n_unc = dispatch.fetch(
+        nbr, d2, cert, n_unc = dispatch.fetch(  # syncflow: solve-final
             res.neighbors, res.dists_sq, res.certified, res.uncert_count)
         n_unc = int(n_unc)
         if n_unc == 0 or self.config.fallback != "brute":
@@ -268,9 +268,9 @@ class KnnProblem:
                              uncert_count=np.int32(n_unc))
         bad = np.nonzero(~cert)[0].astype(np.int32)
         b_ids, b_d2 = brute_force_by_index(
-            self.grid.points, dispatch.stage(bad, self.device),
+            self.grid.points, dispatch.stage(bad, self.device),  # syncflow: solve-fallback-stage
             self.config.k, self.config.exclude_self)
-        b_ids, b_d2 = dispatch.fetch(b_ids, b_d2)
+        b_ids, b_d2 = dispatch.fetch(b_ids, b_d2)  # syncflow: solve-fallback
         nbr[bad] = b_ids
         d2[bad] = b_d2
         cert[bad] = True
@@ -360,7 +360,7 @@ class KnnProblem:
         prepared problem; a problem resumed from a checkpoint pays one
         counted fetch of the sorted points and the permutation, cached."""
         if self.host_points is None:
-            pts, perm = dispatch.fetch(self.grid.points,
+            pts, perm = dispatch.fetch(self.grid.points,  # syncflow: host-original
                                        self.grid.permutation)
             out = np.empty_like(pts)
             out[perm] = pts
@@ -410,7 +410,8 @@ class KnnProblem:
         nbrs = np.asarray(self.result.neighbors)
         if self.grid.n_points == 0:
             return nbrs
-        perm = self.get_permutation()
+        # a counted readback: the plane feed calls this inside solve()
+        (perm,) = dispatch.fetch(self.grid.permutation)  # syncflow: extract-original
         mapped = np.where(nbrs >= 0,
                           perm[np.clip(nbrs, 0, self.grid.n_points - 1)], -1)
         out = np.empty_like(mapped)
@@ -465,7 +466,7 @@ def save_problem(problem: KnnProblem, path: str) -> None:
         permutation=g.permutation.cpu().numpy(),
         cell_starts=g.cell_starts.cpu().numpy(),
         cell_counts=g.cell_counts.cpu().numpy(),
-        dim=np.int64(g.dim), domain=np.float64(g.domain),
+        dim=np.int64(g.dim), domain=np.float64(g.domain),  # kntpu-ok: wide-dtype -- on-disk checkpoint schema, never staged to a device
         config_json=np.bytes_(json.dumps(
             {key: v for key, v in cfg.items() if v is not None}).encode()))
 

@@ -24,8 +24,8 @@ import numpy as np
 def _ref_planes(sites: np.ndarray, points: np.ndarray,
                 ids: np.ndarray) -> np.ndarray:
     """The plane feed recomputed in float64 from the returned ids."""
-    q = sites.astype(np.float64)[:, None, :]
-    p = points[np.clip(ids, 0, None)].astype(np.float64)
+    q = sites.astype(np.float64)[:, None, :]  # kntpu-ok: wide-dtype -- the independent f64 recompute the pin compares against, host-only
+    p = points[np.clip(ids, 0, None)].astype(np.float64)  # kntpu-ok: wide-dtype -- the independent f64 recompute the pin compares against, host-only
     nn = (p - q).astype(np.float32)
     d = (((p * p).sum(-1) - (q * q).sum(-1)) / 2.0).astype(np.float32)
     ok = ids >= 0

@@ -36,7 +36,7 @@ def fof_band(b: float) -> float:
     float32 and the float32 diff-square-sum distance each err by a few
     ulps of b^2, plus a coordinate-ulp cross term; a 1e-4 relative band
     plus 4e-3 * b covers both with two orders of magnitude to spare."""
-    b2 = float(np.float64(b) ** 2)
+    b2 = float(np.float64(b) ** 2)  # kntpu-ok: wide-dtype -- host threshold arithmetic, never staged
     return 1e-4 * b2 + 4e-3 * float(b) + 1e-9
 
 
@@ -68,7 +68,7 @@ def _well_formed(n: int, labels: np.ndarray, sizes) -> Optional[Mismatch]:
         r = int(np.nonzero((labels < 0) | (labels >= n))[0][0])
         return Mismatch(r, "label-range",
                         f"label {int(labels[r])} outside [0, {n})")
-    mins = np.full(n, n, dtype=np.int64)
+    mins = np.full(n, n, dtype=np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
     np.minimum.at(mins, labels, np.arange(n))
     uniq = np.unique(labels)
     bad = uniq[mins[uniq] != uniq]

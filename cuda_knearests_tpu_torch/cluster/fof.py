@@ -95,7 +95,7 @@ class FofResult:
     def cluster_sizes(self) -> "tuple[np.ndarray, np.ndarray]":
         """(labels, sizes) of each distinct cluster, labels ascending."""
         if self.labels.size == 0:
-            return (np.empty((0,), np.int32), np.empty((0,), np.int64))
+            return (np.empty((0,), np.int32), np.empty((0,), np.int64))  # kntpu-ok: wide-dtype -- np.unique's native count dtype, host-only
         lab, cnt = np.unique(self.labels, return_counts=True)
         return lab.astype(np.int32), cnt
 
@@ -180,8 +180,8 @@ def stage_fof(points: np.ndarray, b: float, plan: FofPlan, domain: float,
     slots = link_slots(grid.points[:, 0].contiguous(),
                        grid.points[:, 1].contiguous(),
                        grid.points[:, 2].contiguous(), grid.cell_starts,
-                       grid.cell_counts, dispatch.stage(nbr_cells, device),
-                       dispatch.stage(nbr_ok, device), b2, plan.m)
+                       grid.cell_counts, dispatch.stage(nbr_cells, device),  # syncflow: fof-stage
+                       dispatch.stage(nbr_ok, device), b2, plan.m)  # syncflow: fof-stage
     return grid, slots
 
 
@@ -283,19 +283,19 @@ def fof_labels(points, linking_length: float, *,
                          dim=1, cell_max=0)
     plan = plan_fof(points, b, domain, density)
     grid, slots = stage_fof(points, b, plan, domain, device)
-    labels = dispatch.stage(np.arange(n, dtype=np.int32), device)
+    labels = dispatch.stage(np.arange(n, dtype=np.int32), device)  # syncflow: fof-stage
     rounds = 0
     changed = n > 1
     while changed and rounds < max_rounds:
         labels, chg = fof_round(labels, slots)
         rounds += 1
-        changed = bool(dispatch.fetch(chg)[0])
+        changed = bool(dispatch.fetch(chg)[0])  # syncflow: fof-round  # kntpu-ok: host-sync-loop -- the per-round convergence flag IS the FoF window's proven rounds + 1 syncs (syncflow fof-round)
     if changed:
         raise AssertionError(
             f"FoF propagation failed to converge in {max_rounds} rounds "
             f"(n={n}); pointer jumping guarantees O(log n) -- this is a "
             f"fault, not a large input")
-    out_l, out_s = dispatch.fetch(*fof_finalize(labels, grid.permutation))
+    out_l, out_s = dispatch.fetch(*fof_finalize(labels, grid.permutation))  # syncflow: fof-final
     syncs = dispatch.stats().host_syncs - s0.host_syncs
     return FofResult(labels=out_l, sizes=out_s,
                      n_clusters=int(np.unique(out_l).size), rounds=rounds,

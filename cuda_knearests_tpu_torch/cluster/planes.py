@@ -48,8 +48,8 @@ def bisector_planes(sites: np.ndarray, points: np.ndarray,
         return out
     valid = ids >= 0
     safe = np.clip(ids, 0, points.shape[0] - 1)
-    p = points[safe].astype(np.float64)
-    q = sites.astype(np.float64)[:, None, :]
+    p = points[safe].astype(np.float64)  # kntpu-ok: wide-dtype -- the plane offset cancels catastrophically in f32 (module docstring); host-only, rounded to f32 once, never staged
+    q = sites.astype(np.float64)[:, None, :]  # kntpu-ok: wide-dtype -- same f64 plane-feed contract as above
     normal = (p - q).astype(np.float32)
     d = (((p * p).sum(-1) - (q * q).sum(-1)) / 2.0).astype(np.float32)
     out[:, :, :3] = np.where(valid[:, :, None], normal, np.float32(0.0))

@@ -310,9 +310,9 @@ def replay_ops(spec: ChaosSpec, ops: Sequence[dict], device=None,
                 if resp and resp[-1].ok:
                     tracked[name] = np.concatenate(
                         [tracked[name],
-                         np.asarray(op["points"], np.float32)])
+                         np.asarray(op["points"], np.float32)])  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
             elif kind == "delete":
-                ids = np.asarray(op["ids"]).reshape(-1)
+                ids = np.asarray(op["ids"]).reshape(-1)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 ids = ids[ids < tracked[name].shape[0]]  # re-legalize
                 if ids.size == 0:
                     continue
@@ -377,7 +377,7 @@ def replay_ops(spec: ChaosSpec, ops: Sequence[dict], device=None,
                     now += per * 1.01
                     fleet.poll(now)
             else:
-                queries = np.asarray(op["queries"], np.float32)
+                queries = np.asarray(op["queries"], np.float32)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 responses = fleet.submit(i, name, "query", queries,
                                          now=now)
                 responses += fleet.drain(now)
@@ -393,8 +393,8 @@ def replay_ops(spec: ChaosSpec, ops: Sequence[dict], device=None,
                     # declaration (the tier rides the wire), so the
                     # distance-multiset contract is suspended for it and
                     # re-arms the moment the tenant is exact again
-                    got_i = np.asarray(mine[0].ids)
-                    got_d = np.asarray(mine[0].d2)
+                    got_i = np.asarray(mine[0].ids)  # kntpu-ok: host-sync-loop -- Response rows are host numpy (the daemon fetched them through dispatch already)
+                    got_d = np.asarray(mine[0].d2)  # kntpu-ok: host-sync-loop -- Response rows are host numpy (the daemon fetched them through dispatch already)
                     if answers is not None:
                         answers.append((i, got_i, got_d))
                     pts = tracked[name]
@@ -403,7 +403,7 @@ def replay_ops(spec: ChaosSpec, ops: Sequence[dict], device=None,
                         validate=False, device=fleet.device)
                     _ref_i, ref_d = ref.query(queries, spec.k)
                     bad = check_route_result(pts, queries, got_i, got_d,
-                                             np.asarray(ref_d), spec.k)
+                                             np.asarray(ref_d), spec.k)  # kntpu-ok: host-sync-loop -- one oracle readback per QUERY op is the differential harness's job
                     if bad is not None:
                         return ("mismatch",
                                 f"op {i}: tenant {name} diverged from "
@@ -443,7 +443,7 @@ def _ops_to_json(ops: Sequence[dict]) -> str:
         item = {"op": op["op"], "tenant": op["tenant"]}
         key = _ARRAY_KEYS.get(op["op"])
         if key is not None:
-            item[key] = np.asarray(op[key]).tolist()
+            item[key] = np.asarray(op[key]).tolist()  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         for scalar in ("n", "shard", "pumps"):
             if scalar in op:
                 item[scalar] = int(op[scalar])
@@ -457,9 +457,9 @@ def ops_from_json(text: str) -> List[dict]:
         item = dict(op)
         key = _ARRAY_KEYS.get(op["op"])
         if key == "points" or key == "queries":
-            item[key] = np.asarray(op[key], np.float32).reshape(-1, 3)
+            item[key] = np.asarray(op[key], np.float32).reshape(-1, 3)  # kntpu-ok: host-sync-loop -- JSON-decoded host op payload (pure numpy), no device array rides this loop
         elif key == "ids":
-            item[key] = np.asarray(op[key], np.int64)
+            item[key] = np.asarray(op[key], np.int64)  # kntpu-ok: host-sync-loop -- JSON-decoded host op payload (pure numpy), no device array rides this loop
         ops.append(item)
     return ops
 

@@ -216,9 +216,9 @@ def replay_ops(spec: FleetSpec, ops: Sequence[dict], device=None,
                 if resp and resp[-1].ok:
                     tracked[name] = np.concatenate(
                         [tracked[name],
-                         np.asarray(op["points"], np.float32)])
+                         np.asarray(op["points"], np.float32)])  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
             elif op["op"] == "delete":
-                ids = np.asarray(op["ids"]).reshape(-1)
+                ids = np.asarray(op["ids"]).reshape(-1)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 ids = ids[ids < tracked[name].shape[0]]  # re-legalize
                 if ids.size == 0:
                     continue
@@ -231,7 +231,7 @@ def replay_ops(spec: FleetSpec, ops: Sequence[dict], device=None,
                     continue  # minimization may orphan the failover op
                 fleet.failover(name)
             else:
-                queries = np.asarray(op["queries"], np.float32)
+                queries = np.asarray(op["queries"], np.float32)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 k = spec.ks[ti]
                 responses = fleet.submit(i, name, "query", queries,
                                          now=now)
@@ -243,8 +243,8 @@ def replay_ops(spec: FleetSpec, ops: Sequence[dict], device=None,
                     return ("mismatch",
                             f"op {i}: tenant {name} query got no clean "
                             f"response: {err}", i)
-                got_i = np.asarray(mine[0].ids)
-                got_d = np.asarray(mine[0].d2)
+                got_i = np.asarray(mine[0].ids)  # kntpu-ok: host-sync-loop -- Response rows are host numpy (the daemon fetched them through dispatch already)
+                got_d = np.asarray(mine[0].d2)  # kntpu-ok: host-sync-loop -- Response rows are host numpy (the daemon fetched them through dispatch already)
                 if answers is not None:
                     answers.append((i, got_i, got_d))
                 pts = tracked[name]
@@ -253,7 +253,7 @@ def replay_ops(spec: FleetSpec, ops: Sequence[dict], device=None,
                     device=fleet.device)
                 _ref_i, ref_d = ref.query(queries, k)
                 bad = check_route_result(pts, queries, got_i, got_d,
-                                         np.asarray(ref_d), k)
+                                         np.asarray(ref_d), k)  # kntpu-ok: host-sync-loop -- one oracle readback per QUERY op is the differential harness's job
                 if bad is not None:
                     return ("mismatch",
                             f"op {i}: tenant {name} diverged from its "
@@ -299,11 +299,11 @@ def _ops_to_json(ops: Sequence[dict]) -> str:
     for op in ops:
         item = {"op": op["op"], "tenant": op["tenant"]}
         if op["op"] == "insert":
-            item["points"] = np.asarray(op["points"], np.float32).tolist()
+            item["points"] = np.asarray(op["points"], np.float32).tolist()  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         elif op["op"] == "delete":
-            item["ids"] = np.asarray(op["ids"]).tolist()
+            item["ids"] = np.asarray(op["ids"]).tolist()  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         elif op["op"] == "query":
-            item["queries"] = np.asarray(op["queries"],
+            item["queries"] = np.asarray(op["queries"],  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                                          np.float32).tolist()
         out.append(item)
     return json.dumps(out)
@@ -314,11 +314,11 @@ def ops_from_json(text: str) -> List[dict]:
     for op in json.loads(text):
         item = {"op": op["op"], "tenant": op["tenant"]}
         if op["op"] == "insert":
-            item["points"] = np.asarray(op["points"], np.float32)
+            item["points"] = np.asarray(op["points"], np.float32)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         elif op["op"] == "delete":
-            item["ids"] = np.asarray(op["ids"], np.int64)
+            item["ids"] = np.asarray(op["ids"], np.int64)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         elif op["op"] == "query":
-            item["queries"] = np.asarray(op["queries"], np.float32)
+            item["queries"] = np.asarray(op["queries"], np.float32)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         ops.append(item)
     return ops
 

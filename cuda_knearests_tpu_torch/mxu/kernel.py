@@ -39,6 +39,7 @@ import torch
 
 from ..ops import _build
 from ..ops.cuda_solve import SMEM_LIMIT, KernelLaunchError
+from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
 from .scorer import check_select_args, norms, select_plain
 from .topk import BLOCK, dot_error_bound
@@ -392,11 +393,14 @@ def select_routed(queries: torch.Tensor, q_ids: torch.Tensor,
     k, m = int(k), int(m)
     d = queries.shape[1]
     device = queries.device
+    if dispatch.recording():
+        _record("select_routed", (queries, q_ids, pts_il, cid_il), k, m,
+                precision, False)
     if device.type == "cpu":
         return "plain", select_plain(queries, q_ids, pts_il, cid_il, k, m,
                                      d_real, exclude_self, precision)
     if device.type != "cuda":
-        raise ValueError(f"select runs on CPU or CUDA tensors, got {device}")
+        raise ValueError(f"select runs on CPU or CUDA tensors, got {device}")  # kntpu-ok: bare-valueerror -- device contract of a kernel wrapper (CPU or CUDA tensors), not point-input validation
     plan = launch_plan(d, k, m, precision)
     if plan is None:
         return "cuda_split", _launch_split(queries, q_ids, pts_il, cid_il,
@@ -407,6 +411,26 @@ def select_routed(queries: torch.Tensor, q_ids: torch.Tensor,
                                     d_real, exclude_self, plan, None)
     return "cuda", _launch_f32(queries, q_ids, pts_il, cid_il, k, m, d_real,
                                exclude_self, plan)
+
+
+def _record(wrapper: str, args, k: int, m: int, precision: str,
+            split: bool) -> None:
+    """The selection wrapper's :class:`~..runtime.dispatch.LaunchRecord`,
+    taken before the branch between the kernels and the plain version:
+    the route the card takes is decided by shape alone
+    (:func:`launch_plan`), so the CPU records it too.  ``q_tile`` is the
+    one-block kernel's query rows a block (0 on the split selection)."""
+    queries, _q_ids, pts_il = args[:3]
+    n_q, d = queries.shape
+    plan = None if split else launch_plan(d, k, m, precision)
+    tier = "mxu_select_bf16" if precision == "bf16" else "mxu_select"
+    kernels = (tier,) if plan is not None else ("mxu_select_split", tier)
+    dispatch.record_launch(
+        wrapper=wrapper, mode=precision, kernels=kernels, k=int(k),
+        m=int(m), q_tile=0 if plan is None else int(plan[0]),
+        qcap=int(n_q), ccap=int(pts_il.shape[0]), s_total=1,
+        in_dtypes=tuple(dispatch.dtype_name(a.dtype) for a in args[:4]),
+        out_shapes=((int(n_q), int(k)), (int(n_q), int(k)), (int(n_q),)))
 
 
 def select_split(queries: torch.Tensor, q_ids: torch.Tensor,
@@ -422,11 +446,14 @@ def select_split(queries: torch.Tensor, q_ids: torch.Tensor,
     selection blocks that made p passes over their keys."""
     check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
                       precision)
+    if dispatch.recording():
+        _record("select_split", (queries, q_ids, pts_il, cid_il), int(k),
+                int(m), precision, True)
     if queries.device.type == "cpu":
         return select_plain(queries, q_ids, pts_il, cid_il, int(k), int(m),
                             d_real, exclude_self, precision)
     if queries.device.type != "cuda":
-        raise ValueError(f"select runs on CPU or CUDA tensors, got "
+        raise ValueError(f"select runs on CPU or CUDA tensors, got "  # kntpu-ok: bare-valueerror -- device contract of a kernel wrapper (CPU or CUDA tensors), not point-input validation
                          f"{queries.device}")
     return _launch_split(queries, q_ids, pts_il, cid_il, int(k), int(m),
                          d_real, exclude_self, precision, arm, passes)
@@ -465,10 +492,10 @@ def split_plan(n_q: int, n_c: int, d: int, k: int, m: int,
     (one query at least)."""
     arm = split_arm(d, k, m) if arm is None else arm
     if arm not in ("direct", "pool"):
-        raise ValueError(f"split arm must be 'direct' or 'pool', got {arm!r}")
+        raise ValueError(f"split arm must be 'direct' or 'pool', got {arm!r}")  # kntpu-ok: bare-valueerror -- measurement knob of the split selection (arm=), not user input
     n2 = 1 << int(k).bit_length()
     if arm == "direct" and (int(m) < BLOCK or n2 > _SPLIT_DIRECT_MAX_KEYS):
-        raise ValueError(f"the direct arm keeps every key in rows of at "
+        raise ValueError(f"the direct arm keeps every key in rows of at "  # kntpu-ok: bare-valueerror -- measurement knob of the split selection (arm=), not user input
                          f"most {_SPLIT_DIRECT_MAX_KEYS}: it needs m >= "
                          f"{BLOCK} and k < {_SPLIT_DIRECT_MAX_KEYS}, got "
                          f"m={m}, k={k}")
@@ -506,7 +533,7 @@ def _launch_split(queries, q_ids, pts_il, cid_il, k: int, m: int,
     if passes is not None and (passes.device != device
                                or passes.dtype != torch.int32
                                or tuple(passes.shape) != (SPLIT_MAX_PASSES,)):
-        raise ValueError(f"passes must be a ({SPLIT_MAX_PASSES},) int32 "
+        raise ValueError(f"passes must be a ({SPLIT_MAX_PASSES},) int32 "  # kntpu-ok: bare-valueerror -- measurement buffer contract (passes=), not user input
                          f"tensor on {device}")
     plan = split_plan(n_q, n_c, d, k, m, arm)
     lib = _lib_split()
@@ -637,7 +664,7 @@ def _select_bf16_with_scores(queries, q_ids, pts_il, cid_il, k: int, m: int,
     n_q, n_c, d = check_select_args(queries, q_ids, pts_il, cid_il, k, m,
                                     d_real, "bf16")
     if queries.device.type != "cuda":
-        raise ValueError(f"the bf16 score dump needs CUDA tensors, got "
+        raise ValueError(f"the bf16 score dump needs CUDA tensors, got "  # kntpu-ok: bare-valueerror -- the score dump's CUDA-only contract (kernel checks), not user input
                          f"{queries.device}")
     k, m = int(k), int(m)
     scores = torch.empty((n_q, n_c), dtype=torch.float32,

@@ -28,8 +28,8 @@ def declared_band(points: np.ndarray,
     """Per-query 2B of the dot-form scores at ``precision``
     (``topk.dot_error_bound`` from float64 norms: the query's, and the
     largest stored point's)."""
-    p64 = points.astype(np.float64)
-    q64 = p64 if queries is None else queries.astype(np.float64)
+    p64 = points.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
+    q64 = p64 if queries is None else queries.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
     qn = (q64 * q64).sum(axis=1)
     pn_max = float((p64 * p64).sum(axis=1).max()) if p64.size else 0.0
     return 2.0 * dot_error_bound(qn, pn_max, points.shape[1], precision)
@@ -44,13 +44,13 @@ def f64_kth(points: np.ndarray, k: int,
     points).  ``exclude`` masks one candidate per query; the default
     self-solve (``queries=None, exclude_self=True``) masks the
     diagonal."""
-    p64 = points.astype(np.float64)
-    q64 = p64 if queries is None else queries.astype(np.float64)
+    p64 = points.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
+    q64 = p64 if queries is None else queries.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
     if exclude is None and queries is None and exclude_self:
         exclude = np.arange(p64.shape[0])
     m = q64.shape[0]
-    kth = np.empty((m,), np.float64)
-    avail = np.empty((m,), np.int64)
+    kth = np.empty((m,), np.float64)  # kntpu-ok: wide-dtype -- oracle math
+    avail = np.empty((m,), np.int64)  # kntpu-ok: wide-dtype -- oracle math
     chunk = max(1, int(2.0e7) // max(1, p64.shape[0]))
     for s in range(0, m, chunk):
         q = q64[s:s + chunk]
@@ -71,8 +71,8 @@ def row_hits(points: np.ndarray, neighbors: np.ndarray,
     """Per row, the hits among its (k,) ``neighbors`` (-1 = none) against
     the ``kth`` thresholds; the rows answer ``queries`` (default: the
     points themselves)."""
-    p64 = points.astype(np.float64)
-    q64 = p64 if queries is None else queries.astype(np.float64)
+    p64 = points.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
+    q64 = p64 if queries is None else queries.astype(np.float64)  # kntpu-ok: wide-dtype -- oracle math
     valid = neighbors >= 0
     c = p64[np.where(valid, neighbors, 0)]
     gd = ((q64[:, None, :] - c) ** 2).sum(-1)

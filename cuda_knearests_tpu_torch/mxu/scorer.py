@@ -174,7 +174,7 @@ def fold_pool(s: torch.Tensor, ids: torch.Tensor, k: int, m: int
     m, and kplus, the smallest score left out."""
     lead, c = s.shape[:-1], s.shape[-1]
     if c % BLOCK != 0:
-        raise ValueError(f"candidate axis {c} is not a {BLOCK} multiple")
+        raise ValueError(f"candidate axis {c} is not a {BLOCK} multiple")  # kntpu-ok: bare-valueerror -- internal layout invariant (callers pad), not user input
     g = c // BLOCK
     m = min(int(m), BLOCK)
     blocks = score_key(s, ids).reshape(lead + (g, BLOCK))
@@ -206,7 +206,7 @@ def check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
     with C a positive BLOCK multiple, (C,) int32 ids, one device, all
     contiguous.  Returns (M, C, d)."""
     if queries.dim() != 2 or pts_il.dim() != 2:
-        raise ValueError(
+        raise ValueError(  # kntpu-ok: bare-valueerror -- internal layout invariant of the selection (callers pad), not user input
             f"select: queries and candidates must be 2-d (M, d) and (C, d), "
             f"got {tuple(queries.shape)} and {tuple(pts_il.shape)}")
     n_q, d = queries.shape
@@ -217,17 +217,17 @@ def check_select_args(queries, q_ids, pts_il, cid_il, k, m, d_real,
                                ("cid_il", cid_il, torch.int32, (n_c,))):
         if a.dtype != dt or tuple(a.shape) != shape \
                 or a.device != queries.device or not a.is_contiguous():
-            raise ValueError(
+            raise ValueError(  # kntpu-ok: bare-valueerror -- internal layout invariant of the selection (callers pad), not user input
                 f"select: {name} must be a contiguous {dt} tensor of shape "
                 f"{shape} on {queries.device}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
     if d < 1 or n_c == 0 or n_c % BLOCK != 0:
-        raise ValueError(
+        raise ValueError(  # kntpu-ok: bare-valueerror -- internal layout invariant (callers pad), not user input
             f"select: need d >= 1 and a positive multiple of {BLOCK} "
             f"candidates (callers pad), got d={d}, C={n_c}")
     for name, v in (("k", k), ("m", m), ("d_real", d_real)):
         if isinstance(v, bool) or int(v) < 1:
-            raise ValueError(f"select: {name} must be >= 1, got {v}")
+            raise ValueError(f"select: {name} must be >= 1, got {v}")  # kntpu-ok: bare-valueerror -- internal layout invariant of the selection (callers validate k), not user input
     check_precision(precision)
     return n_q, n_c, d
 

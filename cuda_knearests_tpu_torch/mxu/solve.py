@@ -207,19 +207,19 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
             certified=np.ones((m_q,), bool), uncert_count=0, bound=1.0,
             m=0, n_blocks=0, backend=backend, precision=precision)
 
-    pts_dev = dispatch.stage(points, device)
-    q_dev = pts_dev if self_solve else dispatch.stage(queries_v, device)
+    pts_dev = dispatch.stage(points, device)  # syncflow: mxu-stage
+    q_dev = pts_dev if self_solve else dispatch.stage(queries_v, device)  # syncflow: mxu-stage
 
     def brute(rows: np.ndarray):
         """Exact selection of the given query rows: ids only."""
-        rows_dev = dispatch.stage(rows, device)
+        rows_dev = dispatch.stage(rows, device)  # syncflow: mxu-fallback-stage
         if self_solve:
             return brute_force_by_index(pts_dev, rows_dev, k,
                                         exclude_self)[0]
         return brute_force_by_coords(pts_dev, q_dev[rows_dev.long()], k)[0]
 
     if scorer == "elementwise":
-        (b_i,) = dispatch.fetch(brute(np.arange(m_q, dtype=np.int32)))
+        (b_i,) = dispatch.fetch(brute(np.arange(m_q, dtype=np.int32)))  # syncflow: mxu-final
         ids, d2 = _host_rescore(points, queries_v, b_i)
         return MxuResult(neighbors=ids, dists_sq=d2,
                          certified=np.ones((m_q,), bool), uncert_count=0,
@@ -230,8 +230,8 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     m = per_block_m(recall_target, k, g)
     bound = recall_bound(k, g, m)
     qid, pts_il, cid_il = select_inputs(points, m_q, exclude_self)
-    qid_dev = dispatch.stage(qid, device)
-    cands = (dispatch.stage(pts_il, device), dispatch.stage(cid_il, device),
+    qid_dev = dispatch.stage(qid, device)  # syncflow: mxu-stage
+    cands = (dispatch.stage(pts_il, device), dispatch.stage(cid_il, device),  # syncflow: mxu-stage
              k, m, d, exclude_self, precision)
     step = (int(query_chunk) if query_chunk is not None
             and int(query_chunk) > 0 else m_q)
@@ -248,14 +248,14 @@ def solve_general(points, k: int = 10, recall_target: float = 1.0,
     sel_i = torch.cat([p[0] for p in parts])
     cert_d = torch.cat([p[2] for p in parts])
 
-    ids_sel, cert = dispatch.fetch(sel_i, cert_d)
+    ids_sel, cert = dispatch.fetch(sel_i, cert_d)  # syncflow: mxu-final
     ids, d2 = _host_rescore(points, queries_v, ids_sel)
     cert = np.array(cert)
     n_unc = int((~cert).sum())
     if refine == "brute" and n_unc:
         bad = np.nonzero(~cert)[0].astype(np.int32)
         with annotate("kntpu:mxu-refine"):
-            (b_i,) = dispatch.fetch(brute(bad))
+            (b_i,) = dispatch.fetch(brute(bad))  # syncflow: mxu-fallback
         ids[bad], d2[bad] = _host_rescore(points, queries_v[bad], b_i)
         cert[bad] = True
     return MxuResult(neighbors=ids, dists_sq=d2, certified=cert,

@@ -63,7 +63,7 @@ def check_precision(precision: str) -> str:
     """Refuse unknown scoring precisions (the config layer wraps the
     ValueError into its typed refusal)."""
     if precision not in PRECISIONS:
-        raise ValueError(
+        raise ValueError(  # kntpu-ok: bare-valueerror -- host-only module; config layer wraps with InvalidConfigError
             f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     return precision
 
@@ -120,7 +120,7 @@ def interleave_slots(n_slots: int) -> np.ndarray:
     BLOCK multiple.  Returns the (n_slots,) int32 gather map:
     out[i] = in[perm[i]]."""
     if n_slots % BLOCK != 0:
-        raise ValueError(f"n_slots={n_slots} is not a multiple of {BLOCK}")
+        raise ValueError(f"n_slots={n_slots} is not a multiple of {BLOCK}")  # kntpu-ok: bare-valueerror -- internal layout invariant (callers pad), not user input
     g = n_slots // BLOCK
     return np.arange(n_slots, dtype=np.int32).reshape(
         BLOCK, g).T.reshape(-1)

@@ -92,8 +92,8 @@ class FlightRecorder:
                 self._spill.close()
             except OSError:
                 pass
-            self._spill = None
-            self._spill_path = None
+            self._spill = None  # kntpu-ok: unguarded-shared-mutable -- _close_spill runs only with self._lock held (arm, disarm)
+            self._spill_path = None  # kntpu-ok: unguarded-shared-mutable -- _close_spill runs only with self._lock held (arm, disarm)
 
     def _event(self, kind: str, name: str, attrs: dict) -> dict:
         return {"v": _spans.SCHEMA, "kind": kind, "name": name,

@@ -437,9 +437,9 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
         class_of[spec.rows] = ci
         row_of[spec.rows] = np.arange(spec.rows.size, dtype=np.int32)
         sc_c = sc[spec.rows]
-        own = torch.as_tensor(_box_cell_ids(sc_c, 0, 0, s, dim),
+        own = torch.as_tensor(_box_cell_ids(sc_c, 0, 0, s, dim),  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables
                               device=device)
-        cand = torch.as_tensor(
+        cand = torch.as_tensor(  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables
             _box_cell_ids(sc_c, -spec.radius, spec.radius, s, dim),
             device=device)
         lo = ((sc_c * s - spec.radius) * w).astype(np.float32)
@@ -455,8 +455,8 @@ def build_adaptive_plan(grid: GridHash, cfg: KnnConfig,
                                      spec.qcap)
             qid = torch.where(q_ok, q_idx, _PAD_Q).to(torch.int32)
         classes.append(ClassPlan(
-            lo=torch.as_tensor(lo, device=device),
-            hi=torch.as_tensor(hi, device=device), radius=spec.radius,
+            lo=torch.as_tensor(lo, device=device),  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables
+            hi=torch.as_tensor(hi, device=device), radius=spec.radius,  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables
             qcap=spec.qcap, ccap=spec.ccap, route=spec.route, qid=qid,
             pk=pk, cand=cand, step_rows=rows, tgt=None,
             own=own if spec.route == "mxu" else None))
@@ -737,8 +737,8 @@ def bucket_queries(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
     scc = cell_coords_host(queries, grid.dim, grid.domain) // cfg.supercell
     n_sc = -(-grid.dim // cfg.supercell)
     # int64: n_sc^3 passes int32 at dim / supercell ~ 1,290
-    sid = (scc[:, 0].astype(np.int64) + n_sc * (scc[:, 1].astype(np.int64)
-           + n_sc * scc[:, 2].astype(np.int64)))
+    sid = (scc[:, 0].astype(np.int64) + n_sc * (scc[:, 1].astype(np.int64)  # kntpu-ok: wide-dtype -- supercell-id headroom (see above)
+           + n_sc * scc[:, 2].astype(np.int64)))  # kntpu-ok: wide-dtype -- supercell-id headroom (see above)
     return plan.class_of_sc[sid], plan.row_of_sc[sid]
 
 
@@ -791,7 +791,7 @@ def plan_queries(cfg: KnnConfig, plan: AdaptivePlan, qcls: np.ndarray,
         rows = rows[order]
         counts = np.bincount(rows, minlength=cp.n_sc)
         starts = np.concatenate([[0], np.cumsum(counts)])
-        rank = np.arange(sel.size, dtype=np.int64) - starts[rows]
+        rank = np.arange(sel.size, dtype=np.int64) - starts[rows]  # kntpu-ok: wide-dtype -- slot indices index a device tensor, and torch indexes with int64
         max_q = int(counts.max())
         q2cap = -(-max_q // 128) * 128
         route = cp.route
@@ -818,7 +818,7 @@ def plan_queries(cfg: KnnConfig, plan: AdaptivePlan, qcls: np.ndarray,
                 f"supercells x {q2cap} slots); reduce the query batch")
         buckets.append(QueryBucket(
             cls=ci, src=sel[order].astype(np.int32),
-            slot=rows.astype(np.int64) * q2cap + rank, starts=starts,
+            slot=rows.astype(np.int64) * q2cap + rank, starts=starts,  # kntpu-ok: wide-dtype -- slot indices index a device tensor, and torch indexes with int64
             n_sc=cp.n_sc, q2cap=q2cap, route=route, step_rows=step))
     return tuple(buckets)
 
@@ -837,12 +837,12 @@ def query_pack(queries: torch.Tensor, cp: ClassPlan, b: QueryBucket,
             f"vs plan (n_sc={cp.n_sc}, ccap={cp.ccap}); was this plan built "
             f"against a different grid?")
     device = queries.device
-    src = dispatch.stage(b.src, device)
-    slot = dispatch.stage(b.slot, device)
+    src = dispatch.stage(b.src, device)  # syncflow: query-class-stage
+    slot = dispatch.stage(b.slot, device)  # syncflow: query-class-stage
     q = queries[src.long()]
     axes = []
     for ax in range(3):
-        a = torch.zeros((b.n_sc * b.q2cap,), dtype=torch.float32,
+        a = torch.zeros((b.n_sc * b.q2cap,), dtype=torch.float32,  # kntpu-ok: jnp-in-loop -- three per-axis slot buffers of one class's query pack, bounded
                         device=device)
         a[slot] = q[:, ax]
         axes.append(a.view(b.n_sc, b.q2cap))
@@ -878,8 +878,8 @@ def _streamed_query_class(grid: GridHash, plan: AdaptivePlan,
         cand = torch.as_tensor(
             _box_cell_ids(coords, -cp.radius, cp.radius, supercell,
                           grid.dim), device=device)
-    src = dispatch.stage(b.src, device)
-    slot = dispatch.stage(b.slot, device)
+    src = dispatch.stage(b.src, device)  # syncflow: query-class-stage
+    slot = dispatch.stage(b.slot, device)  # syncflow: query-class-stage
     q2cap, tile = b.q2cap, stream_tile(cp.ccap)
     for r0 in range(0, b.n_sc, b.step_rows):
         r1 = min(r0 + b.step_rows, b.n_sc)
@@ -888,18 +888,18 @@ def _streamed_query_class(grid: GridHash, plan: AdaptivePlan,
             continue
         rows = r1 - r0
         s = slot[a:e] - r0 * q2cap
-        q = torch.zeros((rows * q2cap, 3), dtype=torch.float32,
+        q = torch.zeros((rows * q2cap, 3), dtype=torch.float32,  # kntpu-ok: jnp-in-loop -- one streamed step's slot buffers, bounded by the class's step count
                         device=device)
         q[s] = queries[src[a:e].long()]
-        q_ok = torch.zeros((rows * q2cap,), dtype=torch.bool, device=device)
+        q_ok = torch.zeros((rows * q2cap,), dtype=torch.bool, device=device)  # kntpu-ok: jnp-in-loop -- one streamed step's slot buffers, bounded by the class's step count
         q_ok[s] = True
-        tgt = torch.full((rows * q2cap,), m, dtype=torch.int32,
+        tgt = torch.full((rows * q2cap,), m, dtype=torch.int32,  # kntpu-ok: jnp-in-loop -- one streamed step's slot buffers, bounded by the class's step count
                          device=device)
         tgt[s] = src[a:e]
         streamed_topk(grid.points, grid.cell_starts, grid.cell_counts,
                       cand[r0:r1], q.view(rows, q2cap, 3),
                       q_ok.view(rows, q2cap),
-                      torch.full((rows, q2cap), -2, dtype=torch.int32,
+                      torch.full((rows, q2cap), -2, dtype=torch.int32,  # kntpu-ok: jnp-in-loop -- one streamed step's slot buffers, bounded by the class's step count
                                  device=device),
                       k, cp.ccap, tile, rows, tgt=tgt, out=(buf_d, buf_i))
 
@@ -918,7 +918,7 @@ def query_device(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
     device = grid.device
     buckets = plan_queries(cfg, plan, qcls, qrow, k,
                            hbm_budget_bytes(device, cfg))
-    q_dev = dispatch.stage(queries, device)
+    q_dev = dispatch.stage(queries, device)  # syncflow: query-class-stage
     buf_d = torch.full((m + 1, k), float("inf"), dtype=torch.float32,
                        device=device)
     buf_i = torch.full((m + 1, k), INVALID_ID, dtype=torch.int32,
@@ -938,12 +938,12 @@ def query_device(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
         launch_kernel_class(cfg, cp.ccap, pk, tgt, k, False, (out_d, out_i))
     has = qcls >= 0
     box_off = np.cumsum([0] + [cp.n_sc for cp in plan.classes])[:-1]
-    box = dispatch.stage(
+    box = dispatch.stage(  # syncflow: query-class-stage
         np.where(has, box_off[np.maximum(qcls, 0)] + qrow, 0), device).long()
     lo = torch.cat([cp.lo for cp in plan.classes])[box]
     hi = torch.cat([cp.hi for cp in plan.classes])[box]
     cert = ((out_d[:, k - 1] <= _margin_sq(q_dev, lo, hi, grid.domain))
-            & dispatch.stage(has, device))
+            & dispatch.stage(has, device))  # syncflow: query-class-stage
     ok = torch.isfinite(out_d)
     ids = translate_ids(torch.where(ok, out_i, INVALID_ID), grid.permutation)
     d2 = torch.where(ok, out_d, float("inf"))
@@ -979,15 +979,15 @@ def query_adaptive(grid: GridHash, cfg: KnnConfig, plan: AdaptivePlan,
     if m == 0:
         return np.empty((0, k), np.int32), np.empty((0, k), np.float32)
     qcls, qrow = bucket_queries(grid, cfg, plan, queries)
-    ids, d2, cert = dispatch.fetch(*query_device(grid, cfg, plan, queries,
+    ids, d2, cert = dispatch.fetch(*query_device(grid, cfg, plan, queries,  # syncflow: adaptive-query-final
                                                  qcls, qrow, k))
     need = ~cert if fallback == "brute" else qcls < 0
     if need.any():
         bad = np.nonzero(need)[0]
         b_i, b_d = brute_force_by_coords(
-            grid.points, dispatch.stage(queries[bad], grid.device), k,
+            grid.points, dispatch.stage(queries[bad], grid.device), k,  # syncflow: adaptive-query-fallback-stage
             ids_map=grid.permutation)
-        b_i, b_d = dispatch.fetch(b_i, b_d)
+        b_i, b_d = dispatch.fetch(b_i, b_d)  # syncflow: adaptive-query-fallback
         ids[bad] = b_i
         d2[bad] = b_d
     return ids, d2

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
 from . import _build
 from .solve import pack_cells
@@ -439,6 +440,24 @@ def _launch(name: str, args, s_total: int, qcap: int, ccap: int, k: int,
     return out, True
 
 
+def _record(wrapper: str, args, k: int, m: int, plan: TopkPlan, tgt, out):
+    """The wrapper's :class:`~..runtime.dispatch.LaunchRecord`, taken
+    before it branches between its kernel and its plain version."""
+    s_total, qcap = args[0].shape
+    ccap = args[4].shape[1]
+    if tgt is None:
+        outs = ((s_total, k, qcap),) * 2
+    else:
+        outs = tuple(tuple(o.shape) for o in out) if out is not None else ()
+    dispatch.record_launch(
+        wrapper=wrapper, mode="b" if tgt is None else "a",
+        kernels=(wrapper,), k=int(k), m=int(m), q_tile=plan.qchunk,
+        qcap=int(qcap), ccap=int(ccap), s_total=int(s_total),
+        in_dtypes=tuple(dispatch.dtype_name(a.dtype) for a in args)
+        + (() if tgt is None else (dispatch.dtype_name(tgt.dtype),)),
+        out_shapes=tuple(tuple(int(d) for d in o) for o in outs))
+
+
 def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
                    exclude_self: bool, tgt: Optional[torch.Tensor] = None,
                    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -461,6 +480,8 @@ def supercell_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int,
     plan = topk_plan(k, qcap, ccap)
     if tgt is None:
         check_raw_indexing(s_total, k, qcap)
+    if dispatch.recording():
+        _record("supercell_topk", args, k, 0, plan, tgt, out)
     if qx.device.type == "cpu":
         return supercell_topk_plain(*args, k, exclude_self, tgt, out)
     out, launched = _launch("supercell_topk", args, s_total, qcap, ccap, k,
@@ -489,6 +510,8 @@ def blocked_topk(qx, qy, qz, qid, cx, cy, cz, cid, k: int, m: int,
     plan = topk_plan(k, qcap, ccap, m)
     if tgt is None:
         check_raw_indexing(s_total, k, qcap)
+    if dispatch.recording():
+        _record("blocked_topk", args, k, m, plan, tgt, out)
     if qx.device.type == "cpu":
         return blocked_topk_plain(*args, k, m, exclude_self, tgt, out)
     out, launched = _launch("blocked_topk", args, s_total, qcap, ccap, k,

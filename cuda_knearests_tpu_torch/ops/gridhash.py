@@ -139,12 +139,12 @@ def cell_min_d2_host(queries: np.ndarray, cells: np.ndarray, dim: int,
     overlay's pruning bound.  Computed in float64 against the exact cell
     box [lo, hi] with the per-axis clamp max(lo - q, 0, q - hi), so it
     never exceeds a true distance; a query inside the cell gets 0."""
-    w = np.float64(domain) / dim
+    w = np.float64(domain) / dim  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     cx = cells % dim
     cy = (cells // dim) % dim
     cz = cells // (dim * dim)
-    lo = np.stack([cx, cy, cz], axis=-1).astype(np.float64) * w
+    lo = np.stack([cx, cy, cz], axis=-1).astype(np.float64) * w  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     hi = lo + w
-    q = np.asarray(queries, np.float64)[:, None, :]
+    q = np.asarray(queries, np.float64)[:, None, :]  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     d = np.maximum(np.maximum(lo[None] - q, q - hi[None]), 0.0)
     return (d * d).sum(-1)

@@ -62,7 +62,7 @@ def brute_force_by_coords(points: torch.Tensor, queries: torch.Tensor,
         best = init_topk((q.shape[0],), k, device=points.device)
         for t0 in range(0, n, tile):
             pts_t = points[t0:t0 + tile]
-            ids_t = torch.arange(t0, t0 + pts_t.shape[0], dtype=torch.int32,
+            ids_t = torch.arange(t0, t0 + pts_t.shape[0], dtype=torch.int32,  # kntpu-ok: jnp-in-loop -- one id row per candidate tile of the plain brute scan, bounded by n / tile
                                  device=points.device)
             d2 = _solve.sum_sq_diff(q, pts_t)
             best = merge_topk(best, pack_key(d2, ids_t.expand(d2.shape)))
@@ -84,14 +84,14 @@ def bucket_queries(queries: np.ndarray, grid, supercell: int,
     ``inv_sc[r]``."""
     coords = cell_coords_host(queries, grid.dim, grid.domain)
     n_sc = -(-grid.dim // supercell)
-    sc = coords.astype(np.int64) // supercell
+    sc = coords.astype(np.int64) // supercell  # kntpu-ok: wide-dtype -- supercell-id headroom, host-only
     sid = sc[:, 0] + n_sc * (sc[:, 1] + n_sc * sc[:, 2])
     order = np.argsort(sid, kind="stable").astype(np.int32)
     sc_counts = np.bincount(sid, minlength=s_total).astype(np.int32)
     q2cap = _solve._round_up(int(sc_counts.max()) if sc_counts.size else 1,
                              128)
     starts = np.concatenate([[0], np.cumsum(sc_counts)[:-1]]).astype(
-        np.int64)
+        np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
     sid_sorted = sid[order]
     inv_flat = (sid_sorted * q2cap
                 + (np.arange(order.size) - starts[sid_sorted])).astype(
@@ -104,8 +104,8 @@ def _inv_flat_at(sc_starts: np.ndarray, inv_sc: np.ndarray,
                  q2cap: int) -> np.ndarray:
     """A bucketing's ``inv_flat`` at another (shared) q2cap, its only
     q2cap-dependent output."""
-    sid = inv_sc.astype(np.int64)
-    rank = np.arange(sid.size) - sc_starts.astype(np.int64)[sid]
+    sid = inv_sc.astype(np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
+    rank = np.arange(sid.size) - sc_starts.astype(np.int64)[sid]  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
     return (sid * q2cap + rank).astype(np.int32)
 
 
@@ -156,10 +156,10 @@ def _launch_packed(qs: torch.Tensor, starts, sc_counts, inv_flat, inv_sc,
     then :func:`_query_packed`.  (The reference keys an executable cache
     here; torch compiles nothing per shape, so there is none to key.)"""
     device = qs.device
-    return _query_packed(qs, dispatch.stage(starts, device),
-                         dispatch.stage(sc_counts, device),
-                         dispatch.stage(inv_flat, device),
-                         dispatch.stage(inv_sc, device), pack, perm, q2cap,
+    return _query_packed(qs, dispatch.stage(starts, device),  # syncflow: query-launch-stage
+                         dispatch.stage(sc_counts, device),  # syncflow: query-launch-stage
+                         dispatch.stage(inv_flat, device),  # syncflow: query-launch-stage
+                         dispatch.stage(inv_sc, device), pack, perm, q2cap,  # syncflow: query-launch-stage
                          k, domain, epilogue)
 
 
@@ -208,7 +208,7 @@ def query_knn(grid, plan, pack, queries: np.ndarray, k: int, supercell: int,
     pending = []
     for (a, b), (order, sc_counts, starts, _, inv_flat, inv_sc) in zip(
             bounds, buckets):
-        qs = dispatch.stage(queries[a:b][order], device)
+        qs = dispatch.stage(queries[a:b][order], device)  # syncflow: query-chunk-stage
         if use_kernel:
             pending.extend(_launch_packed(
                 qs, starts, sc_counts, inv_flat, inv_sc, pack,
@@ -216,7 +216,7 @@ def query_knn(grid, plan, pack, queries: np.ndarray, k: int, supercell: int,
         else:
             pending.extend(brute_force_by_coords(grid.points, qs, k,
                                                  ids_map=grid.permutation))
-    fetched = dispatch.fetch(*pending)
+    fetched = dispatch.fetch(*pending)  # syncflow: query-final
     per = 3 if use_kernel else 2
     nbrs = np.empty((m, k), np.int32)
     d2 = np.empty((m, k), np.float32)
@@ -230,9 +230,9 @@ def query_knn(grid, plan, pack, queries: np.ndarray, k: int, supercell: int,
     if use_kernel and fallback == "brute" and not cert.all():
         bad = np.nonzero(~cert)[0]
         b_i, b_d = brute_force_by_coords(
-            grid.points, dispatch.stage(queries[bad], device), k,
+            grid.points, dispatch.stage(queries[bad], device), k,  # syncflow: query-fallback-stage
             ids_map=grid.permutation)
-        b_i, b_d = dispatch.fetch(b_i, b_d)
+        b_i, b_d = dispatch.fetch(b_i, b_d)  # syncflow: query-fallback
         nbrs[bad] = b_i
         d2[bad] = b_d
     return nbrs, d2

@@ -59,7 +59,7 @@ def summed_area_table(counts3: np.ndarray) -> np.ndarray:
     """(dz+1, dy+1, dx+1) int64 inclusive 3-D prefix sums of per-cell
     counts (int64: the sums reach the total point count)."""
     dz, dy, dx = counts3.shape
-    sat = np.zeros((dz + 1, dy + 1, dx + 1), dtype=np.int64)
+    sat = np.zeros((dz + 1, dy + 1, dx + 1), dtype=np.int64)  # kntpu-ok: wide-dtype -- population prefix sums (see above)
     sat[1:, 1:, 1:] = counts3.cumsum(0).cumsum(1).cumsum(2)
     return sat
 
@@ -89,8 +89,8 @@ def ring_occupancy(counts3: np.ndarray, sc_coords: np.ndarray,
     int64; column r covers [sc*s - r, sc*s + s + r) clamped to the grid."""
     dim = counts3.shape[0]
     num_sc = sc_coords.shape[0]
-    pts = np.empty((num_sc, rmax + 1), np.int64)
-    cells = np.empty((num_sc, rmax + 1), np.int64)
+    pts = np.empty((num_sc, rmax + 1), np.int64)  # kntpu-ok: wide-dtype -- population sums (see above)
+    cells = np.empty((num_sc, rmax + 1), np.int64)  # kntpu-ok: wide-dtype -- population sums (see above)
     base_lo = sc_coords * supercell
     base_hi = base_lo + supercell
     sat = summed_area_table(counts3)

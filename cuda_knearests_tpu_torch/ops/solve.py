@@ -392,7 +392,7 @@ def brute_force_by_index(points: torch.Tensor, q_idx: torch.Tensor, k: int,
         best = init_topk((qi.shape[0],), k, device=points.device)
         for t0 in range(0, n, tile):
             pts_t = points[t0:t0 + tile]
-            ids_t = torch.arange(t0, t0 + pts_t.shape[0], dtype=torch.int32,
+            ids_t = torch.arange(t0, t0 + pts_t.shape[0], dtype=torch.int32,  # kntpu-ok: jnp-in-loop -- one id row per candidate tile of the plain brute scan, bounded by n / tile
                                  device=points.device)
             d2 = sum_sq_diff(q, pts_t)
             mask = q_ok[:, None].expand(d2.shape)

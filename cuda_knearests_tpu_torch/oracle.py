@@ -177,8 +177,8 @@ class UnionFind:
     """Array union-find with path compression and union by size (host)."""
 
     def __init__(self, n: int):
-        self.parent = np.arange(n, dtype=np.int64)
-        self.size = np.ones(n, dtype=np.int64)
+        self.parent = np.arange(n, dtype=np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
+        self.size = np.ones(n, dtype=np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
 
     def find(self, i: int) -> int:
         p = self.parent
@@ -203,8 +203,8 @@ class UnionFind:
         of its component (the engine's canonical labels)."""
         n = self.parent.shape[0]
         roots = np.fromiter((self.find(i) for i in range(n)),
-                            dtype=np.int64, count=n)
-        mins = np.full(n, n, dtype=np.int64)
+                            dtype=np.int64, count=n)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
+        mins = np.full(n, n, dtype=np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
         np.minimum.at(mins, roots, np.arange(n))
         return mins[roots].astype(np.int32)
 
@@ -215,7 +215,7 @@ def _fof_thresholds(b: float, band: float):
     above ``hi`` it must not, in between it may do either.  ``band`` is
     the absolute slack in squared-distance units (0.0: the exact
     radius)."""
-    b2 = float(np.float64(b) ** 2)
+    b2 = float(np.float64(b) ** 2)  # kntpu-ok: wide-dtype -- exact host threshold arithmetic, never staged
     return max(b2 - band, 0.0), b2 + band
 
 
@@ -223,7 +223,7 @@ def _pairs_within(points: np.ndarray, hi: float, chunk: int = 1024):
     """All pairs (i < j) with float64 squared distance <= ``hi``: (pairs
     (E, 2) int64, d2 (E,) float64).  A chunked O(n^2) brute force -- the
     oracle is exact, not fast."""
-    pts = np.asarray(points, np.float64)
+    pts = np.asarray(points, np.float64)  # kntpu-ok: wide-dtype -- exact oracle distances, host-only, never staged
     n = pts.shape[0]
     out_p, out_d = [], []
     for s in range(0, n, chunk):
@@ -234,7 +234,7 @@ def _pairs_within(points: np.ndarray, hi: float, chunk: int = 1024):
         out_p.append(np.stack([ii[keep] + s, jj[keep]], axis=1))
         out_d.append(d2[ii[keep], jj[keep]])
     if not out_p:
-        return (np.empty((0, 2), np.int64), np.empty((0,), np.float64))
+        return (np.empty((0, 2), np.int64), np.empty((0,), np.float64))  # kntpu-ok: wide-dtype -- exact oracle distances, host-only, never staged
     return np.concatenate(out_p), np.concatenate(out_d)
 
 

@@ -83,11 +83,11 @@ def main(argv=None) -> int:
                     - launches)
         os.makedirs(args.out, exist_ok=True)
         for d in slabs:
-            sids = sp._chip_inputs(d)["sids"].cpu().numpy()
+            sids = sp._chip_inputs(d)["sids"].cpu().numpy()  # kntpu-ok: host-sync-loop -- the smoke's per-slab row dump after solve_device: one bounded readback per slab, outside every solve window
             real = sids >= 0
             rows = {"sids": sids[real]}
             if outs[d] is not None:
-                nbr, d2, cert = (t.cpu().numpy() for t in outs[d])
+                nbr, d2, cert = (t.cpu().numpy() for t in outs[d])  # kntpu-ok: host-sync-loop -- the smoke's per-slab row dump after solve_device: one bounded readback per slab, outside every solve window
                 rows.update(nbr=nbr[real], d2=d2[real], cert=cert[real])
             np.savez(os.path.join(args.out,
                                   f"rank{args.rank}_slab{d}.npz"), **rows)

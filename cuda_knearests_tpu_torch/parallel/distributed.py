@@ -65,7 +65,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
         return
     if coordinator_address is None or num_processes is None \
             or process_id is None:
-        raise ValueError(
+        raise ValueError(  # kntpu-ok: bare-valueerror -- process-group setup contract, not point-input validation
             "init_distributed: give coordinator_address, num_processes and "
             "process_id together (or none of them)")
     dist.init_process_group(backend,
@@ -154,7 +154,7 @@ def check_process_major(mesh: Sequence) -> None:
     if bad:
         mine = "" if got == want and got else (
             f"; this process owns mesh positions {got}, expected {want}")
-        raise ValueError(
+        raise ValueError(  # kntpu-ok: bare-valueerror -- mesh-topology/runtime contract, not point-input validation
             f"multi-host mesh is not process-major on process(es) "
             f"{bad}{mine}; build the mesh with "
             f"parallel.distributed.z_mesh()")
@@ -225,6 +225,6 @@ def allgather_counts(local_counts: List[torch.Tensor], ndev: int
     dist.all_gather(blocks, mine)
     out = torch.cat(blocks).cpu().numpy()
     if out.shape[0] != ndev:
-        raise ValueError(f"gathered {out.shape[0]} slabs' counts for a "
+        raise ValueError(f"gathered {out.shape[0]} slabs' counts for a "  # kntpu-ok: bare-valueerror -- internal invariant of the gathered census, not input validation
                          f"{ndev}-slab mesh")
     return out

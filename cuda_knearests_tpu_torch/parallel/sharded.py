@@ -111,7 +111,7 @@ def _measured_halo_depth(points: np.ndarray, dim: int, zcap: int,
     rmax = min(zcap, int(min(dim, max(6, 2 * default_ring_radius(
         cfg.k, cfg.density)))))
     # int64 coords: the dim^2 linearization below must not wrap
-    coords = np.clip((points * (dim / DOMAIN_SIZE)).astype(np.int64),
+    coords = np.clip((points * (dim / DOMAIN_SIZE)).astype(np.int64),  # kntpu-ok: wide-dtype -- linearization headroom (see above)
                      0, dim - 1)
     lin = coords[:, 0] + dim * coords[:, 1] + dim * dim * coords[:, 2]
     counts3 = np.bincount(lin, minlength=dim ** 3).reshape(dim, dim, dim)
@@ -134,7 +134,7 @@ def _partition_host(points: np.ndarray, dim: int, zcap: int, radius: int,
     chip = np.minimum(cz // zcap, ndev - 1).astype(np.int32)
     order = np.argsort(chip, kind="stable")
     # int64: slab populations cumsum to n
-    counts = np.bincount(chip[order], minlength=ndev).astype(np.int64)
+    counts = np.bincount(chip[order], minlength=ndev).astype(np.int64)  # kntpu-ok: wide-dtype -- population sums, host-only
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     pcap = _round_up(int(counts.max()) if n else 1, 8)
 
@@ -253,8 +253,8 @@ def _window_occupancy(win3: np.ndarray, sc: np.ndarray, s: int, R: int,
     sat = summed_area_table(win3)
     z_valid_lo = max(0, R - zc0)
     z_valid_hi = min(zwin, dim + R - zc0)
-    pts = np.empty((sc.shape[0], rmax + 1), np.int64)
-    cells = np.empty((sc.shape[0], rmax + 1), np.int64)
+    pts = np.empty((sc.shape[0], rmax + 1), np.int64)  # kntpu-ok: wide-dtype -- population sums (see above)
+    cells = np.empty((sc.shape[0], rmax + 1), np.int64)  # kntpu-ok: wide-dtype -- population sums (see above)
     for r in range(rmax + 1):
         lo = base_lo - r
         hi = base_hi + r
@@ -275,8 +275,8 @@ def _window_box_cells(sc: np.ndarray, lo_off: int, hi_off: int, s: int,
     side = s + hi_off - lo_off
     # int64 intermediates: the dim^2 linearization must not wrap before
     # the int32 cast of its result
-    offs = np.arange(lo_off, s + hi_off, dtype=np.int64)
-    ax = sc[:, :, None].astype(np.int64) * s + offs[None, None, :]
+    offs = np.arange(lo_off, s + hi_off, dtype=np.int64)  # kntpu-ok: wide-dtype -- linearization headroom (see above)
+    ax = sc[:, :, None].astype(np.int64) * s + offs[None, None, :]  # kntpu-ok: wide-dtype -- linearization headroom (see above)
     x, y, z = ax[:, 0], ax[:, 1], ax[:, 2] + R       # z in window coords
     okx = (x >= 0) & (x < dim)
     oky = (y >= 0) & (y < dim)
@@ -347,10 +347,10 @@ def _plan_chip(counts_all: np.ndarray, d: int, meta: ShardMeta,
         return c.reshape(zcap, dim, dim)
 
     # int64: the window feeds summed_area_table, whose sums reach n
-    zeros = np.zeros((R, dim, dim), np.int64)
+    zeros = np.zeros((R, dim, dim), np.int64)  # kntpu-ok: wide-dtype -- population sums (see above)
     lo3 = mk3(counts_all[d - 1])[-R:] if d > 0 else zeros
     hi3 = mk3(counts_all[d + 1])[:R] if d + 1 < meta.ndev else zeros
-    win3 = np.concatenate([lo3, mk3(counts_all[d]).astype(np.int64), hi3])
+    win3 = np.concatenate([lo3, mk3(counts_all[d]).astype(np.int64), hi3])  # kntpu-ok: wide-dtype -- population sums (see above)
 
     n_sc_xy = -(-dim // s)
     r = np.arange(n_sc_xy, dtype=np.int32)
@@ -457,8 +457,8 @@ def _chip_ready_state(window: GridHash, plan: ChipPlan, loc0: int, pcap: int,
     row_off = box_off = 0
     classes = []
     for sc in plan.classes:
-        own = torch.as_tensor(sc.own, device=device)
-        cand = torch.as_tensor(sc.cand, device=device)
+        own = torch.as_tensor(sc.own, device=device)  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables per chip
+        cand = torch.as_tensor(sc.cand, device=device)  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables per chip
         pk = None
         if sc.route == "kernel":
             pk = pack_inputs(window.points, window.cell_starts,
@@ -468,8 +468,8 @@ def _chip_ready_state(window: GridHash, plan: ChipPlan, loc0: int, pcap: int,
             q_idx, q_ok = pack_cells(own, window.cell_starts,
                                      window.cell_counts, sc.qcap)
             qid = torch.where(q_ok, q_idx, _PAD_Q).to(torch.int32)
-        cp = ClassPlan(lo=torch.as_tensor(sc.lo, device=device),
-                       hi=torch.as_tensor(sc.hi, device=device),
+        cp = ClassPlan(lo=torch.as_tensor(sc.lo, device=device),  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables per chip
+                       hi=torch.as_tensor(sc.hi, device=device),  # kntpu-ok: jnp-in-loop -- prepare-time, <= max_classes tables per chip
                        radius=sc.radius, qcap=sc.qcap, ccap=sc.ccap,
                        route=sc.route, qid=qid, pk=pk, cand=cand,
                        step_rows=sc.step_rows, tgt=None,
@@ -535,8 +535,8 @@ def save_sharded(problem: "ShardedKnnProblem", path: str) -> None:
     np.savez_compressed(
         _npz_path(path),
         points=problem._points_host,
-        dim=np.int64(problem.meta.dim),
-        n_devices=np.int64(problem.meta.ndev),
+        dim=np.int64(problem.meta.dim),  # kntpu-ok: wide-dtype -- on-disk checkpoint schema (api.save_problem parity)
+        n_devices=np.int64(problem.meta.ndev),  # kntpu-ok: wide-dtype -- on-disk checkpoint schema (api.save_problem parity)
         config_json=np.bytes_(json.dumps(
             {k: v for k, v in cfg.items() if v is not None}).encode()))
 
@@ -725,8 +725,8 @@ class ShardedKnnProblem:
             built = {}
             for d in local:
                 device = mesh[d].device
-                built[d] = _build_slab(dispatch.stage(b_pts[d], device),
-                                       dispatch.stage(b_ids[d], device),
+                built[d] = _build_slab(dispatch.stage(b_pts[d], device),  # syncflow: sharded-prepare-stage
+                                       dispatch.stage(b_ids[d], device),  # syncflow: sharded-prepare-stage
                                        int(n_local[d]), d, meta)
             dev = _exchange(built, meta, mesh)
             del built
@@ -734,7 +734,7 @@ class ShardedKnnProblem:
                 counts_all = _dist.allgather_counts(
                     [dev[d]["counts"] for d in local], ndev)
             else:
-                counts_all = np.stack(dispatch.fetch(
+                counts_all = np.stack(dispatch.fetch(  # syncflow: sharded-prepare-census
                     *[dev[d]["counts"] for d in local]))
         seconds["build_exchange"] = sp.dur_ms / 1e3
 
@@ -780,7 +780,7 @@ class ShardedKnnProblem:
         lifetime (``solve_device`` and ``query`` both build it); release
         it with :meth:`drop_ready`."""
         if not self.chip_plans[d].classes:
-            raise ValueError(f"slab {d} has an empty class schedule")
+            raise ValueError(f"slab {d} has an empty class schedule")  # kntpu-ok: bare-valueerror -- internal invariant (callers skip empty slabs), not input validation
         if d not in self._ready_cache:
             b = self._chip_inputs(d)
             ext_pts, ext_ids, ext_starts, ext_counts = _assemble_ext(
@@ -850,7 +850,7 @@ class ShardedKnnProblem:
         cert = np.zeros((n,), bool)
         live = [d for d in sorted(outs) if outs[d] is not None]
         with _spans.span("solve.sharded.fetch", slabs=len(live)):
-            fetched = dispatch.fetch(*[
+            fetched = dispatch.fetch(*[  # syncflow: sharded-solve-final
                 t for d in live
                 for t in (self._chip_inputs(d)["sids"],) + tuple(outs[d])])
         with _spans.span("solve.sharded.place"):
@@ -879,7 +879,7 @@ class ShardedKnnProblem:
         """Original index of every stored row, slab by slab (a bijection
         over [0, n)); one batched fetch.  Single-controller."""
         self._require_all_slabs("permutation()")
-        ids = dispatch.fetch(*[self._chip_inputs(d)["sids"]
+        ids = dispatch.fetch(*[self._chip_inputs(d)["sids"]  # syncflow: sharded-permutation
                                for d in self.local_chips()])
         flat = np.concatenate(ids)
         return flat[flat >= 0]
@@ -916,7 +916,7 @@ class ShardedKnnProblem:
         s = cfg.supercell
         # int64: the supercell linearization multiplies by n_sc_xy^2
         coords = cell_coords_host(queries, meta.dim, meta.domain).astype(
-            np.int64)
+            np.int64)  # kntpu-ok: wide-dtype -- supercell linearization headroom, host-only
         owner = np.minimum(coords[:, 2] // meta.zcap, meta.ndev - 1)
         n_sc_xy = -(-meta.dim // s)
         out_i = np.full((m, k), INVALID_ID, np.int32)
@@ -935,7 +935,7 @@ class ShardedKnnProblem:
             pending.append((on_d, query_device(
                 ready.window, cfg, ready.plan, queries[on_d],
                 plan.class_of[scidx], plan.row_of[scidx], k)))
-        fetched = dispatch.fetch(*[t for _, ts in pending for t in ts])
+        fetched = dispatch.fetch(*[t for _, ts in pending for t in ts])  # syncflow: sharded-query-final
         for j, (rows, _) in enumerate(pending):
             out_i[rows], out_d[rows], cert[rows] = fetched[3 * j: 3 * j + 3]
         if not cert.all():
@@ -1000,7 +1000,7 @@ class ShardedKnnProblem:
         chips = []
         for d in self.local_chips():
             inp = self._chip_inputs(d)
-            counts = inp["counts"].cpu().numpy()
+            counts = inp["counts"].cpu().numpy()  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
             plan = self.chip_plans[d]
             row = {
                 "chip": d,
@@ -1013,21 +1013,21 @@ class ShardedKnnProblem:
             out = (self._device_out_cache or {}).get(d)
             if out is not None and d in self._ready_cache:
                 ready = self._ready_cache[d]
-                sids = inp["sids"].cpu().numpy()
+                sids = inp["sids"].cpu().numpy()  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
                 real = sids >= 0
                 kth = None
                 if self._solved_cache is not None:
                     kth = self._solved_cache[1][sids[real], -1]
                 else:
-                    cert = out[2].cpu().numpy()[real]
+                    cert = out[2].cpu().numpy()[real]  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
                     if cert.all():
-                        kth = out[1].cpu().numpy()[real, -1]
+                        kth = out[1].cpu().numpy()[real, -1]  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
                     else:
                         row["margin_pending_fallback"] = int((~cert).sum())
                 if kth is not None:
-                    msq = _margin_sq_np(ready.spts.cpu().numpy()[real],
-                                        ready.lo_rows.cpu().numpy()[real],
-                                        ready.hi_rows.cpu().numpy()[real],
+                    msq = _margin_sq_np(ready.spts.cpu().numpy()[real],  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
+                                        ready.lo_rows.cpu().numpy()[real],  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
+                                        ready.hi_rows.cpu().numpy()[real],  # kntpu-ok: host-sync-loop -- per-chip diagnostics readback
                                         meta.domain)
                     row["margin"] = margin_summary(kth, msq)
             chips.append(row)

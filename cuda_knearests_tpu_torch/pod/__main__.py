@@ -46,7 +46,7 @@ def _chips(device: str, n: int) -> list:
 def _sync(chips) -> None:
     for dv in set(chips):
         if dv.type == "cuda":
-            torch.cuda.synchronize(dv)
+            torch.cuda.synchronize(dv)  # kntpu-ok: host-sync-loop -- the smoke's timing fence: one wait per chip between timed phases, never inside a solve
 
 
 def _row(check: str, ok: bool, **extra) -> bool:

@@ -85,7 +85,7 @@ def stage_chips(bucket_pts: np.ndarray, bucket_ids: np.ndarray,
     """Stage each chip's bucket (points, ids) and export indices onto its
     own device, one ``dispatch.stage`` an array a chip: the whole cloud
     never rides one transfer."""
-    return {d: {"pts": dispatch.stage(bucket_pts[d], dv),
-                "ids": dispatch.stage(bucket_ids[d], dv),
-                "export_idx": dispatch.stage(export_idx[d], dv)}
+    return {d: {"pts": dispatch.stage(bucket_pts[d], dv),  # syncflow: pod-prepare-stage
+                "ids": dispatch.stage(bucket_ids[d], dv),  # syncflow: pod-prepare-stage
+                "export_idx": dispatch.stage(export_idx[d], dv)}  # syncflow: pod-prepare-stage
             for d, dv in enumerate(devices)}

@@ -46,8 +46,8 @@ from ..utils.memory import LaunchBudgetError
 def morton3(coords: np.ndarray) -> np.ndarray:
     """Morton (z-order) codes of (m, 3) integer coords, int64, x-minor
     interleave, 21 bits an axis."""
-    c = coords.astype(np.int64)
-    out = np.zeros(c.shape[0], dtype=np.int64)
+    c = coords.astype(np.int64)  # kntpu-ok: wide-dtype -- 3x21-bit interleave headroom, host-only
+    out = np.zeros(c.shape[0], dtype=np.int64)  # kntpu-ok: wide-dtype -- 3x21-bit interleave headroom, host-only
     for bit in range(21):
         for ax in range(3):
             out |= ((c[:, ax] >> bit) & 1) << (3 * bit + ax)
@@ -220,7 +220,7 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
     w = DOMAIN_SIZE / dim
     ncell = dim ** 3
 
-    coords = np.clip((points * (dim / DOMAIN_SIZE)).astype(np.int64),
+    coords = np.clip((points * (dim / DOMAIN_SIZE)).astype(np.int64),  # kntpu-ok: wide-dtype -- dim^2 linearization headroom, host-only
                      0, dim - 1)
     cell_of = coords[:, 0] + dim * coords[:, 1] + dim * dim * coords[:, 2]
     cnt_flat = np.bincount(cell_of, minlength=ncell)
@@ -252,7 +252,7 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
     cloud_specs = build_class_specs(counts_sc, pts_cum, radii_all, cfg)
 
     # owner chip of every cell of the grid (via its supercell)
-    cid = np.arange(ncell, dtype=np.int64)
+    cid = np.arange(ncell, dtype=np.int64)  # kntpu-ok: wide-dtype -- cell-id table, host-only
     owner_of_cell = chip_of_sc_all[
         (cid // (dim * dim)) // s * (n_sc_side ** 2)
         + ((cid // dim) % dim) // s * n_sc_side + (cid % dim) // s]
@@ -267,8 +267,8 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
         own_n = counts_sc[sc_ids]
         if own_n.sum() == 0:
             per_chip.append(dict(sc_ids=sc_ids, specs=(), boxes=[],
-                                 own_cells=np.empty((0,), np.int64),
-                                 reach=np.empty((0,), np.int64)))
+                                 own_cells=np.empty((0,), np.int64),  # kntpu-ok: wide-dtype -- cell-id table, host-only
+                                 reach=np.empty((0,), np.int64)))  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
             continue
         sc_d = sc_all[sc_ids]
         specs = build_class_specs(own_n, pts_cum[sc_ids], radii_all[sc_ids],
@@ -286,10 +286,10 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
         reach = reach[cnt_flat[reach] > 0]
         owners = owner_of_cell[reach]
         if reach.size:
-            steps = max(steps, int(np.abs(owners.astype(np.int64) - d).max()))
+            steps = max(steps, int(np.abs(owners.astype(np.int64) - d).max()))  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
         needed[reach[owners != d]] = True
         per_chip.append(dict(sc_ids=sc_ids, specs=specs, boxes=boxes,
-                             own_cells=flat[flat >= 0].astype(np.int64),
+                             own_cells=flat[flat >= 0].astype(np.int64),  # kntpu-ok: wide-dtype -- cell-id table, host-only
                              own_tab=own_tab, reach=reach))
 
     # -- pass B: export blocks, capacities --
@@ -310,15 +310,15 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
                    steps=steps, domain=DOMAIN_SIZE)
 
     # -- point buckets in (chip, own-cell slot, original id) order --
-    slot_map = np.full(ncell, -1, np.int64)
+    slot_map = np.full(ncell, -1, np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
     own_starts_by_chip: List[np.ndarray] = []
     for d in range(ndev):
         oc = per_chip[d]["own_cells"]
         slot_map[oc] = np.arange(oc.size)
         own_starts_by_chip.append(
             (np.cumsum(cnt_flat[oc]) - cnt_flat[oc]).astype(np.int32))
-    key = chip_of_point.astype(np.int64) * (slot_map.max() + 2) \
-        + slot_map[cell_of]
+    key = (chip_of_point.astype(np.int64) * (slot_map.max() + 2)  # kntpu-ok: wide-dtype -- host sort-key headroom, never staged
+           + slot_map[cell_of])
     order = np.argsort(key, kind="stable")
     del key
     bucket_pts = np.full((ndev, pcap, 3), _PAD_XYZ, np.float32)
@@ -338,8 +338,8 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
         own_starts = own_starts_by_chip[d]
         reach = info["reach"]
         remote_cells = reach[owner_of_cell[reach] != d]
-        r_owner = owner_of_cell[remote_cells].astype(np.int64)
-        r_start = np.zeros(remote_cells.size, np.int64)
+        r_owner = owner_of_cell[remote_cells].astype(np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
+        r_start = np.zeros(remote_cells.size, np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
         for o in np.unique(r_owner):
             sel = r_owner == o
             r_start[sel] = (meta.halo_base(d, int(o)) + export_pref[o][
@@ -357,7 +357,7 @@ def build_pod_plan(points: np.ndarray, ndev: int, cfg: KnnConfig, dim: int,
         e_cnt = cnt_flat[exports[d]]
         total = int(e_cnt.sum())
         if total:
-            e_start = own_starts[slot_map[exports[d]]].astype(np.int64)
+            e_start = own_starts[slot_map[exports[d]]].astype(np.int64)  # kntpu-ok: wide-dtype -- host index arithmetic, never staged
             export_idx[:total] = (np.repeat(e_start - (np.cumsum(e_cnt)
                                                        - e_cnt), e_cnt)
                                   + np.arange(total))
@@ -416,7 +416,7 @@ def route_queries(directory: PodDirectory, meta: PodMeta,
     certificates hold for boundary-straddling queries too."""
     dim, s = meta.dim, meta.supercell
     n_sc_side = -(-dim // s)
-    coords = np.clip((queries * (dim / meta.domain)).astype(np.int64),
+    coords = np.clip((queries * (dim / meta.domain)).astype(np.int64),  # kntpu-ok: wide-dtype -- dim^2 linearization headroom, host-only
                      0, dim - 1)
     scc = coords // s
     sc_id = (scc[:, 0] + n_sc_side * scc[:, 1]

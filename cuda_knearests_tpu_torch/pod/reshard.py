@@ -76,7 +76,7 @@ __all__ = ["PodOverlay", "RangeShard", "ElasticIndex", "Migration",
            "morton_codes"]
 
 _MORTON_BITS = 21
-_MAX_CODE = np.iinfo(np.int64).max
+_MAX_CODE = np.iinfo(np.int64).max  # kntpu-ok: wide-dtype -- Morton code space bound, host-only constant
 
 # (row, dirty cell) pairs of one chunk of the pruning bound: its float64
 # temporaries stay near 100 MB however many rows a solve merges.
@@ -87,9 +87,9 @@ def morton_codes(points: np.ndarray, domain: float = 1000.0) -> np.ndarray:
     """Morton (z-order) code of each point at full 21-bit resolution --
     the elastic tier's range key (finer than the supercell directory so a
     range boundary can land between any two points)."""
-    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    pts = np.asarray(points, np.float64).reshape(-1, 3)  # kntpu-ok: wide-dtype -- 21-bit quantization needs f64 mantissa headroom, host-only
     scale = float(1 << _MORTON_BITS) / float(domain)
-    c = np.clip((pts * scale).astype(np.int64), 0, (1 << _MORTON_BITS) - 1)
+    c = np.clip((pts * scale).astype(np.int64), 0, (1 << _MORTON_BITS) - 1)  # kntpu-ok: wide-dtype -- 3x21-bit interleave headroom, host-only
     return morton3(c)
 
 
@@ -107,11 +107,11 @@ def need_cells(queries: np.ndarray, kth: np.ndarray, cells: np.ndarray,
     need = np.zeros((cells.size,), bool)
     if cells.size == 0 or queries.shape[0] == 0:
         return need
-    w = np.float64(domain) / dim
+    w = np.float64(domain) / dim  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     lo = np.stack([cells % dim, (cells // dim) % dim, cells // (dim * dim)],
-                  axis=-1).astype(np.float64) * w
+                  axis=-1).astype(np.float64) * w  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     box_lo, box_hi = lo.min(axis=0), (lo + w).max(axis=0)
-    q = np.asarray(queries, np.float64)
+    q = np.asarray(queries, np.float64)  # kntpu-ok: wide-dtype -- conservative pruning bound computed in f64 on host, never staged
     gap = np.maximum(np.maximum(box_lo - q, q - box_hi), 0.0)
     rows = np.nonzero((gap * gap).sum(-1) <= kth)[0]
     step = max(1, _BOUND_CHUNK_PAIRS // cells.size)
@@ -197,7 +197,7 @@ class PodOverlay:
     def _cells_of(self, pts: np.ndarray) -> np.ndarray:
         dim = self.pp.meta.dim
         c = np.clip((np.asarray(pts, np.float32)
-                     * (dim / self.pp.meta.domain)).astype(np.int64),
+                     * (dim / self.pp.meta.domain)).astype(np.int64),  # kntpu-ok: wide-dtype -- dim^2 linearization headroom, host-only
                     0, dim - 1)
         return c[:, 0] + dim * c[:, 1] + dim * dim * c[:, 2]
 
@@ -230,7 +230,7 @@ class PodOverlay:
         """Remove points by stable id: base rows tombstone on device (dirty
         chips restage; the halo re-exchanges iff an exported cell went
         dirty), insert rows tombstone in the host delta."""
-        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))  # kntpu-ok: wide-dtype -- host id arithmetic, never staged
         ins = ids[ids >= self.n0] - self.n0
         if ins.size:
             live = ins[self._delta_alive[ins]]
@@ -427,7 +427,7 @@ class RangeShard:
                                      device=device)
         self.overlay = DeltaOverlay(problem,
                                     compact_threshold=compact_threshold)
-        self.uids = np.asarray(uids, np.int64).reshape(-1).copy()
+        self.uids = np.asarray(uids, np.int64).reshape(-1).copy()  # kntpu-ok: wide-dtype -- uid ledger, host-only bookkeeping
         self.migrations_in = 0
         self.migrations_out = 0
 
@@ -445,7 +445,7 @@ class RangeShard:
             return
         self.overlay.insert(pts)
         self.uids = np.concatenate(
-            [self.uids, np.asarray(uids, np.int64).reshape(-1)])
+            [self.uids, np.asarray(uids, np.int64).reshape(-1)])  # kntpu-ok: wide-dtype -- uid ledger, host-only bookkeeping
 
     def delete_uids(self, uids: np.ndarray) -> int:
         """Delete by uid; returns how many were present (idempotent)."""
@@ -461,12 +461,12 @@ class RangeShard:
         translated through the ledger."""
         m = np.asarray(queries).shape[0]
         if self.n_points == 0:
-            return (np.full((m, k), -1, np.int64),
+            return (np.full((m, k), -1, np.int64),  # kntpu-ok: wide-dtype -- uid rows, host-only
                     np.full((m, k), np.inf, np.float32))
         li, ld = self.overlay.query(queries, k)
         li = np.asarray(li)
         safe = np.clip(li, 0, max(0, self.uids.size - 1))
-        out = np.where(li >= 0, self.uids[safe], np.int64(-1))
+        out = np.where(li >= 0, self.uids[safe], np.int64(-1))  # kntpu-ok: wide-dtype -- uid rows, host-only
         return out, np.asarray(ld, np.float32)
 
 
@@ -499,7 +499,7 @@ class Migration:
         self.index = index
         self.donor = int(donor)
         self.receiver = int(receiver)
-        self.new_cuts = np.asarray(new_cuts, np.int64)
+        self.new_cuts = np.asarray(new_cuts, np.int64)  # kntpu-ok: wide-dtype -- Morton cut table, host-only
         self.chunk = max(1, int(chunk))
         d = index.shards[self.donor]
         pts = d.points()
@@ -530,7 +530,7 @@ class Migration:
         # proto: migration-handover.ship
         prototrace.record("migration-handover", "ship")
         rec = ShipRecord(seq=self.committed_seq + 1, kind=kind,
-                         uids=np.asarray(uids, np.int64).reshape(-1),
+                         uids=np.asarray(uids, np.int64).reshape(-1),  # kntpu-ok: wide-dtype -- uid payload, host-only
                          points=points)
         self.records.append(rec)
         self.committed_seq = rec.seq
@@ -551,7 +551,7 @@ class Migration:
                 f" record carries seq {rec.seq}")
         if rec.kind == "insert":
             for i, u in enumerate(rec.uids.tolist()):
-                self.pending[u] = np.asarray(rec.points[i], np.float32)
+                self.pending[u] = np.asarray(rec.points[i], np.float32)  # kntpu-ok: host-sync-loop -- committed migration record (host numpy), no device array rides this loop
         else:
             for u in rec.uids.tolist():
                 self.pending.pop(u, None)
@@ -590,7 +590,7 @@ class Migration:
             keep = [u for u in rest if u not in unshipped]
             self.queue = self.queue[: self._qpos] + keep
         if shipped:
-            self._append("delete", np.asarray(sorted(shipped), np.int64),
+            self._append("delete", np.asarray(sorted(shipped), np.int64),  # kntpu-ok: wide-dtype -- uid payload, host-only
                          None)
 
     # -- pumping --------------------------------------------------------------
@@ -614,7 +614,7 @@ class Migration:
             take = [u for u in take if u in self.moving]
             if take:
                 pts = np.stack([self._coords[u] for u in take])
-                self._append("insert", np.asarray(take, np.int64), pts)
+                self._append("insert", np.asarray(take, np.int64), pts)  # kntpu-ok: wide-dtype -- uid payload, host-only
             return
         if self.handover_delay > 0:
             self.handover_delay -= 1
@@ -646,12 +646,12 @@ class Migration:
             del pend[torn]
         elif fault == "lost-range":
             pend = {}
-        landed = np.asarray(list(pend.keys()), np.int64)
+        landed = np.asarray(list(pend.keys()), np.int64)  # kntpu-ok: wide-dtype -- uid payload, host-only
         if landed.size:
             pts = np.stack([pend[int(u)] for u in landed])
             index.shards[self.receiver].insert(pts, landed)
         index.cuts = self.new_cuts
-        moved = np.asarray(sorted(self.moving), np.int64)
+        moved = np.asarray(sorted(self.moving), np.int64)  # kntpu-ok: wide-dtype -- uid payload, host-only
         deleted = index.shards[self.donor].delete_uids(moved)
         for u in landed.tolist():
             index._shard_of_uid[int(u)] = self.receiver
@@ -706,11 +706,11 @@ class ElasticIndex:
         codes = morton_codes(pts, self.domain)
         nshards = max(1, min(int(nshards), max(1, n)))
         order = np.argsort(codes, kind="stable")
-        cuts = [np.int64(0)]
+        cuts = [np.int64(0)]  # kntpu-ok: wide-dtype -- Morton cut table, host-only
         for j in range(1, nshards):
             cuts.append(codes[order[j * n // nshards]])
-        cuts.append(np.int64(_MAX_CODE))
-        self.cuts = np.asarray(cuts, np.int64)
+        cuts.append(np.int64(_MAX_CODE))  # kntpu-ok: wide-dtype -- Morton cut table, host-only
+        self.cuts = np.asarray(cuts, np.int64)  # kntpu-ok: wide-dtype -- Morton cut table, host-only
         # duplicate-heavy clouds can collapse a cut; drop empty ranges
         # rather than preparing empty shards
         route = self._route(codes, self.cuts)
@@ -722,7 +722,7 @@ class ElasticIndex:
             route = self._route(codes, self.cuts)
             nshards = keep.size
         self.nshards = int(nshards)
-        uids = np.arange(n, dtype=np.int64)
+        uids = np.arange(n, dtype=np.int64)  # kntpu-ok: wide-dtype -- uid ledger, host-only
         self.uids_canonical = uids.copy()
         self.next_uid = n
         with self._attributed():
@@ -798,7 +798,7 @@ class ElasticIndex:
         if pts.shape[0] == 0:
             return
         uids = np.arange(self.next_uid, self.next_uid + pts.shape[0],
-                         dtype=np.int64)
+                         dtype=np.int64)  # kntpu-ok: wide-dtype -- uid ledger, host-only
         self.next_uid += pts.shape[0]
         self.uids_canonical = np.concatenate([self.uids_canonical, uids])
         self._canon_of_uid = None
@@ -822,7 +822,7 @@ class ElasticIndex:
 
     def delete(self, ids: np.ndarray) -> None:
         """Delete by canonical CURRENT id (np.delete semantics)."""
-        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))  # kntpu-ok: wide-dtype -- host id arithmetic, never staged
         if ids.size == 0:
             return
         uids = self.uids_canonical[ids]
@@ -855,13 +855,13 @@ class ElasticIndex:
         order = np.lexsort((ids, d2), axis=1)[:, :k]
         rows = np.arange(ids.shape[0])[:, None]
         out_i, out_d = ids[rows, order], d2[rows, order]
-        out_i = np.where(np.isfinite(out_d), out_i, np.int64(-1))
+        out_i = np.where(np.isfinite(out_d), out_i, np.int64(-1))  # kntpu-ok: wide-dtype -- uid rows, host-only
         return out_i, np.ascontiguousarray(out_d, np.float32)
 
     def _canonical(self, u_i: np.ndarray) -> np.ndarray:
         cmap = self._canon_map()
         safe = np.clip(u_i, 0, cmap.size - 1)
-        return np.where(u_i >= 0, cmap[safe.astype(np.int64)],
+        return np.where(u_i >= 0, cmap[safe.astype(np.int64)],  # kntpu-ok: wide-dtype -- host id arithmetic, never staged
                         np.int32(-1)).astype(np.int32)
 
     def query(self, queries: np.ndarray, k: int):
@@ -896,25 +896,25 @@ class ElasticIndex:
         for s in self.shards:
             if s.n_points == 0:
                 per_shard.append(
-                    (np.full((m, k), -1, np.int64),
+                    (np.full((m, k), -1, np.int64),  # kntpu-ok: wide-dtype -- uid rows, host-only
                      np.full((m, k), np.inf, np.float32)))
                 continue
             fresh = KnnProblem.prepare(s.points(),
                                        KnnConfig(k=self.k, adaptive=False),
                                        device=self.device)
             li, ld = fresh.query(queries, k)
-            li = np.asarray(li)
+            li = np.asarray(li)  # kntpu-ok: host-sync-loop -- rebuild ORACLE path: one bounded fetch per shard by design, never the serving route
             safe = np.clip(li, 0, max(0, s.uids.size - 1))
             per_shard.append((np.where(li >= 0, s.uids[safe],
-                                       np.int64(-1)),
-                              np.asarray(ld, np.float32)))
+                                       np.int64(-1)),  # kntpu-ok: wide-dtype -- uid rows, host-only
+                              np.asarray(ld, np.float32)))  # kntpu-ok: host-sync-loop -- rebuild ORACLE path: one bounded fetch per shard by design, never the serving route
         u_i, out_d = self._merge_uid_rows(per_shard, k)
         return self._canonical(u_i), out_d
 
     # -- resharding -----------------------------------------------------------
 
     def _skew(self) -> Tuple[float, int]:
-        pops = np.asarray([s.n_points for s in self.shards], np.float64)
+        pops = np.asarray([s.n_points for s in self.shards], np.float64)  # kntpu-ok: wide-dtype -- host skew statistic
         mean = max(1.0, float(pops.mean()))
         hot = int(pops.argmax())
         return float(pops[hot]) / mean, hot

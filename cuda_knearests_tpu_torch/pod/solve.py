@@ -193,8 +193,8 @@ class PodKnnProblem:
                 plan.bucket_pts, plan.bucket_ids,
                 np.stack([c.export_idx for c in plan.chips]), chips)
             for d, c in enumerate(plan.chips):
-                dev[d]["ext_starts"] = dispatch.stage(c.ext_starts, chips[d])
-                dev[d]["ext_counts"] = dispatch.stage(c.ext_counts, chips[d])
+                dev[d]["ext_starts"] = dispatch.stage(c.ext_starts, chips[d])  # syncflow: pod-prepare-stage
+                dev[d]["ext_counts"] = dispatch.stage(c.ext_counts, chips[d])  # syncflow: pod-prepare-stage
         seconds["stage"] = sp.dur_ms / 1e3
         return cls(config=config, mesh=chips, meta=plan.meta,
                    directory=plan.directory, n_points=n,
@@ -223,7 +223,7 @@ class PodKnnProblem:
                          ici_bytes=meta.halo_bytes()):
             self._halo = _halo.exchange(meta, self.dev, self.mesh)
         if meta.steps and meta.ndev > 1:
-            dispatch.ici(meta.halo_bytes())
+            dispatch.ici(meta.halo_bytes())  # syncflow: pod-ici
 
     def _window(self, d: int) -> GridHash:
         """Chip d's window as a grid: [own region | received blocks in
@@ -243,7 +243,7 @@ class PodKnnProblem:
         (``parallel.sharded._chip_ready_state``, the own region at rows
         [0, pcap)), built once and cached until :meth:`drop_ready`."""
         if not self.chip_plans[d].classes:
-            raise ValueError(f"chip {d} has an empty class schedule")
+            raise ValueError(f"chip {d} has an empty class schedule")  # kntpu-ok: bare-valueerror -- internal invariant (callers skip empty chips), not input validation
         if d not in self._ready_cache:
             self._ready_cache[d] = _chip_ready_state(
                 self._window(d), self.chip_plans[d].chip_plan(), 0,
@@ -293,7 +293,7 @@ class PodKnnProblem:
         cert = np.zeros((n,), bool)
         live = [d for d in sorted(outs) if outs[d] is not None]
         with _spans.span("solve.pod.fetch", chips=len(live)):
-            fetched = dispatch.fetch(*[t for d in live for t in outs[d]])
+            fetched = dispatch.fetch(*[t for d in live for t in outs[d]])  # syncflow: pod-solve-final
         with _spans.span("solve.pod.place"):
             for j, d in enumerate(live):
                 o_i, o_d, o_c = fetched[3 * j: 3 * j + 3]
@@ -353,7 +353,7 @@ class PodKnnProblem:
                 ready.window, cfg, ready.plan, queries[on_d],
                 plan.class_of[local[on_d]], plan.row_of[local[on_d]], k)))
         if pending:
-            fetched = dispatch.fetch(*[t for _, ts in pending for t in ts])
+            fetched = dispatch.fetch(*[t for _, ts in pending for t in ts])  # syncflow: pod-query-final
             for j, (rows, _) in enumerate(pending):
                 out_i[rows], out_d[rows], cert[rows] = \
                     fetched[3 * j: 3 * j + 3]

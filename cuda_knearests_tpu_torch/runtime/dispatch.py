@@ -15,6 +15,12 @@ The counters also carry the bytes each direction moved (``d2h_bytes``,
 caller holds open.  :func:`kernel_stats` reads the kernel counters:
 builds and library loads (``ops/_build``) and class-kernel launches
 (``ops/cuda_solve``); :func:`tuned_plan_stats` the tuned-plan store's.
+:class:`record_launches` collects one :class:`LaunchRecord` per call of a
+hand-kernel wrapper (``cuda_solve.supercell_topk`` / ``blocked_topk``,
+``mxu.kernel.select_routed`` / ``select_split``), taken before the
+wrapper branches between its kernel and its plain version, so the CPU and
+the card record the same thing; :func:`signature` is the recompile-key
+census the analysis engines compute over those records.
 
 ``python -m cuda_knearests_tpu_torch.runtime.dispatch [--device cpu]``
 runs the sync-budget smoke (:func:`_smoke`): six solve and query routes on
@@ -27,7 +33,7 @@ import dataclasses
 import os
 import sys
 import threading
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +64,8 @@ _STATS = DispatchStats()
 _STATS_LOCK = threading.Lock()
 # The active per-call-site trace (None = off; see trace_sites).
 _SITE_TRACE: Optional[list] = None
+# The active kernel-launch record (None = off; see record_launches).
+_LAUNCH_TRACE: Optional[list] = None
 _PACKAGE = "cuda_knearests_tpu_torch"
 
 
@@ -122,6 +130,97 @@ class trace_sites:
     def __exit__(self, *exc) -> None:
         global _SITE_TRACE
         _SITE_TRACE = self._prev
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchRecord:
+    """One call of a hand-kernel wrapper, as the wrapper saw it before it
+    chose between its CUDA kernel and its plain version: the wrapper, its
+    mode ('a' rows through a forward map, 'b' the raw (S, k, Q) layout;
+    the selection's precision for the MXU wrappers), the ``csrc`` sources
+    the card builds for it, k, m (the blocked kernel's or the selection's
+    kept count, 0 for none), the launch tile (query slots a block, or the
+    selection's rows a block; 0 for the split selection), the query,
+    candidate and supercell capacities, the input dtypes and the output
+    shapes."""
+
+    wrapper: str
+    mode: str
+    kernels: Tuple[str, ...]
+    k: int
+    m: int
+    q_tile: int
+    qcap: int
+    ccap: int
+    s_total: int
+    in_dtypes: Tuple[str, ...]
+    out_shapes: Tuple[Tuple[int, ...], ...]
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def recording() -> bool:
+    """True inside a :class:`record_launches` window (the wrappers build
+    their record only then)."""
+    return _LAUNCH_TRACE is not None
+
+
+def record_launch(**fields) -> None:
+    """Append one :class:`LaunchRecord` to the active record (a no-op when
+    no :class:`record_launches` window is open)."""
+    if _LAUNCH_TRACE is not None:
+        _LAUNCH_TRACE.append(LaunchRecord(**fields))
+
+
+class record_launches:
+    """Context manager that collects one :class:`LaunchRecord` per call of
+    a hand-kernel wrapper inside the window (``with record_launches() as
+    records: ...``).  Single-threaded windows only, as the counters."""
+
+    def __enter__(self) -> list:
+        global _LAUNCH_TRACE
+        self._prev = _LAUNCH_TRACE
+        _LAUNCH_TRACE = []
+        return _LAUNCH_TRACE
+
+    def __exit__(self, *exc) -> None:
+        global _LAUNCH_TRACE
+        _LAUNCH_TRACE = self._prev
+
+
+def dtype_name(dtype) -> str:
+    """'float32'-style name of a torch or numpy dtype (the reference's
+    numpy spelling on both)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _leaves(tree: Any, out: list) -> list:
+    """Every tensor or array leaf of nested tuples, lists, dicts and
+    dataclasses, in order."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        out.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _leaves(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _leaves(x, out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _leaves(getattr(tree, f.name), out)
+    return out
+
+
+def signature(tree: Any, *statics: Any) -> Tuple:
+    """Recompile key of a call: every tensor or array leaf's (shape, dtype)
+    plus the static arguments -- what the reference's jit keys its cache
+    on.  The port compiles nothing per shape; the census is what the
+    analysis engines hold stable across data (``analysis/verify.py``'s
+    ``sig-data-dep``, ``analysis/contracts.py``'s ``recompile-key``)."""
+    leaves = tuple((tuple(int(d) for d in leaf.shape),
+                    dtype_name(leaf.dtype)) for leaf in _leaves(tree, []))
+    return leaves + tuple(statics)
 
 
 def kernel_stats() -> dict:
@@ -191,7 +290,7 @@ def fetch(*tensors: torch.Tensor):
 def _read_back(tensors) -> list:
     host = [t.to("cpu", non_blocking=True) for t in tensors]
     for device in {t.device for t in tensors if t.is_cuda}:
-        torch.cuda.current_stream(device).synchronize()
+        torch.cuda.current_stream(device).synchronize()  # kntpu-ok: host-sync-loop -- fetch's one wait per distinct device among its tensors: the call's single batched round trip
     return [h.numpy() for h in host]
 
 

@@ -220,8 +220,8 @@ class DeltaOverlay:
             pts[:n_alive] = self._base_orig[self.alive]
             ids = np.full((cap,), -1, np.int32)
             ids[:n_alive] = np.arange(n_alive, dtype=np.int32)
-            self._alive_cache = (_dispatch.stage(pts, self.device),
-                                 _dispatch.stage(ids, self.device))
+            self._alive_cache = (_dispatch.stage(pts, self.device),  # syncflow: overlay-alive-stage
+                                 _dispatch.stage(ids, self.device))  # syncflow: overlay-alive-stage
         return self._alive_cache
 
     def _delta_launch_arrays(self, sel: np.ndarray, cap: int):
@@ -234,8 +234,8 @@ class DeltaOverlay:
         n_alive = int(self.alive.sum())
         ids = np.full((cap,), -1, np.int32)
         ids[: sel.size] = n_alive + sel.astype(np.int32)
-        return (_dispatch.stage(pts, self.device),
-                _dispatch.stage(ids, self.device))
+        return (_dispatch.stage(pts, self.device),  # syncflow: overlay-delta-stage
+                _dispatch.stage(ids, self.device))  # syncflow: overlay-delta-stage
 
     def query(self, queries: np.ndarray, k: int):
         """Exact kNN of ``queries`` against the current mutated cloud.
@@ -269,9 +269,9 @@ class DeltaOverlay:
                 bq = np.zeros((_round_pow2(nb), 3), np.float32)
                 bq[:nb] = queries[bad]
                 r_i, r_d = brute_force_by_coords(
-                    a_pts, _dispatch.stage(bq, self.device), k,
+                    a_pts, _dispatch.stage(bq, self.device), k,  # syncflow: overlay-resolve-stage
                     ids_map=a_ids)
-                r_i, r_d = _dispatch.fetch(r_i, r_d)
+                r_i, r_d = _dispatch.fetch(r_i, r_d)  # syncflow: overlay-resolve
                 r_i, r_d = r_i[:nb], r_d[:nb]
                 # the -1/inf pad contract (reachable only when the alive
                 # set has fewer than k points)
@@ -299,9 +299,9 @@ class DeltaOverlay:
         cap = _round_pow2(int(sel.size))
         d_pts, d_ids = self._delta_launch_arrays(sel, cap)
         g_i, g_d = brute_force_by_coords(
-            d_pts, _dispatch.stage(queries, self.device), min(k, cap),
+            d_pts, _dispatch.stage(queries, self.device), min(k, cap),  # syncflow: overlay-delta-query-stage
             ids_map=d_ids)
-        g_i, g_d = _dispatch.fetch(g_i, g_d)
+        g_i, g_d = _dispatch.fetch(g_i, g_d)  # syncflow: overlay-delta-final
         self.stats.delta_launches += 1
         self.stats.delta_candidates += int(sel.size)
         return _merge_rows(ids, d2, g_i, g_d, k)

@@ -93,7 +93,7 @@ def _snapshot_digest(fields: Dict[str, np.ndarray]) -> str:
     for name in sorted(fields):
         if name == "sha256":
             continue
-        arr = np.asarray(fields[name])
+        arr = np.asarray(fields[name])  # kntpu-ok: host-sync-loop -- snapshot envelope fields (host numpy), no device array rides this loop
         h.update(name.encode())
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())
@@ -124,12 +124,12 @@ def write_snapshot(path: str, points: np.ndarray, k: int,
     from ...api import KnnProblem, save_problem
     from ...config import KnnConfig
 
-    t0 = time.perf_counter()
+    t0 = _spans.now()
     path = _npz_path(path)
     pts = np.ascontiguousarray(np.asarray(points, np.float32).reshape(-1, 3))
     problem = KnnProblem.prepare(pts, KnnConfig(k=int(k), adaptive=False),
                                  device=resolve_device(device))
-    prepare_s = time.perf_counter() - t0
+    prepare_s = _spans.now() - t0
     grid_tmp = path + ".grid.tmp.npz"
     save_problem(problem, grid_tmp)
     del problem
@@ -159,7 +159,7 @@ def write_snapshot(path: str, points: np.ndarray, k: int,
             "committed_seq": int(committed_seq),
             "n_points": int(pts.shape[0]),
             "prepare_s": prepare_s,
-            "seconds": time.perf_counter() - t0,
+            "seconds": _spans.now() - t0,
             "bytes": os.path.getsize(path)}
 
 
@@ -171,9 +171,9 @@ def snapshot_tenant(tenant, path: str) -> dict:
     the log sequence promises.  ``cloud_s`` is the canonical cloud's
     gather."""
     nshards = tenant.elastic.nshards if tenant.elastic is not None else 1
-    t0 = time.perf_counter()
+    t0 = _spans.now()
     cloud = tenant.mutated_points()
-    cloud_s = time.perf_counter() - t0
+    cloud_s = _spans.now() - t0
     info = write_snapshot(                # proto: mesh-snapshot-replay.snapshot
         path, cloud, tenant.spec.k,
         tenant.log.committed_seq if tenant.log is not None else 0,
@@ -256,8 +256,8 @@ def mesh_oracle_query(state: dict, queries: np.ndarray, k: int, *,
                 np.full((m, k), np.inf, np.float32))
     per_shard = []
     for sh in state["shards"]:
-        uids = np.asarray(sh["uids"], np.int64)
-        pts = np.asarray(sh["points"], np.float32).reshape(-1, 3)
+        uids = np.asarray(sh["uids"], np.int64)  # kntpu-ok: host-sync-loop -- snapshot state (host numpy), no device array rides this loop
+        pts = np.asarray(sh["points"], np.float32).reshape(-1, 3)  # kntpu-ok: host-sync-loop -- snapshot state (host numpy), no device array rides this loop
         if uids.size == 0:
             per_shard.append((np.full((m, k), -1, np.int64),
                               np.full((m, k), np.inf, np.float32)))
@@ -265,10 +265,10 @@ def mesh_oracle_query(state: dict, queries: np.ndarray, k: int, *,
         fresh = KnnProblem.prepare(
             pts, KnnConfig(k=serving_k, adaptive=False), device=device)
         li, ld = fresh.query(queries, k)
-        li = np.asarray(li)
+        li = np.asarray(li)  # kntpu-ok: host-sync-loop -- failover replay ORACLE: one bounded fetch per shard by design, never the serving route
         safe = np.clip(li, 0, max(0, uids.size - 1))
         per_shard.append((np.where(li >= 0, uids[safe], np.int64(-1)),
-                          np.asarray(ld, np.float32)))
+                          np.asarray(ld, np.float32)))  # kntpu-ok: host-sync-loop -- failover replay ORACLE: one bounded fetch per shard by design, never the serving route
     u_i, out_d = ElasticIndex._merge_uid_rows(per_shard, k)
     cmap = np.full((int(uids_canonical.max()) + 1,), -1, np.int32)
     cmap[uids_canonical] = np.arange(uids_canonical.size, dtype=np.int32)
@@ -573,17 +573,17 @@ class MeshController:
                 f"mutation(s) for a future mesh)")
         if self.standby is None or not self.standby.alive:
             raise TransportError("mesh failover impossible: standby dead")
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         restored = self.standby.restore(self.snapshot_path)  # proto: mesh-snapshot-replay.restore
-        restore_s = time.perf_counter() - t0
+        restore_s = _spans.now() - t0
         prototrace.record("mesh-snapshot-replay", "restore")
         base_seq = int(restored["seq"])
         replayed = 0
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         for rec in self.log.since(base_seq):
             self.standby.mutate(rec)     # proto: mesh-snapshot-replay.replay
             replayed += 1
-        replay_s = time.perf_counter() - t0
+        replay_s = _spans.now() - t0
         # one replay event: the model's `replay` is the atomic tail
         # composition (restore + replay == committed), not per record
         prototrace.record("mesh-snapshot-replay", "replay")
@@ -640,15 +640,15 @@ def mesh_failover_drill(n: int = 1200, k: int = 8, ops: int = 30,
     from ...io import generate_uniform
     from ...oracle import KdTreeOracle
 
-    t_start = time.perf_counter()
+    t_start = _spans.now()
     device = resolve_device(device)
     log = log or (lambda s: None)
     rng = np.random.default_rng(seed)
     points = generate_uniform(n, seed=seed)
-    t0 = time.perf_counter()
+    t0 = _spans.now()
     ctl = MeshController(points, k, nshards=nshards,
                          migration_chunk=migration_chunk, device=device)
-    timing = {"spawn_s": time.perf_counter() - t0}
+    timing = {"spawn_s": _spans.now() - t0}
     free_both = None
     if device.type == "cuda":
         import torch
@@ -717,28 +717,28 @@ def mesh_failover_drill(n: int = 1200, k: int = 8, ops: int = 30,
         expected = ctl.expected_points()
         state = ctl.primary.state()
         zero_lost_seq = int(state["seq"]) == ctl.log.committed_seq
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         shards_state = ctl.primary.shards()
-        timing["shards_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        timing["shards_s"] = _spans.now() - t0
+        t0 = _spans.now()
         cloud = state_cloud(shards_state)
-        timing["state_cloud_s"] = time.perf_counter() - t0
+        timing["state_cloud_s"] = _spans.now() - t0
         zero_lost_cloud = (cloud.shape == expected.shape
                            and np.array_equal(cloud, expected))
         probe = (np.random.default_rng(seed + 9).random((24, 3))
                  * 980.0 + 10.0).astype(np.float32)
         got_i, got_d = ctl.query(probe)
         _absorb_timing()
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         ref_i, ref_d = mesh_oracle_query(shards_state, probe, k,
                                          device=device)
-        timing["oracle_s"] = time.perf_counter() - t0
+        timing["oracle_s"] = _spans.now() - t0
         byte_identical = (np.array_equal(got_i, ref_i)
                           and np.array_equal(got_d, ref_d))
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         _kd_i, kd_d = KdTreeOracle(expected).knn(probe, k)
         kd_bad = check_route_result(expected, probe, got_i, got_d, kd_d, k)
-        timing["kdtree_s"] = time.perf_counter() - t0
+        timing["kdtree_s"] = _spans.now() - t0
         mesh_child = _child_report_of(ctl.primary.state())
         zero_lost = bool(zero_lost_seq and zero_lost_cloud)
         timing.update({
@@ -749,7 +749,7 @@ def mesh_failover_drill(n: int = 1200, k: int = 8, ops: int = 30,
             "restore_s": failover_info.get("restore_s"),
             "replay_s": failover_info.get("replay_s"),
             "replayed": failover_info.get("replayed"),
-            "drill_s": time.perf_counter() - t_start})
+            "drill_s": _spans.now() - t_start})
         return {
             "n_points0": n, "k": k, "ops": ops, "seed": seed,
             "nshards": nshards, "device": str(device),
@@ -922,10 +922,10 @@ def _child_main(argv) -> int:
                 with _spans.span("mesh.query", force=True,
                                  trace_id=req.get("trace_id")) as op_sp:
                     resp = state.submit(
-                        "query", np.asarray(req["queries"], np.float32),
+                        "query", np.asarray(req["queries"], np.float32),  # kntpu-ok: host-sync-loop -- JSON-decoded wire payload (host list), no device array rides this loop
                         k=req.get("k"), trace_id=req.get("trace_id"))
                     wire_ids, wire_d2 = _encode_rows(
-                        np.asarray(resp.ids), np.asarray(resp.d2))
+                        np.asarray(resp.ids), np.asarray(resp.d2))  # kntpu-ok: host-sync-loop -- wire encode of an already-fetched Response (host numpy)
                 _child_emit({"ok": True, "ids": wire_ids, "d2": wire_d2,
                              "seq": state.applied_seq,
                              "trace_id": req.get("trace_id"),

@@ -135,9 +135,9 @@ def replay_on_host(points: np.ndarray,
     for rec in records:
         if rec.kind == "insert":
             out = np.concatenate(
-                [out, np.asarray(rec.payload, np.float32).reshape(-1, 3)])
+                [out, np.asarray(rec.payload, np.float32).reshape(-1, 3)])  # kntpu-ok: host-sync-loop -- DeltaRecord payloads are host numpy by construction, no device array rides this loop
         else:
-            out = np.delete(out, np.asarray(rec.payload).reshape(-1), axis=0)
+            out = np.delete(out, np.asarray(rec.payload).reshape(-1), axis=0)  # kntpu-ok: host-sync-loop -- DeltaRecord payloads are host numpy by construction, no device array rides this loop
     return np.ascontiguousarray(out, dtype=np.float32)
 
 
@@ -592,7 +592,7 @@ def _child_main(argv) -> int:
                     with _spans.span("replica.device",
                                      force=True) as dev_sp:
                         ids, d2 = replica.query(
-                            np.asarray(req["queries"], np.float32),
+                            np.asarray(req["queries"], np.float32),  # kntpu-ok: host-sync-loop -- JSON-decoded wire payload (host list), no device array rides this loop
                             int(req.get("k") or k))
                     wire_ids, wire_d2 = _encode_rows(ids, d2)
                 _child_emit({"ok": True, "ids": wire_ids, "d2": wire_d2,

@@ -28,7 +28,7 @@ def _sync_all() -> None:
     inside the trace (the reference's ``block_until_ready``)."""
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
+            torch.cuda.synchronize(i)  # kntpu-ok: host-sync-loop -- trace fence: one wait per device as a trace window closes, never on a solve path
 
 
 @contextlib.contextmanager

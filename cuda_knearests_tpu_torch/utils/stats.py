@@ -68,8 +68,8 @@ def margin_summary(kth_sq: np.ndarray, margin_sq: np.ndarray
     could certify).  Below 1 the row's k-th neighbour used that fraction
     of its margin; at or above 1 ('decertified') the grid route could
     never have certified it.  An infinite margin counts as 0."""
-    kth = np.asarray(kth_sq, np.float64)
-    msq = np.asarray(margin_sq, np.float64)
+    kth = np.asarray(kth_sq, np.float64)  # kntpu-ok: wide-dtype -- f64 certificate telemetry (see above)
+    msq = np.asarray(margin_sq, np.float64)  # kntpu-ok: wide-dtype -- f64 certificate telemetry (see above)
     with np.errstate(divide="ignore", invalid="ignore"):
         ratio = np.sqrt(kth / msq)
     ratio = np.where(np.isinf(msq), 0.0, ratio)

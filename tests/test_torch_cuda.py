@@ -1855,3 +1855,57 @@ def test_gpu_tuned_prepare_100k_byte_equal(cuda_device, plan):
     assert tuned.get_dists_sq().tobytes() == base.get_dists_sq().tobytes()
     if plan.get("epilogue") == "gather":
         assert cs.launches_b > before
+
+
+# -- the static gate on the card (the smoke's phase 10j (b), (c), (d)) --------
+
+GRID_WINDOWS = ("adaptive-solve", "legacy-pack-solve",
+                "external-query-adaptive", "external-query-chunked",
+                "sharded-solve", "sharded-query", "serve-batch", "pod-solve",
+                "pod-query")
+
+
+@pytest.mark.cuda
+def test_gpu_analysis_sync_proof_equals_counters(cuda_device):
+    """Every window a single card runs: host_syncs and each site's fetch
+    count equal the proven expressions at the run's parameters, and the
+    grid windows launch the class kernel, the brute ones the selection."""
+    from cuda_knearests_tpu_torch.analysis import verify
+    from cuda_knearests_tpu_torch.io import get_dataset
+
+    pts = get_dataset("pts20K.xyz")
+    rows = verify.measure_windows(pts, generate_uniform(2_000, seed=99),
+                                  cuda_device)
+    assert {r["route"] for r in rows} == set(verify.MEASURED_ROUTES)
+    for r in rows:
+        assert r["problems"] == [] and r["measured"] == r["proven"], r
+        if r["route"] in GRID_WINDOWS:
+            assert r["launches"].get("supercell_topk", 0) > 0, r
+        elif r["route"] in ("mxu-brute", "tune-trial"):
+            assert r["launches"].get("mxu_select", 0) > 0, r
+
+
+@pytest.mark.cuda
+def test_gpu_analysis_certificates_equal_card_launches(cuda_device):
+    from cuda_knearests_tpu_torch.analysis import contracts, equiv
+
+    cert = equiv.load_certificates()
+    pts = contracts._points(contracts._SEEDS[0])
+    for k, s in equiv.MATRIX:
+        for ep in ("gather", "scatter"):
+            for route in equiv.ROUTES:
+                recs = contracts.record_route(route, pts, k, s, ep,
+                                              device="cuda")
+                assert sorted(c["norm_hash"] for c in equiv.route_cores(
+                    recs)) == equiv.norm_hashes(cert, k, s, ep, route)
+
+
+@pytest.mark.cuda
+def test_gpu_analysis_byte_and_smem_models_hold(cuda_device):
+    from cuda_knearests_tpu_torch.analysis import contracts
+
+    rows = contracts.launch_memory(cuda_device)
+    assert rows and all(r["model"] >= max(r["growth"], r["requested"])
+                        for r in rows), rows
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert cs.SMEM_LIMIT <= optin

@@ -69,9 +69,19 @@ def test_package_import_leaves_jax_out_of_sys_modules():
             "cuda_knearests_tpu_torch.analysis, "
             "cuda_knearests_tpu_torch.analysis.findings, "
             "cuda_knearests_tpu_torch.analysis.models, "
-            "cuda_knearests_tpu_torch.analysis.proto\n"
-            "from cuda_knearests_tpu_torch.analysis import run_proto\n"
+            "cuda_knearests_tpu_torch.analysis.proto, "
+            "cuda_knearests_tpu_torch.analysis.rules, "
+            "cuda_knearests_tpu_torch.analysis.concurrency, "
+            "cuda_knearests_tpu_torch.analysis.lint, "
+            "cuda_knearests_tpu_torch.analysis.syncflow, "
+            "cuda_knearests_tpu_torch.analysis.equiv, "
+            "cuda_knearests_tpu_torch.analysis.verify, "
+            "cuda_knearests_tpu_torch.analysis.contracts, "
+            "cuda_knearests_tpu_torch.analysis.cli\n"
+            "from cuda_knearests_tpu_torch.analysis import (run_lint, "
+            "run_proto)\n"
             "assert not [f for f in run_proto() if f.severity != 'info']\n"
+            "assert not [f for f in run_lint() if f.severity != 'info']\n"
             "from cuda_knearests_tpu_torch.fuzz.campaign import run_campaign\n"
             "assert run_campaign(n_cases=2, routes=('adaptive',), "
             "bank_dir=None, log=None, device='cpu')['ok']\n"
