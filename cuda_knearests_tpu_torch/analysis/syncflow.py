@@ -454,6 +454,9 @@ NONWINDOW: Dict[str, str] = {
 KNOWN_RAW: Dict[str, str] = {
     "api.KnnProblem._planned": "oracle backend: kd-tree build reads the "
                                "staged points once at prepare time",
+    "api.KnnProblem._prepare": "prepare-time cell-count readback: the "
+                               "plan's census, inside the prepare.grid "
+                               "span",
     "api.KnnProblem.get_points": "extraction surface (reference parity)",
     "api.KnnProblem.get_permutation": "extraction surface",
     "api.save_problem": "checkpointing reads the grid once",

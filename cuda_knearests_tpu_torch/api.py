@@ -183,9 +183,13 @@ class KnnProblem:
                 _check_scorer_route(config)
             points = (validate_or_raise(points, k=config.k) if validate
                       else np.ascontiguousarray(points, np.float32))
-            grid = build_grid(torch.as_tensor(points, device=device),
-                              dim=dim, density=config.density)
-            problem = cls._planned(grid, config)
+            with _obs_spans.span("prepare.grid"):
+                grid = build_grid(torch.as_tensor(points, device=device),
+                                  dim=dim, density=config.density)
+                # the one wait on the grid's device work: the plan's census
+                counts = grid.cell_counts.cpu().numpy()
+            with _obs_spans.span("prepare.plan"):
+                problem = cls._planned(grid, config, counts)
             problem.host_points = points
             return problem
 

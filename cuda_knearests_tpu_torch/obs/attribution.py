@@ -65,9 +65,11 @@ from . import spans as _spans
 #: records its host wall time: the clock join).
 CAPTURE_PREFIX = "kntpu.capture:"
 
-#: Prefix of the engine's named profiler scopes (``utils/profiling.annotate``
-#: call sites: ``kntpu:adaptive-solve``, ``kntpu:mxu-select``, ...).
-SCOPE_PREFIX = "kntpu:"
+#: Prefix of the engine's named profiler scopes: every live span while the
+#: profiler records (``obs/spans.py``: ``kntpu:knn.solve``,
+#: ``kntpu:solve.adaptive.launch``, ``kntpu:solve.adaptive.class``, ...) and
+#: the ``utils/profiling.annotate`` call sites (``kntpu:mxu-select``, ...).
+SCOPE_PREFIX = _spans.SCOPE_PREFIX
 
 #: Safety margin (seconds) when window-filtering events: profiler event
 #: close timestamps can trail the anchor's exit by scheduler noise.

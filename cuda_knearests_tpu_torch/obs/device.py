@@ -332,7 +332,7 @@ def profile_window(fn: Callable[[], object], *,
                 anchor_wall = _spans.wall(_spans.now())
                 with annotate(anchor_name), \
                         _spans.span(WINDOW_SPAN, force=True,
-                                    trace_id=trace_id,
+                                    trace_id=trace_id, timeline=False,
                                     capture_id=capture_id):
                     ret = fn()
                     if device.type == "cuda":

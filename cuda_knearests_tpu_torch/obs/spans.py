@@ -6,8 +6,14 @@ Counterpart of ``cuda_knearests_tpu/obs/spans.py``, the whole module.
   schema (:data:`SCHEMA`): name, wall-anchored t0, dur_ms, nesting depth and
   parent, (pid, process job tag), thread, optional ``trace_id``, attrs.
 * Near-zero cost when disabled: tracing is off unless a sink is registered
-  (or the caller forces a span for its own timing).  The disabled path
-  allocates nothing -- ``span()`` returns one shared no-op singleton.
+  or ``torch.profiler`` records (or the caller forces a span for its own
+  timing).  The disabled path allocates nothing -- ``span()`` returns one
+  shared no-op singleton.
+* One clock with the profiler: while ``torch.profiler`` records, a live
+  span also opens a profiler range named ``kntpu:<name>``
+  (:data:`SCOPE_PREFIX`, through ``utils/profiling.annotate``), so the
+  profiler stamps the span on its own timeline beside the launch calls
+  and device work issued inside it.
 * Sinks are plain callables fed one finished-event dict each: the
   in-memory :class:`Collector` and the :class:`JsonlSink` trace spill.  A
   sink that raises is ignored: observability never takes the engine down.
@@ -18,16 +24,21 @@ Counterpart of ``cuda_knearests_tpu/obs/spans.py``, the whole module.
   the daemon stamps it on its queue and execute spans, and the reply
   echoes it.
 
-Pure Python: nothing here touches a device.
+Pure Python: nothing here touches a device, and torch is never imported
+here: the profiler's state is read through ``sys.modules``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+#: Prefix of a live span's profiler range (the engine's named scopes).
+SCOPE_PREFIX = "kntpu:"
 
 #: Event schema version (the ``v`` key of every event); bump on any key
 #: change -- consumers of the spilled events key on it.
@@ -43,6 +54,16 @@ _lock = threading.Lock()
 _sinks: List[Callable[[dict], None]] = []   # empty == tracing disabled
 _tls = threading.local()
 _proc_tag: Dict[str, Any] = {"job": ""}
+# The process id a span's event carries, read again in a forked child.
+_pid = os.getpid()
+
+
+def _read_pid() -> None:
+    global _pid
+    _pid = os.getpid()
+
+
+os.register_at_fork(after_in_child=_read_pid)
 
 
 def now() -> float:
@@ -57,8 +78,19 @@ def wall(t_perf: float) -> float:
     return _ANCHOR_WALL + (t_perf - _ANCHOR_PERF)
 
 
+def profiling() -> bool:
+    """True while ``torch.profiler`` records in this process; read through
+    ``sys.modules``, so a process that never imported torch's profiler
+    reads False without importing it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(
+        getattr(prof, "_is_profiler_enabled", False))
+
+
 def enabled() -> bool:
-    return bool(_sinks)
+    """True when a span would be live: a sink is registered or the
+    profiler records."""
+    return bool(_sinks) or profiling()
 
 
 def add_sink(sink: Callable[[dict], None]) -> None:
@@ -134,13 +166,15 @@ _NULL = _NullSpan()
 class Span:
     """One live span (use via ``with``).  After exit, ``t0``/``t1``/
     ``dur_ms`` stay readable -- the serve decomposition reads them even
-    when no sink is listening (``force=True``)."""
+    when no sink is listening (``force=True``).  With ``timeline`` and the
+    profiler recording at entry, the span also holds the profiler range
+    ``kntpu:<name>`` open until its exit."""
 
     __slots__ = ("name", "attrs", "trace_id", "t0", "t1", "_parent",
-                 "_depth")
+                 "_depth", "_timeline", "_scope")
 
     def __init__(self, name: str, attrs: Dict[str, Any],
-                 trace_id: Optional[str]):
+                 trace_id: Optional[str], timeline: bool = True):
         self.name = name
         self.attrs = attrs
         self.trace_id = trace_id
@@ -148,6 +182,8 @@ class Span:
         self.t1 = 0.0
         self._parent = ""
         self._depth = 0
+        self._timeline = timeline
+        self._scope = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -162,11 +198,19 @@ class Span:
         self._parent = st[-1] if st else ""
         self._depth = len(st)
         st.append(self.name)
+        if self._timeline and profiling():
+            from ..utils.profiling import annotate
+
+            self._scope = annotate(SCOPE_PREFIX + self.name)
+            self._scope.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, et, ev, tb) -> bool:
         self.t1 = time.perf_counter()
+        if self._scope is not None:
+            self._scope.__exit__(et, ev, tb)
+            self._scope = None
         st = _stack()
         if st and st[-1] == self.name:
             st.pop()
@@ -177,25 +221,30 @@ class Span:
         return False
 
     def _event(self) -> dict:
+        # built inside the traced solve's critical path: the process id is
+        # read once, and neither the wall clock nor the duration calls out
         return {"v": SCHEMA, "kind": "span", "name": self.name,
-                "t0": wall(self.t0), "dur_ms": round(self.dur_ms, 6),
+                "t0": _ANCHOR_WALL + (self.t0 - _ANCHOR_PERF),
+                "dur_ms": (self.t1 - self.t0) * 1e3,
                 "depth": self._depth, "parent": self._parent,
-                "pid": os.getpid(), "job": _proc_tag["job"],
+                "pid": _pid, "job": _proc_tag["job"],
                 "tid": threading.current_thread().name,
                 "trace_id": (self.trace_id if self.trace_id is not None
-                             else current_trace_id()),
+                             else getattr(_tls, "trace_id", None)),
                 "attrs": self.attrs}
 
 
 def span(name: str, force: bool = False, trace_id: Optional[str] = None,
-         **attrs):
-    """Open a span.  Disabled (no sinks) and unforced: returns the shared
-    no-op singleton -- no allocation, no timing.  ``force=True`` times the
-    region regardless (the serve decomposition's always-on stopwatch),
-    feeding sinks only when some are registered."""
-    if not _sinks and not force:
+         timeline: bool = True, **attrs):
+    """Open a span.  Disabled (no sinks, the profiler not recording) and
+    unforced: returns the shared no-op singleton -- no allocation, no
+    timing.  ``force=True`` times the region regardless (the serve
+    decomposition's always-on stopwatch), feeding sinks only when some are
+    registered.  ``timeline=False`` keeps the span off the profiler's
+    timeline (a capture's own window, which would cover every scope)."""
+    if not _sinks and not force and not profiling():
         return _NULL
-    return Span(name, attrs, trace_id)
+    return Span(name, attrs, trace_id, timeline)
 
 
 def emit(name: str, t0: float, t1: float, trace_id: Optional[str] = None,

@@ -65,7 +65,6 @@ from ..mxu.scorer import class_eligible, class_rows_chunk, grid_class_topk
 from ..obs import spans as _spans
 from ..runtime import dispatch
 from ..utils.memory import LaunchBudgetError
-from ..utils.profiling import annotate
 from .cuda_solve import (_PAD_Q, ClassPack, hbm_budget_bytes, launch_class,
                          pack_bytes, pack_inputs, pick_q_tile)
 from .gridhash import GridHash, cell_coords_host
@@ -607,6 +606,18 @@ def _mxu_class(grid: GridHash, cfg: KnnConfig, cp: ClassPlan, out=None):
                            tgt=None if out is None else cp.tgt, out=out)
 
 
+def _class_span(cfg: KnnConfig, ci: int, cp: ClassPlan):
+    """The ``solve.adaptive.class`` span of class ``ci``'s rows: its
+    route, supercells, capacities and m, the blocked kernel's kept count
+    (0 for none, and on the streamed and 'mxu' routes).  The attributes
+    are computed only where the span is live."""
+    if not _spans.enabled():
+        return _spans.span("solve.adaptive.class")
+    m = class_blocked_m(cfg, cp.ccap) if cp.route == "kernel" else 0
+    return _spans.span("solve.adaptive.class", ci=ci, route=cp.route,
+                       n_sc=cp.n_sc, qcap=cp.qcap, ccap=cp.ccap, m=m)
+
+
 def class_rows(grid: GridHash, cfg: KnnConfig, classes):
     """Every class's rows as a row-major (Sc * qcap, k) block -- a kernel
     class's mode (b) output transposed, a streamed or 'mxu' class's rows
@@ -614,16 +625,17 @@ def class_rows(grid: GridHash, cfg: KnnConfig, classes):
     epilogue reads."""
     k = cfg.k
     blocks = []
-    for cp in classes:
-        if cp.route == "streamed":
-            blocks.append(_streamed_class(grid, cp, k, cfg.exclude_self))
-        elif cp.route == "mxu":
-            blocks.append(_mxu_class(grid, cfg, cp))
-        else:
-            raw = launch_kernel_class(cfg, cp.ccap, cp.pk, None, k,
-                                      cfg.exclude_self, None)
-            blocks.append(tuple(a.transpose(1, 2).reshape(-1, k)
-                                for a in raw))
+    for ci, cp in enumerate(classes):
+        with _class_span(cfg, ci, cp):
+            if cp.route == "streamed":
+                blocks.append(_streamed_class(grid, cp, k, cfg.exclude_self))
+            elif cp.route == "mxu":
+                blocks.append(_mxu_class(grid, cfg, cp))
+            else:
+                raw = launch_kernel_class(cfg, cp.ccap, cp.pk, None, k,
+                                          cfg.exclude_self, None)
+                blocks.append(tuple(a.transpose(1, 2).reshape(-1, k)
+                                    for a in raw))
     return (torch.cat([b[0] for b in blocks]),
             torch.cat([b[1] for b in blocks]))
 
@@ -648,14 +660,15 @@ def scatter_rows(grid: GridHash, cfg: KnnConfig, classes, n: int):
     buf_i = torch.full((n + 1, k), INVALID_ID, dtype=torch.int32,
                        device=grid.device)
     out = (buf_d[:n], buf_i[:n])
-    for cp in classes:
-        if cp.route == "streamed":
-            _streamed_class(grid, cp, k, cfg.exclude_self, (buf_d, buf_i))
-        elif cp.route == "mxu":
-            _mxu_class(grid, cfg, cp, (buf_d, buf_i))
-        else:
-            launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
-                                cfg.exclude_self, out)
+    for ci, cp in enumerate(classes):
+        with _class_span(cfg, ci, cp):
+            if cp.route == "streamed":
+                _streamed_class(grid, cp, k, cfg.exclude_self, (buf_d, buf_i))
+            elif cp.route == "mxu":
+                _mxu_class(grid, cfg, cp, (buf_d, buf_i))
+            else:
+                launch_kernel_class(cfg, cp.ccap, cp.pk, cp.tgt, k,
+                                    cfg.exclude_self, out)
     return out
 
 
@@ -674,25 +687,23 @@ def solve_adaptive(grid: GridHash, cfg: KnnConfig,
     if plan is None:
         plan = build_adaptive_plan(grid, cfg)
     k = cfg.k
-    # named profiler scope: the class launches show as one labelled region
-    # in torch.profiler traces; the span carries the phase into the
-    # kntpu-trace timeline
     with _spans.span("solve.adaptive.launch", n=plan.n_points,
-                     classes=len(plan.classes)), \
-            annotate("kntpu:adaptive-solve"):
+                     classes=len(plan.classes)):
         if cfg.resolved_epilogue() == "gather":
             out_d, out_i = _gather_classes(grid, cfg, plan)
         else:
             out_d, out_i = scatter_rows(grid, cfg, plan.classes,
                                         plan.n_points)
-    lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
-    hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
-    cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi, grid.domain)
-    ok = torch.isfinite(out_d)
-    return KnnResult(neighbors=torch.where(ok, out_i, INVALID_ID),
-                     dists_sq=torch.where(ok, out_d, float("inf")),
-                     certified=cert,
-                     uncert_count=(~cert).sum().to(torch.int32))
+    with _spans.span("solve.adaptive.certify"):
+        lo = torch.cat([cp.lo for cp in plan.classes])[plan.inv_box.long()]
+        hi = torch.cat([cp.hi for cp in plan.classes])[plan.inv_box.long()]
+        cert = out_d[:, k - 1] <= _margin_sq(grid.points, lo, hi,
+                                             grid.domain)
+        ok = torch.isfinite(out_d)
+        return KnnResult(neighbors=torch.where(ok, out_i, INVALID_ID),
+                         dists_sq=torch.where(ok, out_d, float("inf")),
+                         certified=cert,
+                         uncert_count=(~cert).sum().to(torch.int32))
 
 
 # -- external queries through the class schedule ------------------------------

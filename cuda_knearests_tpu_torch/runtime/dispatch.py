@@ -12,7 +12,8 @@ The counters also carry the bytes each direction moved (``d2h_bytes``,
 ``stage`` and ``ici`` call inside its window, the calling file and line
 (a :class:`SiteRecord`).  With spans on, each transfer is a
 ``dispatch.fetch`` / ``dispatch.stage`` child span of whatever span the
-caller holds open.  :func:`kernel_stats` reads the kernel counters:
+caller holds open, and a fetch's wait on the device its own
+``dispatch.fetch.wait`` child.  :func:`kernel_stats` reads the kernel counters:
 builds and library loads (``ops/_build``) and class-kernel launches
 (``ops/cuda_solve``); :func:`tuned_plan_stats` the tuned-plan store's.
 :class:`record_launches` collects one :class:`LaunchRecord` per call of a
@@ -289,8 +290,11 @@ def fetch(*tensors: torch.Tensor):
 
 def _read_back(tensors) -> list:
     host = [t.to("cpu", non_blocking=True) for t in tensors]
-    for device in {t.device for t in tensors if t.is_cuda}:
-        torch.cuda.current_stream(device).synchronize()  # kntpu-ok: host-sync-loop -- fetch's one wait per distinct device among its tensors: the call's single batched round trip
+    # the host's blocked time, apart from queueing the copies and the
+    # conversion to numpy
+    with _spans.span("dispatch.fetch.wait"):
+        for device in {t.device for t in tensors if t.is_cuda}:
+            torch.cuda.current_stream(device).synchronize()  # kntpu-ok: host-sync-loop -- fetch's one wait per distinct device among its tensors: the call's single batched round trip
     return [h.numpy() for h in host]
 
 

@@ -125,7 +125,7 @@ def test_cli_capture_on_the_cpu(xyz20k, capsys):
     assert rc == 0
     dec = got["device_time_decomposition"]
     assert dec["events"] > 0 and dec["unattributed"] == 0
-    assert "kntpu:adaptive-solve" in dec["by_scope"]
+    assert "kntpu:solve.adaptive.launch" in dec["by_scope"]
     assert got["hbm_model_ok"] is True
     assert got["moved_hbm_gb"] > 0 and "pct_hbm_roofline" in got
     assert "(assumed from platform)" in got["roofline_peak_source"]

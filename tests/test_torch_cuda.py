@@ -1738,7 +1738,7 @@ def test_gpu_cli_equals_cpu_cli_20k(cuda_device, tmp_path, capsys):
 @pytest.mark.cuda
 def test_gpu_capture_joins_every_class_kernel_by_correlation(cuda_device):
     """A captured 200k solve: every ``supercell_topk`` event attributed at
-    its launch (joined by correlation id) inside the adaptive-solve scope,
+    its launch (joined by correlation id) inside its class's scope,
     one a class, none unattributed; the memory verdict read from the
     allocator."""
     from cuda_knearests_tpu_torch.obs import device as dv
@@ -1752,7 +1752,7 @@ def test_gpu_capture_joins_every_class_kernel_by_correlation(cuda_device):
     topk = [a for a in rep.attributed if a.event.module == "supercell_topk"]
     assert len(topk) == len(prob.aplan.classes)
     assert all(a.joined == "correlation" for a in topk)
-    assert all(a.scope == "kntpu:adaptive-solve" for a in topk)
+    assert all(a.scope == "kntpu:solve.adaptive.class" for a in topk)
     assert rep.decomposition["modules"]["supercell_topk"]["label"] == \
         "csrc/supercell_topk.cu"
     assert rep.hbm["hbm_measured_source"] == "cuda_allocator"

@@ -412,7 +412,7 @@ def test_profile_window_round_trips_a_cpu_solve(pts20k):
     assert rep.attributed and not rep.unattributed
     dec = rep.decomposition
     assert dec["unattributed"] == 0 and dec["events"] == len(rep.attributed)
-    assert "kntpu:adaptive-solve" in dec["by_scope"]
+    assert "kntpu:solve.adaptive.launch" in dec["by_scope"]
     assert {"knn.solve", "solve.adaptive.launch"} & set(dec["by_span"])
     assert all(e.tid.startswith("cpu:") for e in rep.device_events
                if e.kind == "exec")
